@@ -1,0 +1,100 @@
+"""Build and load the port's CUDA kernels: nvcc -> shared library -> ctypes.
+
+``library()`` compiles every ``mpp_tpu_torch/csrc/*.cu`` with ``nvcc`` for
+``sm_90a`` into one shared library with a plain C interface, placed in
+``mpp_tpu_torch/_build/`` under a name that carries a hash of the sources
+(a changed source rebuilds), and loads it with ``ctypes``.  It runs at the
+first kernel launch on a CUDA tensor, never at import.  A missing ``nvcc``
+or a failed compile raises with the compiler's output; there is no
+fallback.
+"""
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+#: C signature of each launcher: device pointers and the stream as
+#: ``c_void_p``, sizes as ``c_int``; every launcher returns cudaError_t
+SIGNATURES = {
+    "mpp_thomas_f32": (_P,) * 6 + (_I, _I, _P),
+    "mpp_thomas_f64": (_P,) * 6 + (_I, _I, _P),
+    "mpp_spmv_f32": (_P,) * 5 + (_I, _I, _P),
+    "mpp_spmv_f64": (_P,) * 5 + (_I, _I, _P),
+    "mpp_spmv_bf16_f32": (_P,) * 5 + (_I, _I, _P),
+}
+
+_LIB = None
+#: seconds the last build took (0.0 when the library was already built)
+build_seconds = 0.0
+
+
+def _nvcc() -> str:
+    cand = [os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                         "bin", "nvcc"), shutil.which("nvcc")]
+    for c in cand:
+        if c and os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, "
+                       "/usr/local/cuda/bin and PATH); the CUDA kernels "
+                       "cannot be built")
+
+
+def sources():
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+
+
+def library_path() -> str:
+    h = hashlib.sha256()
+    for path in sources():
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"libmpp_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build() -> str:
+    """Compile the sources unless the hashed library exists; return its
+    path."""
+    global build_seconds
+    out = library_path()
+    if os.path.isfile(out):
+        build_seconds = 0.0
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)
+    build_seconds = time.perf_counter() - t0
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(build())
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB

@@ -30,3 +30,9 @@ REFERENCE_ROOT = "/root/reference"
 
 def reference_available() -> bool:
     return os.path.isdir(REFERENCE_ROOT)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (mpp_tpu_torch's CUDA kernels); "
+        "skips without one")
