@@ -18,12 +18,27 @@ line is printed):
   (e) the same in the f32 throughput mode (no f64 escalation, audit
       threshold 1e-3 kg);
   (f) a 64-column f64 ALM step on the card and on the CPU: equal attempts,
-      Newton iterations and per-column reasons, P within rtol 1e-9.
+      Newton iterations and per-column reasons, P within rtol 1e-9;
+  (g) the 2x2 block-Thomas kernel against its plain version at [8192, 64]
+      and [1024, 100], f64 (tolerance 1e-12) and f32 (2e-5), relative to
+      the output's max |x|, on block diagonally dominant random systems;
+  (h) the coupled TH step (Richards mass + enthalpy energy) in f64 at
+      ncol=8192 and 64 cells per column, dt=3600 s, per-column top
+      temperature 296.15-310.15 K: one warm step and 8 timed steps; every
+      column converges, outputs finite, the forcing reaches the state
+      (|T[0] - T[-1]| > 1e-3 K), per-column water-mass change per step
+      < 1e-6 kg;
+  (i) the same in f32 with rtol=2e-3, stol=1e-5: every column converges in
+      at most 10 Newton iterations per step, and after the timed steps the
+      state is within 0.05 K and 20 Pa of (h)'s;
+  (j) a 64-column f64 TH step on the card and on the CPU: equal Newton
+      iterations and reasons, X within rtol 1e-9.
 
-The launch counters are reset just before (d) and read just after (e):
-every kernel must have launched on that main path.  The line before the
-last is a JSON object with one entry per kernel; the last line is
-{"ok": true, "device": {...}}.
+The launch counters are reset just before (d) and read just after (e),
+and reset just before (h) and read just after (i): every kernel of each
+path must have launched on it.  The line before the last is the card's
+name and power limit, the one before it a JSON object with one entry per
+kernel; the last line is {"ok": true, "device": {...}}.
 """
 import json
 import os
@@ -37,11 +52,22 @@ NCOL, NZ = 16384, 30
 DT = 1800.0
 F64_AUDIT_KG = 1e-5
 F32_AUDIT_KG = 1e-3
-KERNEL_SOURCE = "mpp_tpu_torch/csrc/tridiag_kernels.cu"
+TH_NCOL, TH_NH = 8192, 64
+TH_DT = 3600.0
+TH_STEPS = 8
+TH_F32_TOLS = dict(rtol=2e-3, stol=1e-5)
+TH_MASS_KG = 1e-6
+SOURCES = {
+    "thomas": "mpp_tpu_torch/csrc/tridiag_kernels.cu",
+    "tridiag_spmv": "mpp_tpu_torch/csrc/tridiag_kernels.cu",
+    "tridiag_spmv_mixed": "mpp_tpu_torch/csrc/tridiag_kernels.cu",
+    "block_thomas2": "mpp_tpu_torch/csrc/block_thomas_kernels.cu",
+}
 REPLACES = {
     "thomas": "mpp_tpu/ops/pallas_kernels.py:204",
     "tridiag_spmv": "mpp_tpu/ops/pallas_kernels.py:67",
     "tridiag_spmv_mixed": "mpp_tpu/ops/pallas_kernels.py:105",
+    "block_thomas2": "mpp_tpu/ops/pallas_kernels.py:399",
 }
 
 
@@ -142,6 +168,115 @@ def kernel_checks(torch, hk, tridiag):
     for r in rows:
         print("kernel_check " + json.dumps(r))
     return results
+
+
+def block_systems(shape, seed):
+    """Block diagonally dominant random 2x2 block-tridiagonal systems
+    (numpy): L, D, U [ncol, n, 2, 2], b [ncol, n, 2]."""
+    rng = np.random.default_rng(seed)
+    ncol, n = shape
+    L = 0.2 * rng.standard_normal((ncol, n, 2, 2))
+    U = 0.2 * rng.standard_normal((ncol, n, 2, 2))
+    D = 0.2 * rng.standard_normal((ncol, n, 2, 2))
+    D[..., 0, 0] = 2.5 + rng.random((ncol, n))
+    D[..., 1, 1] = 2.5 + rng.random((ncol, n))
+    b = rng.standard_normal((ncol, n, 2))
+    return L, D, U, b
+
+
+def block_kernel_checks(torch, hk, block_thomas):
+    """Phase (g): block_thomas2 against its plain version on the card."""
+    dev = torch.device("cuda")
+    rows, result = [], None
+    for shape in ((TH_NCOL, TH_NH), (1024, 100)):
+        sys_np = block_systems(shape, 2)
+        # bytes of one solve: 14 values read (L, D, U, b), 2 written (x)
+        # and 4 of Cp scratch per level
+        ncol, n = shape
+        for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 2e-5)):
+            L, D, U, b = (torch.as_tensor(a, dtype=dtype, device=dev)
+                          for a in sys_np)
+            xk = hk.block_thomas2(L, D, U, b)
+            xp = block_thomas(L, D, U, b)
+            torch.cuda.synchronize()
+            scale = float(torch.max(torch.abs(xp)))
+            err = float(torch.max(torch.abs(xk - xp)))
+            name = f"block_thomas2 {shape} {dtype}"
+            check(bool(torch.isfinite(xk).all()), f"{name}: non-finite")
+            check(err <= tol * scale, f"{name}: max |kernel - plain| "
+                  f"{err:.3e} > {tol:g} * {scale:.3e}")
+            ms = time_cuda(torch, lambda: hk.block_thomas2(L, D, U, b), 50)
+            plain_ms = time_cuda(torch, lambda: block_thomas(L, D, U, b), 5)
+            nbytes = (14 + 2 + 4) * ncol * n * L.element_size()
+            row = dict(kernel="block_thomas2", shape=list(shape),
+                       dtype=str(dtype).replace("torch.", ""),
+                       max_abs_err=err, max_abs_x=scale, rel_tol=tol, ms=ms,
+                       plain_ms=plain_ms, bytes=nbytes,
+                       gb_per_s=nbytes / (ms * 1e-3) / 1e9)
+            rows.append(row)
+            if shape == (TH_NCOL, TH_NH) and dtype == torch.float64:
+                result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    for r in rows:
+        print("kernel_check " + json.dumps(r))
+    return result
+
+
+def th_inputs(torch, comp, X0_np, ncol, device, dtype):
+    """The th_batched cell's inputs: the staged state broadcast to ncol
+    columns, the staged BCs with the per-column top temperature
+    296.15-310.15 K, and the staged cross-data."""
+    X0 = torch.as_tensor(X0_np, dtype=dtype, device=device) \
+        .expand(ncol, -1).contiguous()
+    bc, ss = comp.gather_inputs(ncol, device, dtype)
+    bc[1][:, 0] = torch.linspace(296.15, 310.15, ncol, dtype=dtype,
+                                 device=device)
+    return X0, bc, ss, comp._serial_dyn(ncol, device, dtype)
+
+
+def th_step_once(torch, comp, X0_np, device, ncol):
+    """One f64 step of the TH cell: (X, iters, ok, reason)."""
+    X, bc, ss, dyn = th_inputs(torch, comp, X0_np, ncol, device,
+                               torch.float64)
+    return comp.step_batched(X, bc, ss, TH_DT, dyn=dyn)
+
+
+def run_th(torch, comp, X0_np, dtype, nsteps, device, ncol, **tols):
+    """One warm step and ``nsteps`` timed steps of the TH cell.  Returns
+    (X, ms per step, per-step summaries, set-up seconds, per-step max
+    per-column water-mass change [kg])."""
+    from mpp_tpu_torch.batched.vsfm_compiled import FMWH2O
+    t_setup = time.perf_counter()
+    X, bc, ss, dyn = th_inputs(torch, comp, X0_np, ncol, device, dtype)
+    states = [X]
+    X, _, ok, _ = comp.step_batched(X, bc, ss, TH_DT, dyn=dyn, **tols)
+    check(bool(ok.all()), f"TH warm step {dtype}: a column did not converge")
+    if device != "cpu":
+        torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t_setup
+    states.append(X)
+    steps = []
+    t0 = time.perf_counter()
+    for _ in range(nsteps):
+        syncs = comp.host_syncs
+        X, iters, ok, _ = comp.step_batched(X, bc, ss, TH_DT, dyn=dyn,
+                                            **tols)
+        steps.append(dict(newton_iters=iters, ok=ok,
+                          host_syncs=comp.host_syncs - syncs))
+        states.append(X)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / max(nsteps, 1) * 1e3
+    for s in steps:
+        check(bool(s.pop("ok").all()), f"TH {dtype}: a column did not "
+              "converge")
+    check(bool(torch.isfinite(X).all()), f"TH {dtype}: non-finite state")
+    check(tuple(X.shape) == (ncol, comp.n), f"TH {dtype}: state shape")
+    store = [comp.column_storage(Xs.double(), tuple(
+        {k: v.double() for k, v in d.items()} for d in dyn))
+        for Xs in states]
+    dm = [float(torch.max(torch.abs(b - a))) * FMWH2O
+          for a, b in zip(store[:-1], store[1:])]
+    return X, ms, steps, setup_s, dm
 
 
 def run_alm(torch, alm, dtype, nsteps, device, ncol=NCOL):
@@ -256,7 +391,73 @@ def main():
     print(f"card_vs_cpu ncol=64 f64: newton_iters {gpu['newton_iters']} "
           f"max rel P diff {rel:.3e}")
 
-    kernels = [dict(name=name, route="cuda", source=KERNEL_SOURCE,
+    # (g) the block-Thomas kernel against its plain version
+    from mpp_tpu_torch.ops.block_thomas import block_thomas
+    results["block_thomas2"] = block_kernel_checks(torch, hk, block_thomas)
+
+    # (h) + (i): the TH path, counted
+    from mpp_tpu_torch.problems import th
+    from mpp_tpu_torch.batched.th_compiled import compile_th
+    t0 = time.perf_counter()
+    mpp, _ = th.run_mass_and_heat(nx=TH_NH)
+    comp = compile_th(mpp, linear_solver="direct")
+    X0_np = mpp.soe.soln
+    problem_s = time.perf_counter() - t0
+    th_launches = {}
+    hk.reset_launches()
+    X64, ms64, steps64, setup64, dm64 = run_th(
+        torch, comp, X0_np, torch.float64, TH_STEPS, "cuda", TH_NCOL)
+    th_launches["f64"] = dict(hk.LAUNCHES)
+    X32, ms32, steps32, setup32, dm32 = run_th(
+        torch, comp, X0_np, torch.float32, TH_STEPS, "cuda", TH_NCOL,
+        **TH_F32_TOLS)
+    th_launches["total"] = dict(hk.LAUNCHES)
+    check(th_launches["f64"]["block_thomas2"] > 0,
+          f"f64 TH path did not launch block_thomas2: {th_launches}")
+    check(th_launches["total"]["block_thomas2"]
+          > th_launches["f64"]["block_thomas2"],
+          f"f32 TH path did not launch block_thomas2: {th_launches}")
+    nh = comp.nh
+    hetero = float(torch.max(torch.abs(X64[0, nh:] - X64[-1, nh:])))
+    check(hetero > 1e-3, f"TH: per-column forcing not live ({hetero:.3e} K)")
+    check(max(dm64) < TH_MASS_KG, f"TH f64: water-mass change "
+          f"{max(dm64):.3e} kg per step >= {TH_MASS_KG:g}")
+    iters32 = [s["newton_iters"] for s in steps32]
+    check(max(iters32) <= 10, f"TH f32: Newton iterations {iters32} > 10")
+    dX = (X32.double() - X64).abs()
+    dP, dT = float(dX[:, :nh].max()), float(dX[:, nh:].max())
+    check(dT < 0.05 and dP < 20.0,
+          f"TH f32 vs f64: max |dT| {dT:.3e} K, max |dP| {dP:.3e} Pa")
+    for tag, ms, steps, setup_s, dm in (
+            ("f64_default", ms64, steps64, setup64, dm64),
+            ("f32", ms32, steps32, setup32, dm32)):
+        iters = [s["newton_iters"] for s in steps]
+        syncs = [s["host_syncs"] for s in steps]
+        print("th " + json.dumps(dict(
+            mode=tag, ncol=TH_NCOL, cells_per_col=nh, dofs_per_col=comp.n,
+            dt=TH_DT, problem_build_s=problem_s, setup_s=setup_s,
+            ms_per_step=ms, newton_iters_per_step=iters,
+            host_syncs_per_step=syncs, max_mass_change_kg_per_step=max(dm),
+            **(TH_F32_TOLS if tag == "f32" else {}),
+            **(dict(max_abs_dT_vs_f64_K=dT, max_abs_dP_vs_f64_Pa=dP)
+               if tag == "f32" else {}))))
+    print("launches_on_th_path " + json.dumps(th_launches))
+
+    # (j) card against CPU on a small f64 TH problem
+    Xg, it_g, ok_g, r_g = th_step_once(torch, comp, X0_np, "cuda", 64)
+    Xc, it_c, ok_c, r_c = th_step_once(torch, comp, X0_np, "cpu", 64)
+    check(bool(ok_g.all()) and bool(ok_c.all()),
+          "TH 64-column step did not converge")
+    check(it_g == it_c, f"TH card/CPU iteration counts differ: {it_g} vs "
+          f"{it_c}")
+    check(bool((r_g.cpu() == r_c).all()), "TH card/CPU reasons differ")
+    rel = float(torch.max(torch.abs(Xg.cpu() - Xc) / torch.abs(Xc)))
+    check(rel <= 1e-9, f"TH card/CPU X differ: max rel {rel:.3e} > 1e-9")
+    print(f"th_card_vs_cpu ncol=64 f64: newton_iters {it_g} max rel X diff "
+          f"{rel:.3e}")
+
+    launches["block_thomas2"] = th_launches["total"]["block_thomas2"]
+    kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name],
                     **results[name]) for name in REPLACES]
     print(json.dumps({"kernels": kernels}))

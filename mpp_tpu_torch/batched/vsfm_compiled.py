@@ -10,10 +10,13 @@ over ``ncol`` independent copies of the problem (one row of the
   functions written as tensor code;
 * coupled-GE auxvar exchange as a gather of the partner GE's unknowns into
   the coupled-BC value slots;
-* the tridiagonal plan only: the Jacobian is assembled straight into its
-  three bands with ``index_add_``, the Newton direction comes from the
-  Thomas kernel and the line search's initial slope from the stencil-SpMV
-  kernel (``ops/hopper_kernels.py``);
+* a solver plan supplies three hooks: ``_jac`` (the Jacobian in the plan's
+  form), ``_solve`` (the Newton direction) and ``_matvec`` (J Y, the line
+  search's initial slope).  This module has the tridiagonal plan: the
+  Jacobian assembled straight into its three bands with ``index_add_``,
+  the Thomas kernel and the stencil-SpMV kernel
+  (``ops/hopper_kernels.py``); ``batched/th_compiled.py`` has the 2x2
+  block-tridiagonal one;
 * PETSc SNES NEWTONLS + SNESLineSearchBT (cubic) + SNESConvergedDefault,
   batched with per-column masks, straggler compaction, and the
   SOEBaseStepDT_SNES dt-cut ladder with per-column ladders
@@ -24,9 +27,9 @@ control flow here: each one reads a device value on the host.  Every such
 read goes through :meth:`CompiledVSFM._sync`, which counts it in
 ``host_syncs``.
 
-Not ported yet (raise ``NotImplementedError``; ROADMAP Queue 1, Slice D
-and Queue 2): block-Thomas, dense LU and the ILU(0)+GMRES "petsc" plan for
-non-tridiagonal problems, and ``linesearch_jac="fused"``.
+Not ported yet (raise ``NotImplementedError``; ROADMAP Slice D and Queue
+2): block-Thomas, dense LU and the ILU(0)+GMRES "petsc" plan for
+non-tridiagonal VSFM problems, and ``linesearch_jac="fused"``.
 """
 from __future__ import annotations
 
@@ -56,6 +59,13 @@ def _take(tree, idx):
 
 def _colnorm(A):
     return torch.sqrt(torch.sum(A * A, dim=-1))
+
+
+def _rows(v, ncol, device, dtype):
+    """A staged per-connection array as ``[ncol, len(v)]`` (each column a
+    copy)."""
+    return torch.as_tensor(np.asarray(v), dtype=dtype, device=device) \
+        .expand(ncol, -1).contiguous()
 
 
 class CompiledVSFM:
@@ -143,11 +153,13 @@ class CompiledVSFM:
         self._tri_idx = [np.nonzero(band == b)[0] for b in (0, 1, 2)]
         self._tri_rows = [coo_r[i] for i in self._tri_idx]
 
-    def _const(self, key, ref, build):
-        k = (key, str(ref.device))
+    def _const(self, key, ref, build, dtype=torch.long):
+        """``build()`` (numpy) as a ``dtype`` tensor on ``ref``'s device,
+        converted once."""
+        k = (key, str(ref.device), dtype)
         v = self._tc.get(k)
         if v is None:
-            v = torch.as_tensor(np.asarray(build()), dtype=torch.long,
+            v = torch.as_tensor(np.asarray(build()), dtype=dtype,
                                 device=ref.device)
             self._tc[k] = v
         return v
@@ -157,6 +169,7 @@ class CompiledVSFM:
         self.host_syncs += 1
         return value.item()
 
+    # ---- the plan's hooks: _jac, _solve, _matvec -----------------------------
     def _solve(self, bands, F):
         """Newton direction Y with J Y = F (exact): the Thomas kernel."""
         dl, d, du = bands
@@ -210,7 +223,9 @@ class CompiledVSFM:
                        .index_add_(1, rt, v[:, it]))
         return tuple(out)
 
-    def _jac_tridiag(self, X, bc_values, ss_values, dt, dyn):
+    def _jac(self, X, bc_values, ss_values, dt, dyn):
+        """The Jacobian as the plan's solver takes it: here the (dl, d, du)
+        bands."""
         vals = []
         for k, g, a, b in self._ges():
             vals.append(g.jacobian_values(
@@ -340,7 +355,7 @@ class CompiledVSFM:
                 X, F, fnorm, it, done, reason = state
                 # the Jacobian at the iteration's start point
                 # (SOEBaseStepDT_SNES -> SNESSolve)
-                A = self._jac_tridiag(X, bc, ss, dtl, dyn)
+                A = self._jac(X, bc, ss, dtl, dyn)
                 Y = self._solve(A, F)
                 # BT initslope from the true Jacobian action
                 W = self._matvec(A, Y)
@@ -534,6 +549,48 @@ class CompiledVSFM:
                 float(0.0 if mass_tol_kg is None else mass_tol_kg))
         return self._step_dt_batched(X, tuple(bc_values), tuple(ss_values),
                                      dt, src, dyn, tols)
+
+    def gather_inputs(self, ncol=1, device="cpu", dtype=torch.float64):
+        """The staged BC/SS condition values of every GE as ``[ncol, nbc]``
+        / ``[ncol, nss]`` tensors (each column a copy)."""
+        return (tuple(_rows(g.bc_value, ncol, device, dtype)
+                      for g in self.goveqns),
+                tuple(_rows(g.ss_value, ncol, device, dtype)
+                      for g in self.goveqns))
+
+    def install(self):
+        """Route the SoE's ``step_dt`` through this stepper, so the facade
+        problem drivers run on it unchanged."""
+        self.mpp.soe.step_dt = self.step_dt
+        return self
+
+    def _step_dt_serial(self, dt, istep, dyn):
+        """One ``dt`` of the SoE's own solution as a single f64 CPU column;
+        updates the SoE state on convergence.  Returns (converged,
+        reason)."""
+        soe = self.mpp.soe
+        bc, ss = self.gather_inputs(1)
+        X = torch.as_tensor(np.asarray(soe.soln, np.float64))[None, :]
+        Xn, iters, ok, reason = self.step_batched(X, bc, ss, dt, dyn=dyn)
+        converged = bool(ok[0])
+        if converged:
+            soe.cumulative_newton_iterations += int(iters)
+            soe.soln = Xn[0].numpy().copy()
+            soe.soln_prev = soe.soln
+        if soe.metrics is not None:
+            soe.metrics.record(step=istep, dt=dt, converged=converged,
+                               reason=int(reason[0]),
+                               newton_iterations=int(iters))
+        return converged, int(reason[0])
+
+    def step_dt(self, dt, istep=1):
+        """Drop-in for ``soe.step_dt``: the batched path at ncol=1."""
+        converged, reason = self._step_dt_serial(dt, istep, None)
+        if converged:
+            soln = self.mpp.soe.soln
+            for g, off in zip(self.goveqns, self.offsets[:-1]):
+                g.pressure = soln[off:off + g.mesh.ncells_local]
+        return converged, reason
 
 
 def compile_vsfm(mpp, **kw) -> CompiledVSFM:

@@ -990,6 +990,8 @@ class VSFMSoE:
         self.soln_prev_clm = None
         self.template: Optional[CSRTemplate] = None
         self.snes_stol = 1e-10
+        self.cumulative_newton_iterations = 0
+        self.metrics = None
 
     @property
     def n_total(self):

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels: nvcc -> shared library -> ctypes.
 
 ``library()`` compiles every ``mpp_tpu_torch/csrc/*.cu`` with ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface, placed in
+``sm_90a`` (one ``nvcc`` process per source, all started together), links
+the objects into one shared library with a plain C interface, placed in
 ``mpp_tpu_torch/_build/`` under a name that carries a hash of the sources
 (a changed source rebuilds), and loads it with ``ctypes``.  It runs at the
 first kernel launch on a CUDA tensor, never at import.  A missing ``nvcc``
@@ -22,7 +23,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -34,6 +35,8 @@ SIGNATURES = {
     "mpp_spmv_f32": (_P,) * 5 + (_I, _I, _P),
     "mpp_spmv_f64": (_P,) * 5 + (_I, _I, _P),
     "mpp_spmv_bf16_f32": (_P,) * 5 + (_I, _I, _P),
+    "mpp_block_thomas2_f32": (_P,) * 6 + (_I, _I, _P),
+    "mpp_block_thomas2_f64": (_P,) * 6 + (_I, _I, _P),
 }
 
 _LIB = None
@@ -75,14 +78,27 @@ def build() -> str:
         build_seconds = 0.0
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()]
+    nvcc = _nvcc()
+    tag = f"{out}.{os.getpid()}"
+    objs = [f"{tag}.{os.path.basename(src)}.o" for src in sources()]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in ([nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
+                         for src, obj in zip(sources(), objs))]
+    results = [(cmd, p, *p.communicate()) for cmd, p in procs]
+    link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", f"{tag}.tmp", *objs]
+    for cmd, p, so, se in results:
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): "
+                               f"{' '.join(cmd)}\n{so}\n{se}")
+    proc = subprocess.run(link, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): "
-                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}): "
+                           f"{' '.join(link)}\n{proc.stdout}\n{proc.stderr}")
+    for obj in objs:
+        os.remove(obj)
+    os.replace(f"{tag}.tmp", out)
     build_seconds = time.perf_counter() - t0
     return out
 

@@ -148,3 +148,45 @@ def test_porosity_constant_and_linear():
         for g, r in zip(tpor.porosity(tp, torch.as_tensor(P)),
                         jpor.porosity(jp, jnp.asarray(P))):
             _close(g, r)
+
+
+def _p_t_grid():
+    """P 5e4-2e5 Pa (across the PRESSURE_REF clamp) by T 273.15-320 K."""
+    p = np.concatenate([np.linspace(5e4, 2e5, 13), [PRESSURE_REF,
+                                                    PRESSURE_REF + 1e-6]])
+    t = np.linspace(273.15, 320.0, 7)
+    return np.meshgrid(p, t, indexing="ij")
+
+
+def test_enthalpy_ifc67():
+    P, T = _p_t_grid()
+    ref = jeos.enthalpy_ifc67(jnp.asarray(T - 273.15), jnp.asarray(P))
+    got = teos.enthalpy_ifc67(torch.as_tensor(T - 273.15),
+                              torch.as_tensor(P))
+    for g, r in zip(got, ref):
+        _close(g, r)
+    # the numpy twin of the MMS sources is the same numpy code: bitwise
+    np.testing.assert_array_equal(teos.enthalpy_ifc67_np(T - 273.15, P),
+                                  jeos.enthalpy_ifc67_np(T - 273.15, P))
+
+
+@pytest.mark.parametrize("itype", [jeos.INT_ENERGY_ENTHALPY_CONSTANT,
+                                   jeos.INT_ENERGY_ENTHALPY_IFC67])
+@pytest.mark.parametrize("density_type", [jeos.DENSITY_CONSTANT,
+                                          jeos.DENSITY_IFC67])
+def test_internal_energy_and_enthalpy(itype, density_type):
+    """With the density (and derivatives, in kg/m^3) of the chosen model,
+    as the enthalpy GE's auxvar chain calls it."""
+    P, T = _p_t_grid()
+    dj = [np.asarray(v) * 18.01534 for v in
+          jeos.density(jnp.asarray(P), jnp.asarray(T), density_type)]
+    ref = jeos.internal_energy_and_enthalpy(
+        jnp.asarray(P), jnp.asarray(T), itype, jnp.asarray(dj[0]),
+        jnp.asarray(dj[2]), jnp.asarray(dj[1]))
+    got = teos.internal_energy_and_enthalpy(
+        torch.as_tensor(P), torch.as_tensor(T), itype,
+        torch.as_tensor(dj[0]), torch.as_tensor(dj[2]),
+        torch.as_tensor(dj[1]))
+    assert len(got) == len(ref) == 6
+    for g, r in zip(got, ref):
+        _close(g, r)

@@ -39,8 +39,7 @@ def _fresh_counters():
     hk.reset_launches()
     yield
     # CPU tensors never launch a kernel
-    assert hk.LAUNCHES == {"thomas": 0, "tridiag_spmv": 0,
-                           "tridiag_spmv_mixed": 0}
+    assert all(v == 0 for v in hk.LAUNCHES.values()), hk.LAUNCHES
 
 
 @pytest.mark.parametrize("shape", SHAPES)

@@ -1,6 +1,7 @@
 """The PyTorch port never imports jax: a fresh interpreter imports every
-module of mpp_tpu_torch, runs one ALM step on the CPU, and finds no jax in
-sys.modules; no source file of the package names jax in an import."""
+module of mpp_tpu_torch, runs one ALM step and one TH step on the CPU, and
+finds no jax in sys.modules; no source file of the package names jax in an
+import."""
 import os
 import pathlib
 import re
@@ -26,6 +27,10 @@ prob = alm.alm_vsfm_initialize(
     area=np.ones(ncol), include_seepage_bc=True)
 out = alm.alm_vsfm_solve(prob, 1800.0, qflx_infl=np.full(ncol, 2e-4))
 assert out["abs_mass_error_col"] < alm.MAX_ABS_MASS_ERROR_COL
+import mpp_tpu_torch.batched.th_compiled, mpp_tpu_torch.problems.th
+from mpp_tpu_torch.problems import th
+mpp, soln = th.run_mass_and_heat(nx=6)
+assert mpp.soe.cumulative_newton_iterations > 0 and np.isfinite(soln).all()
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
 print("JAX_MODULES", bad)
 """

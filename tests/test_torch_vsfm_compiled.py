@@ -125,3 +125,30 @@ def test_unported_plans_raise():
         tvc.compile_vsfm(mpp, linesearch_jac="fused")
     with pytest.raises(ValueError):
         tvc.compile_vsfm(mpp, linesearch_jac="other")
+
+
+def test_serial_drop_in_matches_jax():
+    """install() routes soe.step_dt through the batched stepper at ncol=1
+    (gather_inputs of the staged BCs); two steps against the JAX
+    package's compiled step_dt."""
+    from mpp_tpu.constants import AuxVarKind, Var
+    nz = 16
+    mpp_j, comp_j = graft._build_compiled_celia(nz)
+    mpp_t, comp_t = entry.build_compiled_celia(nz)
+    assert comp_t.install() is comp_t
+    for mpp in (mpp_j, mpp_t):
+        mpp.set_data(AuxVarKind.BC, Var.BC_SS_CONDITION, 1, [9.3991e4])
+        mpp.set_data(AuxVarKind.BC, Var.BC_SS_CONDITION, 2, [3.5355e3])
+    bc, ss = comp_t.gather_inputs(3)
+    assert bc[0].shape == (3, 2) and ss[0].shape == (3, 0)
+    np.testing.assert_array_equal(bc[0][2].numpy(), [9.3991e4, 3.5355e3])
+    for istep in (1, 2):
+        ok_j, r_j = comp_j.step_dt(3600.0, istep)
+        ok_t, r_t = mpp_t.soe.step_dt(3600.0, istep)
+        assert ok_j and ok_t and r_j == r_t
+        np.testing.assert_allclose(mpp_t.soe.soln,
+                                   np.asarray(mpp_j.soe.soln), rtol=1e-9)
+    assert mpp_t.soe.cumulative_newton_iterations == \
+        mpp_j.soe.cumulative_newton_iterations
+    g = mpp_t.soe.goveqns[0]
+    np.testing.assert_array_equal(g.pressure, mpp_t.soe.soln)
