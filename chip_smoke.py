@@ -10,7 +10,8 @@ line is printed):
   (b) build the hand-written kernels (nvcc -> mpp_tpu_torch/_build/);
   (c) hold each kernel against its plain PyTorch version on the card at
       [16384, 30] and [16384, 64] (Thomas f64/f32, SpMV f64/f32, mixed
-      bf16/f32 SpMV) and time both with CUDA events;
+      bf16/f32 SpMV) and time both with CUDA events, the SpMV also as one
+      torch.sparse.mm of a block-diagonal CSR (the library yardstick);
   (d) the ALM f64 default step at ncol=16384, nz=30 with heterogeneous
       CLM soils, seepage BC, infiltration + ET forcing (numpy seed 0): one
       warm step and 4 timed steps; every column converges, max audit error
@@ -32,17 +33,34 @@ line is printed):
       at most 10 Newton iterations per step, and after the timed steps the
       state is within 0.05 K and 20 Pa of (h)'s;
   (j) a 64-column f64 TH step on the card and on the CPU: equal Newton
-      iterations and reasons, X within rtol 1e-9.
+      iterations and reasons, X within rtol 1e-9;
+  (k) the matrix-resident chain y = (scale T)^30 x (scale = 1/||T||_inf)
+      and 30 weighted-Jacobi sweeps (omega = 2/3) through the public ops,
+      f64 and f32 at [16384, 30] and [16384, 64] and f32 at [131072, 256],
+      each held against its plain version on the same inputs (max |kernel
+      - plain| <= 1e-12 (f64) / 1e-5 (f32) of max |plain|) and timed; and
+      200 sweeps at omega = 0.9 against the Thomas kernel's solution at
+      [16384, 64] f64, to 1e-8;
+  (l) the SpMV harness (python -m mpp_tpu_torch.tools.exp_spmv) at its
+      full size, [131072, 256] f32 with 100 chained applications: every
+      variant checked against its plain form and timed, one "exp_spmv"
+      JSON line; and a block-diagonal CSR of the same T through
+      torch.sparse.mm (cuSPARSE) as the library yardstick.
 
 The launch counters are reset just before (d) and read just after (e),
-and reset just before (h) and read just after (i): every kernel of each
-path must have launched on it.  The line before the last is the card's
-name and power limit, the one before it a JSON object with one entry per
-kernel; the last line is {"ok": true, "device": {...}}.
+reset just before (h) and read just after (i), reset just before (k)'s
+calls of the ops and read just after them, and reset just before (l)'s
+harness run and read just after it: every kernel of each path must have
+launched on it.  The line before the last is the card's name and power
+limit, the one before it a JSON object with one entry per kernel (its
+launches on its path, error against its plain version, kernel and plain
+times, the least time the card could take for the same work and the time
+of one library call computing the same function, where there is one);
+the last line is {"ok": true, "device": {...}}.
 """
 import json
 import os
-import subprocess
+import re
 import sys
 import time
 
@@ -57,18 +75,51 @@ TH_DT = 3600.0
 TH_STEPS = 8
 TH_F32_TOLS = dict(rtol=2e-3, stol=1e-5)
 TH_MASS_KG = 1e-6
-SOURCES = {
-    "thomas": "mpp_tpu_torch/csrc/tridiag_kernels.cu",
-    "tridiag_spmv": "mpp_tpu_torch/csrc/tridiag_kernels.cu",
-    "tridiag_spmv_mixed": "mpp_tpu_torch/csrc/tridiag_kernels.cu",
-    "block_thomas2": "mpp_tpu_torch/csrc/block_thomas_kernels.cu",
+CHAIN_K = 30
+JACOBI_CHECK = dict(iters=200, omega=0.9, shape=(16384, 64), tol=1e-8)
+HARNESS_SHAPE = (131072, 256)
+# the H100 SXM's published peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s,
+# and operations/s outside the tensor cores
+HBM_BYTES_S = 3.35e12
+PEAK_OPS_S = {"float64": 34e12, "float32": 67e12}
+_TRIDIAG = "mpp_tpu_torch/csrc/tridiag_kernels.cu"
+_FAMILY = "mpp_tpu_torch/csrc/spmv_family_kernels.cu"
+# name in the kernels line: (source, file:line of the TPU kernel's
+# pl.pallas_call), in the order of PERF.md's table
+KERNELS = {
+    "thomas": (_TRIDIAG, "mpp_tpu/ops/pallas_kernels.py:204"),
+    "tridiag_spmv_mixed": (_TRIDIAG, "mpp_tpu/ops/pallas_kernels.py:105"),
+    "tridiag_spmv": (_TRIDIAG, "mpp_tpu/ops/pallas_kernels.py:67"),
+    "block_thomas2": ("mpp_tpu_torch/csrc/block_thomas_kernels.cu",
+                      "mpp_tpu/ops/pallas_kernels.py:399"),
+    "tridiag_spmv_chain": (_FAMILY, "mpp_tpu/ops/pallas_kernels.py:241"),
+    "tridiag_jacobi_smooth": (_FAMILY, "mpp_tpu/ops/pallas_kernels.py:280"),
+    "spmv_variant": (_FAMILY, "tools/exp_spmv.py:92"),
+    "spmv_bf16_variant": (_TRIDIAG, "tools/exp_spmv.py:118"),
+    "spmv_variant_cp": (_FAMILY, "tools/exp_spmv.py:143"),
+    "spmv_packed": (_FAMILY, "tools/exp_spmv.py:174"),
+    "stream_ceiling": (_FAMILY, "tools/exp_spmv.py:205"),
 }
-REPLACES = {
-    "thomas": "mpp_tpu/ops/pallas_kernels.py:204",
-    "tridiag_spmv": "mpp_tpu/ops/pallas_kernels.py:67",
-    "tridiag_spmv_mixed": "mpp_tpu/ops/pallas_kernels.py:105",
-    "block_thomas2": "mpp_tpu/ops/pallas_kernels.py:399",
+# harness variants behind each harness row of the kernels line; the first
+# is the row's representative (its times and error)
+HARNESS_ROWS = {
+    "spmv_variant": ("pallas_b1024", "pallas_b512", "pallas_b2048",
+                     "pallas_b4096", "pallas_roll_b1024", "pallas_b128",
+                     "pallas_b256"),
+    "spmv_bf16_variant": ("pallas_bf16diag_b1024",),
+    "spmv_variant_cp": ("pallas_b256_arb", "pallas_b512_par"),
+    "spmv_packed": ("pallas_packed_b1024", "pallas_packed_b512"),
+    "stream_ceiling": ("ceiling_elementwise",),
 }
+# bytes a level moves (inputs read once, outputs written once, in elements
+# of the working type unless stated) and operations a level
+STREAMS = {"thomas": 5, "tridiag_spmv": 5, "block_thomas2": 16,
+           "tridiag_spmv_chain": 5, "tridiag_jacobi_smooth": 6}
+OPS = {"thomas": 8, "tridiag_spmv": 5, "tridiag_spmv_mixed": 5,
+       "block_thomas2": 59, "tridiag_spmv_chain": 6 * CHAIN_K,
+       "tridiag_jacobi_smooth": 9 * CHAIN_K, "spmv_variant": 5,
+       "spmv_bf16_variant": 5, "spmv_variant_cp": 5, "spmv_packed": 5,
+       "stream_ceiling": 6}
 
 
 def fail(msg):
@@ -99,6 +150,60 @@ def alm_inputs(ncol, nz, seed=0):
     forcing = dict(qflx_infl=2e-4 * (0.2 + rng.random(ncol)),
                    qflx_tran_veg=1e-4 * rng.random(ncol), rootr=rootr)
     return soils, forcing
+
+
+def bound(nbytes, ops, dtype):
+    """The least time [ms] the card could take: the larger of ``nbytes``
+    over the HBM rate and ``ops`` over the peak rate of ``dtype``
+    ("float64" or "float32"); returns (ms, "bytes" or "operations")."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = ops / PEAK_OPS_S[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bound_fields(name, shape, dtype, nbytes=None):
+    """bound_ms and bound_by of kernel ``name`` at ``shape`` ([ncol, levels])
+    in ``dtype``; ``nbytes`` overrides the STREAMS count."""
+    cells = shape[0] * shape[1]
+    if nbytes is None:
+        nbytes = STREAMS[name] * cells * (8 if dtype == "float64" else 4)
+    ms, by = bound(nbytes, OPS[name] * cells, dtype)
+    return dict(bytes=nbytes, bound_ms=ms, bound_by=by)
+
+
+def block_diag_csr(torch, dl, d, du):
+    """The batched tridiagonal T as one block-diagonal CSR matrix
+    [ncol*nz, ncol*nz] with int32 indices, built on the card (the library
+    yardstick's operand; the port never uses it)."""
+    ncol, nz = d.shape
+    n = ncol * nz
+    dev = d.device
+    k = torch.arange(nz, device=dev).expand(ncol, nz)
+    r = torch.arange(n, device=dev).view(ncol, nz)
+    keep = torch.stack([k > 0, torch.ones_like(k, dtype=torch.bool),
+                        k < nz - 1], -1)
+    cols = torch.stack([r - 1, r, r + 1], -1)[keep].to(torch.int32)
+    vals = torch.stack([dl, d, du], -1)[keep]
+    crow = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    crow[1:] = torch.cumsum(keep.reshape(n, 3).sum(-1), 0)
+    return torch.sparse_csr_tensor(crow.to(torch.int32), cols, vals,
+                                   (n, n))
+
+
+def library_spmv(torch, dl, d, du, x, ref, rtol):
+    """Time one torch.sparse.mm of the block-diagonal CSR with x (CUDA
+    events, the CSR built outside the timed region), after checking it
+    against ``ref`` to ``rtol`` of max |ref|; returns ms."""
+    csr = block_diag_csr(torch, dl, d, du)
+    xv = x.reshape(-1, 1)
+    y = torch.sparse.mm(csr, xv).reshape(x.shape)
+    scale = float(ref.abs().max())
+    err = float((y - ref).abs().max())
+    check(err <= rtol * scale, f"library SpMV {tuple(x.shape)} off the "
+          f"plain form: {err:.3e} > {rtol:g} * {scale:.3e}")
+    ms = time_cuda(torch, lambda: torch.sparse.mm(csr, xv), 20)
+    del csr
+    return ms
 
 
 def time_cuda(torch, fn, reps):
@@ -155,16 +260,24 @@ def kernel_checks(torch, hk, tridiag):
                 ms = time_cuda(torch, kern, 50)
                 plain_ms = time_cuda(torch, plain, 5)
                 dt_name = str(dtype).replace("torch.", "")
+                nbytes = 14 * NCOL * nz if name == "tridiag_spmv_mixed" \
+                    else None
+                library_ms = None
+                if name == "tridiag_spmv":
+                    library_ms = library_spmv(torch, dl, d, du, x, yp,
+                                              10 * tol)
+                row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                           library_ms=library_ms,
+                           **bound_fields(name, shape, dt_name, nbytes))
                 rows.append(dict(kernel=name, shape=list(shape),
-                                 dtype=dt_name, max_abs_err=err,
-                                 rel_tol=tol, ms=ms, plain_ms=plain_ms))
+                                 dtype=dt_name, rel_tol=tol, **row))
                 # the JSON line reports each kernel at the main path's
                 # shape and precision (nz=30; f64, or f32 for the mixed)
                 main = nz == NZ and (dtype == torch.float64
                                      or name == "tridiag_spmv_mixed")
                 if main:
-                    results[name] = dict(max_abs_err=err, ms=ms,
-                                         plain_ms=plain_ms)
+                    results[name] = dict(shape=list(shape), dtype=dt_name,
+                                         **row)
     for r in rows:
         print("kernel_check " + json.dumps(r))
     return results
@@ -190,8 +303,6 @@ def block_kernel_checks(torch, hk, block_thomas):
     rows, result = [], None
     for shape in ((TH_NCOL, TH_NH), (1024, 100)):
         sys_np = block_systems(shape, 2)
-        # bytes of one solve: 14 values read (L, D, U, b), 2 written (x)
-        # and 4 of Cp scratch per level
         ncol, n = shape
         for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 2e-5)):
             L, D, U, b = (torch.as_tensor(a, dtype=dtype, device=dev)
@@ -207,18 +318,173 @@ def block_kernel_checks(torch, hk, block_thomas):
                   f"{err:.3e} > {tol:g} * {scale:.3e}")
             ms = time_cuda(torch, lambda: hk.block_thomas2(L, D, U, b), 50)
             plain_ms = time_cuda(torch, lambda: block_thomas(L, D, U, b), 5)
-            nbytes = (14 + 2 + 4) * ncol * n * L.element_size()
+            # 14 values read (L, D, U, b) and 2 written (x) per level
+            dt_name = str(dtype).replace("torch.", "")
+            fields = bound_fields("block_thomas2", shape, dt_name)
             row = dict(kernel="block_thomas2", shape=list(shape),
-                       dtype=str(dtype).replace("torch.", ""),
-                       max_abs_err=err, max_abs_x=scale, rel_tol=tol, ms=ms,
-                       plain_ms=plain_ms, bytes=nbytes,
-                       gb_per_s=nbytes / (ms * 1e-3) / 1e9)
+                       dtype=dt_name, max_abs_err=err, max_abs_x=scale,
+                       rel_tol=tol, ms=ms, plain_ms=plain_ms,
+                       gb_per_s=fields["bytes"] / (ms * 1e-3) / 1e9, **fields)
             rows.append(row)
             if shape == (TH_NCOL, TH_NH) and dtype == torch.float64:
-                result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+                result = dict(shape=list(shape), dtype=dt_name,
+                              max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                              library_ms=None, **fields)
     for r in rows:
         print("kernel_check " + json.dumps(r))
     return result
+
+
+def resident_systems(torch, shape, dtype, seed):
+    """Diagonally dominant random bands, x and b on the card (numpy seed),
+    and scale = 1/||T||_inf."""
+    rng = np.random.default_rng(seed)
+    dl = rng.random(shape) - 0.5
+    du = rng.random(shape) - 0.5
+    d = 2.5 + rng.random(shape)
+    dl[:, 0] = 0.0
+    du[:, -1] = 0.0
+    scale = 1.0 / float(np.max(np.abs(dl) + np.abs(d) + np.abs(du)))
+    x = rng.standard_normal(shape)
+    b = rng.standard_normal(shape)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device="cuda")
+    return (t(dl), t(d), t(du), t(x), t(b)), scale
+
+
+def resident_checks(torch, hk, tridiag):
+    """Phase (k): the chain and the smoother through the public ops at
+    every shape (the counted path), then each against its plain version and
+    timed; then the smoother's convergence to the Thomas solution."""
+    cases = [(torch.float64, (NCOL, NZ)), (torch.float64, (NCOL, 64)),
+             (torch.float32, (NCOL, NZ)), (torch.float32, (NCOL, 64)),
+             (torch.float32, HARNESS_SHAPE)]
+    tols = {torch.float64: 1e-12, torch.float32: 1e-5}
+    systems = [resident_systems(torch, shape, dtype, 4)
+               for dtype, shape in cases]
+    hk.reset_launches()
+    outs = []
+    for (dl, d, du, x, b), scale in systems:
+        outs.append((hk.tridiag_spmv_chain(dl, d, du, x, CHAIN_K, scale),
+                     hk.tridiag_jacobi_smooth(dl, d, du, b, x, CHAIN_K)))
+    torch.cuda.synchronize()
+    launches = dict(hk.LAUNCHES)
+    for name in ("tridiag_spmv_chain", "tridiag_jacobi_smooth"):
+        check(launches[name] == len(cases),
+              f"(k) ops path launched {name} {launches[name]} times, not "
+              f"{len(cases)}")
+    rows, results = [], {}
+    for (dtype, shape), ((dl, d, du, x, b), scale), (yc, yj) in zip(
+            cases, systems, outs):
+        dt_name = str(dtype).replace("torch.", "")
+        for name, got, kern, plain in (
+                ("tridiag_spmv_chain", yc,
+                 lambda: hk.tridiag_spmv_chain(dl, d, du, x, CHAIN_K, scale),
+                 lambda: tridiag.tridiag_spmv_chain(dl, d, du, x, CHAIN_K,
+                                                    scale)),
+                ("tridiag_jacobi_smooth", yj,
+                 lambda: hk.tridiag_jacobi_smooth(dl, d, du, b, x, CHAIN_K),
+                 lambda: tridiag.tridiag_jacobi_smooth(dl, d, du, b, x,
+                                                       CHAIN_K))):
+            ref = plain()
+            torch.cuda.synchronize()
+            ymax = float(ref.abs().max())
+            err = float((got - ref).abs().max())
+            check(bool(torch.isfinite(got).all()),
+                  f"{name} {shape} {dt_name}: non-finite output")
+            check(err <= tols[dtype] * ymax,
+                  f"{name} {shape} {dt_name}: max |kernel - plain| "
+                  f"{err:.3e} > {tols[dtype]:g} * {ymax:.3e}")
+            ms = time_cuda(torch, kern, 20)
+            plain_ms = time_cuda(torch, plain, 3)
+            row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       library_ms=None,
+                       **bound_fields(name, shape, dt_name))
+            rows.append(dict(kernel=name, shape=list(shape), dtype=dt_name,
+                             iters=CHAIN_K, max_abs_y=ymax,
+                             rel_tol=tols[dtype], **row))
+            if shape == HARNESS_SHAPE:
+                results[name] = dict(shape=list(shape), dtype=dt_name,
+                                     launches=launches[name], **row)
+    # 200 sweeps at omega = 0.9 reach the Thomas kernel's solution
+    # (the system of tests/test_pallas_kernels.py:11-17 and :36-44)
+    rng = np.random.default_rng(7)
+    shape = JACOBI_CHECK["shape"]
+    t = lambda a: torch.as_tensor(a, dtype=torch.float64, device="cuda")
+    d, dl, du = (t(rng.uniform(lo, hi, shape))
+                 for lo, hi in ((4.0, 5.0), (0.1, 0.9), (0.1, 0.9)))
+    b = t(rng.uniform(-1.0, 1.0, shape))
+    xj = hk.tridiag_jacobi_smooth(dl, d, du, b, torch.zeros_like(b),
+                                  JACOBI_CHECK["iters"],
+                                  JACOBI_CHECK["omega"])
+    xt = hk.thomas(dl, d, du, b)
+    rel = float((xj - xt).abs().max() / xt.abs().max())
+    check(rel <= JACOBI_CHECK["tol"],
+          f"Jacobi x{JACOBI_CHECK['iters']} vs Thomas: {rel:.3e} > "
+          f"{JACOBI_CHECK['tol']:g}")
+    for r in rows:
+        print("kernel_check " + json.dumps(r))
+    print("jacobi_vs_thomas " + json.dumps(dict(
+        shape=list(shape), iters=JACOBI_CHECK["iters"],
+        omega=JACOBI_CHECK["omega"], max_rel_diff=rel)))
+    print("launches_on_ops_path " + json.dumps(launches))
+    return results
+
+
+def harness_run(torch, hk, card):
+    """Phase (l): the SpMV harness at its full size, counted; its rows of
+    the kernels line; the library yardstick on the same T."""
+    from mpp_tpu_torch.tools import exp_spmv
+    check(HARNESS_SHAPE == (exp_spmv.NCOL, exp_spmv.NZ), "harness shape")
+    data = exp_spmv.inputs()
+    hk.reset_launches()
+    res = exp_spmv.run(data=data, fast=False)
+    torch.cuda.synchronize()
+    launches = dict(hk.LAUNCHES)
+    check(res["card"] == card, f"harness card {res['card']} != {card}")
+    print("exp_spmv " + json.dumps(res))
+    print("launches_on_harness_path " + json.dumps(launches))
+    for key in ("spmv_variant", "tridiag_spmv_mixed", "spmv_packed",
+                "stream_ceiling"):
+        check(launches[key] > 0, f"(l) harness did not launch {key}")
+    lib_ms = library_spmv(torch, *data, exp_spmv.jnp_concat(*data), 1e-5)
+    results = {}
+    for row, names in HARNESS_ROWS.items():
+        rep = res[names[0]]
+        runs = [res[n]["launches"] for n in names]
+        check(all(n > 0 for n in runs),
+              f"(l) {row}: a variant launched no kernel: {runs}")
+        nbytes = 14 * HARNESS_SHAPE[0] * HARNESS_SHAPE[1] \
+            if row == "spmv_bf16_variant" else \
+            5 * HARNESS_SHAPE[0] * HARNESS_SHAPE[1] * 4
+        ms, by = bound(nbytes, OPS[row] * HARNESS_SHAPE[0]
+                       * HARNESS_SHAPE[1], "float32")
+        results[row] = dict(
+            shape=list(HARNESS_SHAPE), dtype="float32", variant=names[0],
+            launches=sum(runs), max_abs_err=rep["max_abs_err"],
+            ms=rep["kernel_ms"], plain_ms=rep["plain_ms"], bytes=nbytes,
+            bound_ms=ms, bound_by=by,
+            library_ms=lib_ms if row in ("spmv_variant", "spmv_variant_cp",
+                                         "spmv_packed") else None)
+    return results
+
+
+def ptxas_summary(log):
+    """[kernel, registers, spill store bytes, spill load bytes] per entry
+    function of ptxas's -v report."""
+    out, name, spill = [], None, (None, None)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append([name, int(m.group(1)), *spill])
+            name, spill = None, (None, None)
+    return out
 
 
 def th_inputs(torch, comp, X0_np, ncol, device, dtype):
@@ -320,20 +586,16 @@ def run_alm(torch, alm, dtype, nsteps, device, ncol=NCOL):
 
 def main():
     here = os.path.dirname(os.path.abspath(__file__))
-    for pkg in ("mpp_tpu_torch", "mpp_tpu"):
-        check(os.path.isdir(os.path.join(here, pkg)),
-              f"{pkg}/ not found beside chip_smoke.py: run it from the root "
-              "of a checkout")
+    check(os.path.isdir(os.path.join(here, "mpp_tpu_torch")),
+          "mpp_tpu_torch/ not found beside chip_smoke.py: run it from the "
+          "root of a checkout")
     sys.path.insert(0, here)
     import torch
     check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
 
     # (a) the card
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
-    card = smi.stdout.strip().splitlines()[0]
+    from mpp_tpu_torch.tools.exp_spmv import card as card_of
+    card = card_of()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
 
@@ -343,6 +605,7 @@ def main():
     _build.library()
     print(f"build: {time.perf_counter() - t0:.3f} s (nvcc "
           f"{_build.build_seconds:.3f} s) -> {_build.library_path()}")
+    print("ptxas " + json.dumps(ptxas_summary(_build.build_log)))
 
     # (c) kernels against their plain versions
     results = kernel_checks(torch, hk, tridiag)
@@ -399,7 +662,7 @@ def main():
     from mpp_tpu_torch.problems import th
     from mpp_tpu_torch.batched.th_compiled import compile_th
     t0 = time.perf_counter()
-    mpp, _ = th.run_mass_and_heat(nx=TH_NH)
+    mpp, _ = th.run_mass_and_heat(nx=TH_NH, device="cpu")
     comp = compile_th(mpp, linear_solver="direct")
     X0_np = mpp.soe.soln
     problem_s = time.perf_counter() - t0
@@ -457,9 +720,22 @@ def main():
           f"{rel:.3e}")
 
     launches["block_thomas2"] = th_launches["total"]["block_thomas2"]
-    kernels = [dict(name=name, route="cuda", source=SOURCES[name],
-                    replaces=REPLACES[name], launches=launches[name],
-                    **results[name]) for name in REPLACES]
+    for name in ("thomas", "tridiag_spmv", "tridiag_spmv_mixed",
+                 "block_thomas2"):
+        results[name]["launches"] = launches[name]
+
+    # (k) the matrix-resident chain and smoother, counted on the ops path
+    results.update(resident_checks(torch, hk, tridiag))
+
+    # (l) the SpMV harness, counted
+    results.update(harness_run(torch, hk, card))
+
+    kernels = []
+    for name, (source, replaces) in KERNELS.items():
+        r = results[name]
+        check(r["launches"] > 0, f"{name}: no launch on its path")
+        kernels.append(dict(name=name, route="cuda", source=source,
+                            replaces=replaces, **r))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from mpp_tpu_torch.batched.ilu_gmres import make_ell_matvec
+from mpp_tpu_torch.device import device_of
 from mpp_tpu_torch.batched.vsfm_compiled import (CompiledVSFM, SNESParams,
                                                  _rows)
 from mpp_tpu_torch.models.richards import _swhere
@@ -198,9 +199,11 @@ class CompiledTH(CompiledVSFM):
         raise NotImplementedError("TH BC flux audit")
 
     # ---- inputs ------------------------------------------------------------
-    def _serial_dyn(self, ncol, device="cpu", dtype=torch.float64):
+    def _serial_dyn(self, ncol, device="cuda", dtype=torch.float64):
         """The staged cross-data (mass-GE BC temperature, energy-GE BC
-        pressure) as the ``dyn`` of ``ncol`` columns."""
+        pressure) as the ``dyn`` of ``ncol`` columns, on the card unless
+        ``device="cpu"``."""
+        device = device_of(device)
         return ({"bc_temperature": _rows(self.ge_mass.bc_temperature, ncol,
                                          device, dtype)},
                 {"bc_pressure": _rows(self.ge_energy.bc_pressure, ncol,
@@ -217,10 +220,10 @@ class CompiledTH(CompiledVSFM):
                 tuple({k: t(v) for k, v in d.items()} for d in dyn))
 
     def step_dt(self, dt, istep=1):
-        """Drop-in for ``soe.step_dt``: one f64 CPU column with the staged
-        cross-data."""
-        converged, reason = self._step_dt_serial(dt, istep,
-                                                 self._serial_dyn(1))
+        """Drop-in for ``soe.step_dt``: one f64 column on
+        ``serial_device`` with the staged cross-data."""
+        converged, reason = self._step_dt_serial(
+            dt, istep, self._serial_dyn(1, self.serial_device))
         if converged:
             soln = self.mpp.soe.soln
             self.ge_mass.pressure = soln[:self.nh]

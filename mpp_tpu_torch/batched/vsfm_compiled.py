@@ -36,7 +36,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mpp_tpu.constants import FMWH2O
+from mpp_tpu_torch.constants import FMWH2O
+from mpp_tpu_torch.device import device_of
 from mpp_tpu_torch.ops import hopper_kernels as hk
 from mpp_tpu_torch.ops.snes import (CONVERGED_FNORM_ABS,
                                     CONVERGED_FNORM_RELATIVE,
@@ -550,32 +551,41 @@ class CompiledVSFM:
         return self._step_dt_batched(X, tuple(bc_values), tuple(ss_values),
                                      dt, src, dyn, tols)
 
-    def gather_inputs(self, ncol=1, device="cpu", dtype=torch.float64):
+    def gather_inputs(self, ncol=1, device="cuda", dtype=torch.float64):
         """The staged BC/SS condition values of every GE as ``[ncol, nbc]``
-        / ``[ncol, nss]`` tensors (each column a copy)."""
+        / ``[ncol, nss]`` tensors (each column a copy), on the card unless
+        ``device="cpu"``."""
+        device = device_of(device)
         return (tuple(_rows(g.bc_value, ncol, device, dtype)
                       for g in self.goveqns),
                 tuple(_rows(g.ss_value, ncol, device, dtype)
                       for g in self.goveqns))
 
-    def install(self):
+    #: device of the serial drop-in step; :meth:`install` sets it
+    serial_device = "cuda"
+
+    def install(self, device="cuda"):
         """Route the SoE's ``step_dt`` through this stepper, so the facade
-        problem drivers run on it unchanged."""
+        problem drivers run on it unchanged; the serial step runs on
+        ``device`` (the card unless ``device="cpu"``)."""
+        self.serial_device = device_of(device)
         self.mpp.soe.step_dt = self.step_dt
         return self
 
     def _step_dt_serial(self, dt, istep, dyn):
-        """One ``dt`` of the SoE's own solution as a single f64 CPU column;
-        updates the SoE state on convergence.  Returns (converged,
-        reason)."""
+        """One ``dt`` of the SoE's own solution as a single f64 column on
+        ``serial_device``; updates the SoE state on convergence.  Returns
+        (converged, reason)."""
         soe = self.mpp.soe
-        bc, ss = self.gather_inputs(1)
-        X = torch.as_tensor(np.asarray(soe.soln, np.float64))[None, :]
+        dev = device_of(self.serial_device)
+        bc, ss = self.gather_inputs(1, dev)
+        X = torch.as_tensor(np.asarray(soe.soln, np.float64),
+                            device=dev)[None, :]
         Xn, iters, ok, reason = self.step_batched(X, bc, ss, dt, dyn=dyn)
         converged = bool(ok[0])
         if converged:
             soe.cumulative_newton_iterations += int(iters)
-            soe.soln = Xn[0].numpy().copy()
+            soe.soln = Xn[0].cpu().numpy().copy()
             soe.soln_prev = soe.soln
         if soe.metrics is not None:
             soe.metrics.record(step=istep, dt=dt, converged=converged,

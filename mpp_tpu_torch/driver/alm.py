@@ -44,10 +44,11 @@ import dataclasses
 import numpy as np
 import torch
 
-from mpp_tpu.constants import (Cond, GEType, MPPType, Region,
-                               MeshType as MeshKind, DENH2O, FMWH2O,
-                               GRAVITY_CONSTANT, GRAV_CLM, PRESSURE_REF)
-from mpp_tpu.dtypes.mesh import column_mesh
+from mpp_tpu_torch.constants import (Cond, GEType, MPPType, Region,
+                                     MeshType as MeshKind, DENH2O, FMWH2O,
+                                     GRAVITY_CONSTANT, GRAV_CLM, PRESSURE_REF)
+from mpp_tpu_torch.device import device_of
+from mpp_tpu_torch.dtypes.mesh import column_mesh
 from mpp_tpu_torch.models.richards import VSFMMPP
 from mpp_tpu_torch.ops import eos, satfunc as sf
 from mpp_tpu_torch.ops.snes import (CONVERGED_FNORM_RELATIVE,
@@ -148,8 +149,9 @@ def _build_template_mpp(dz0, area0, satfunc_type, density_type,
 def alm_vsfm_initialize(watsat, hksat, bsw, sucsat, residual_sat, dz, area,
                         P0=None, satfunc_type="smooth_brooks_corey_bz3",
                         density_type=eos.DENSITY_TGDPB01,
-                        lateral_connectivity=False, dtype=torch.float64, device="cpu",
-                        include_seepage_bc=False, escalate_f64=True):
+                        lateral_connectivity=False, dtype=torch.float64,
+                        device="cuda", include_seepage_bc=False,
+                        escalate_f64=True):
     """Build the batched VSFM problem from CLM column data (numpy
     [ncol, nz] soils, the same arrays the JAX package takes).
 
@@ -157,7 +159,9 @@ def alm_vsfm_initialize(watsat, hksat, bsw, sucsat, residual_sat, dz, area,
     (MultiPhysicsProbVSFM.F90:367-419): perm = hksat_mm/s * 1e-3 * vish2o
     / (denh2o*g), lambda = 1/bsw, alpha = 1/(sucsat*g).  ``escalate_f64``
     matters only for f32 state, where the escalation is not ported yet:
-    f32 runs pass ``escalate_f64=False`` (the throughput mode)."""
+    f32 runs pass ``escalate_f64=False`` (the throughput mode).  The state
+    lives on the card unless ``device="cpu"``."""
+    device = device_of(device)
     if lateral_connectivity:
         raise NotImplementedError(
             "ALM lateral connectivity (ring and UGDM) is not ported yet "

@@ -12,11 +12,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mpp_tpu import constants as C
-from mpp_tpu.constants import (Cond, ConnKind, GEType, MPPType, Region,
-                               GRAVITY_CONSTANT)
-from mpp_tpu.dtypes.mesh import structured_mesh
+from mpp_tpu_torch import constants as C
+from mpp_tpu_torch.constants import (Cond, ConnKind, GEType, MPPType, Region,
+                                     GRAVITY_CONSTANT)
+from mpp_tpu_torch.dtypes.mesh import structured_mesh
 from mpp_tpu_torch.batched.vsfm_compiled import compile_vsfm
+from mpp_tpu_torch.device import device_of
 from mpp_tpu_torch.models.richards import VSFMMPP
 from mpp_tpu_torch.ops import eos
 
@@ -51,9 +52,11 @@ def build_compiled_celia(nz):
     return mpp, compile_vsfm(mpp)
 
 
-def entry(device="cpu", ncol=256, nz=128):
+def entry(device="cuda", ncol=256, nz=128):
     """(fn, (X0, bc0)): ``fn(X, bc)`` advances the f32 celia1990 batch by
-    one 3600 s step and returns the new state."""
+    one 3600 s step and returns the new state.  On the card unless
+    ``device="cpu"``."""
+    device = device_of(device)
     dtype = torch.float32
     _, comp = build_compiled_celia(nz)
     X0 = torch.full((ncol, nz), 3.5355e3, dtype=dtype, device=device)

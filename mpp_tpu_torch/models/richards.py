@@ -32,13 +32,14 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from mpp_tpu import constants as C
-from mpp_tpu.constants import (Cond, GEType, SOEType, Var, AuxVarKind,
-                               FluxType, PRESSURE_REF, GRAVITY_CONSTANT,
-                               FMWH2O)
-from mpp_tpu.dtypes.mesh import Mesh, ConnectionSet, concat_connection_sets
-from mpp_tpu.dtypes.conditions import Condition
-from mpp_tpu.dtypes.mpp_base import MPPBase
+from mpp_tpu_torch import constants as C
+from mpp_tpu_torch.constants import (Cond, GEType, SOEType, Var, AuxVarKind,
+                                     FluxType, PRESSURE_REF, GRAVITY_CONSTANT,
+                                     FMWH2O)
+from mpp_tpu_torch.dtypes.mesh import (Mesh, ConnectionSet,
+                                       concat_connection_sets)
+from mpp_tpu_torch.dtypes.conditions import Condition
+from mpp_tpu_torch.dtypes.mpp_base import MPPBase
 from mpp_tpu_torch.ops import eos, satfunc as sf
 from mpp_tpu_torch.ops.porosity import PorosityParams, porosity
 from mpp_tpu_torch.ops.sparse import csr_template, CSRTemplate

@@ -37,10 +37,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from mpp_tpu import constants as C
-from mpp_tpu.constants import (Cond, GEType, SOEType, AuxVarKind,
-                               PRESSURE_REF, GRAVITY_CONSTANT, FMWH2O)
-from mpp_tpu.dtypes.mpp_base import MPPBase
+from mpp_tpu_torch import constants as C
+from mpp_tpu_torch.constants import (Cond, GEType, SOEType, AuxVarKind,
+                                     PRESSURE_REF, GRAVITY_CONSTANT, FMWH2O)
+from mpp_tpu_torch.dtypes.mpp_base import MPPBase
 from mpp_tpu_torch.models.richards import RichardsGE, darcy_flux, _swhere
 from mpp_tpu_torch.ops import eos, satfunc as sf
 from mpp_tpu_torch.ops.porosity import porosity

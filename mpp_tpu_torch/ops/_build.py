@@ -23,12 +23,14 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_D = ctypes.c_double
 #: C signature of each launcher: device pointers and the stream as
-#: ``c_void_p``, sizes as ``c_int``; every launcher returns cudaError_t
+#: ``c_void_p``, sizes and switches as ``c_int``, coefficients as
+#: ``c_double``; every launcher returns cudaError_t
 SIGNATURES = {
     "mpp_thomas_f32": (_P,) * 6 + (_I, _I, _P),
     "mpp_thomas_f64": (_P,) * 6 + (_I, _I, _P),
@@ -37,11 +39,20 @@ SIGNATURES = {
     "mpp_spmv_bf16_f32": (_P,) * 5 + (_I, _I, _P),
     "mpp_block_thomas2_f32": (_P,) * 6 + (_I, _I, _P),
     "mpp_block_thomas2_f64": (_P,) * 6 + (_I, _I, _P),
+    "mpp_spmv_chain_f32": (_P,) * 5 + (_I, _I, _I, _D, _P),
+    "mpp_spmv_chain_f64": (_P,) * 5 + (_I, _I, _I, _D, _P),
+    "mpp_jacobi_smooth_f32": (_P,) * 6 + (_I, _I, _I, _D, _P),
+    "mpp_jacobi_smooth_f64": (_P,) * 6 + (_I, _I, _I, _D, _P),
+    "mpp_spmv_variant_f32": (_P,) * 5 + (_I,) * 5 + (_P,),
+    "mpp_spmv_packed_f32": (_P,) * 3 + (_I, _I, _P),
+    "mpp_stream_ceiling_f32": (_P,) * 5 + (_I, _I, _P),
 }
 
 _LIB = None
 #: seconds the last build took (0.0 when the library was already built)
 build_seconds = 0.0
+#: ptxas's report (registers, spills) of the last build, "" if none ran
+build_log = ""
 
 
 def _nvcc() -> str:
@@ -72,7 +83,7 @@ def library_path() -> str:
 def build() -> str:
     """Compile the sources unless the hashed library exists; return its
     path."""
-    global build_seconds
+    global build_seconds, build_log
     out = library_path()
     if os.path.isfile(out):
         build_seconds = 0.0
@@ -96,6 +107,7 @@ def build() -> str:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc link failed ({proc.returncode}): "
                            f"{' '.join(link)}\n{proc.stdout}\n{proc.stderr}")
+    build_log = "".join(so + se for _, _, so, se in results)
     for obj in objs:
         os.remove(obj)
     os.replace(f"{tag}.tmp", out)

@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mpp_tpu.constants import FMWH2O, DENH2O
+from mpp_tpu_torch.constants import FMWH2O, DENH2O
 
 # Density model ids (EOSWaterMod.F90:19-21)
 DENSITY_CONSTANT = 1

@@ -1,6 +1,6 @@
-"""Wrappers of the hand-written CUDA kernels on the Newton paths.
+"""Wrappers of the port's hand-written CUDA kernels.
 
-Four kernels, each beside its plain PyTorch version; the first three
+Each kernel sits beside its plain PyTorch version.  The first three
 (``csrc/tridiag_kernels.cu``) are on the VSFM path, the fourth
 (``csrc/block_thomas_kernels.cu``) on the TH path:
 
@@ -14,8 +14,24 @@ Four kernels, each beside its plain PyTorch version; the first three
 * :func:`block_thomas2` — batched 2x2 block-tridiagonal solve, the TH
   Newton direction; replaces ``pallas_block_thomas2`` (l.289-408).
 
+The SpMV family (``csrc/spmv_family_kernels.cu``) serves the public ops
+and the SpMV measurement harness (``tools/exp_spmv.py``):
+
+* :func:`tridiag_spmv_chain` — y = (scale T)^K x with the bands resident
+  in registers; replaces ``tridiag_spmv_chain`` (l.214-247).
+* :func:`tridiag_jacobi_smooth` — K weighted-Jacobi sweeps with T and b
+  resident; replaces ``tridiag_jacobi_smooth`` (l.250-286).
+* :func:`spmv_variant` — y = T x in f32 by tiles of whole columns, the
+  neighbours loaded or shuffled, one block per tile or a persistent grid;
+  replaces ``pallas_kernel`` and ``pallas_kernel_cp`` of the JAX package's
+  ``tools/exp_spmv.py``.
+* :func:`spmv_packed` — y = T x with the bands packed ``[ncol, 3*nz]``;
+  replaces ``packed_kernel`` of ``tools/exp_spmv.py``.
+* :func:`stream_ceiling` — the harness's elementwise 4-read, 1-write pass
+  (the yardstick XLA fused in the JAX tool; no TPU kernel).
+
 Dispatch rule: a CPU tensor runs the plain version (``ops/tridiag.py``,
-``ops/block_thomas.py``);
+``ops/block_thomas.py``, the ``*_plain`` functions here);
 a CUDA tensor launches the kernel, building it at first use
 (``ops/_build.py``), or raises.  A build or launch failure raises; nothing
 falls back.  Each launch adds one to ``LAUNCHES[name]``.
@@ -26,12 +42,19 @@ import torch
 
 from mpp_tpu_torch.ops import _build
 from mpp_tpu_torch.ops.block_thomas import block_thomas
+from mpp_tpu_torch.ops import tridiag
 from mpp_tpu_torch.ops.tridiag import thomas as thomas_plain
 from mpp_tpu_torch.ops.tridiag import tridiag_matvec
 
 #: kernel launches since the last reset, by kernel name
 LAUNCHES = {"thomas": 0, "tridiag_spmv": 0, "tridiag_spmv_mixed": 0,
-            "block_thomas2": 0}
+            "block_thomas2": 0, "tridiag_spmv_chain": 0,
+            "tridiag_jacobi_smooth": 0, "spmv_variant": 0, "spmv_packed": 0,
+            "stream_ceiling": 0}
+
+#: the largest nz of the register-resident chain and smoother (16 slots of
+#: 32 levels in each lane of a warp)
+RESIDENT_MAX_NZ = 512
 
 
 def reset_launches():
@@ -189,3 +212,156 @@ def block_thomas2(L, D, U, b):
                 cp.data_ptr(), x.data_ptr(), ncol, n, _stream(b))
     _launched("block_thomas2", rc)
     return x
+
+
+def _resident(name, arrays, x, iters):
+    """Checks shared by the chain and the smoother."""
+    _check(name, arrays, (torch.float32, torch.float64), x)
+    if len({a.dtype for a in arrays}) != 1:
+        raise ValueError(f"{name}: all arrays must share one dtype")
+    if isinstance(iters, bool) or not isinstance(iters, int) or iters < 0:
+        raise ValueError(f"{name}: iters must be an int >= 0, got {iters!r}")
+    if x.shape[1] > RESIDENT_MAX_NZ:
+        raise ValueError(f"{name}: nz={x.shape[1]} > {RESIDENT_MAX_NZ}, the "
+                         "largest column the register-resident kernel holds")
+
+
+def tridiag_spmv_chain(dl, d, du, x, iters, scale=1.0):
+    """y = (scale * T)^iters x over ``[ncol, nz]`` arrays, f32 or f64,
+    nz <= ``RESIDENT_MAX_NZ``; the bands are read once for all ``iters``
+    applications."""
+    _resident("tridiag_spmv_chain", (dl, d, du, x), x, iters)
+    if x.device.type == "cpu":
+        return tridiag.tridiag_spmv_chain(dl, d, du, x, iters, scale)
+    ncol, nz = x.shape
+    y = torch.empty_like(x)
+    if ncol == 0 or nz == 0:
+        return y
+    lib = _build.library()
+    fn = lib.mpp_spmv_chain_f64 if x.dtype == torch.float64 else \
+        lib.mpp_spmv_chain_f32
+    with torch.cuda.device(x.device):
+        rc = fn(dl.data_ptr(), d.data_ptr(), du.data_ptr(), x.data_ptr(),
+                y.data_ptr(), ncol, nz, iters, float(scale), _stream(x))
+    _launched("tridiag_spmv_chain", rc)
+    return y
+
+
+def tridiag_jacobi_smooth(dl, d, du, b, x, iters, omega=2.0 / 3.0):
+    """``iters`` sweeps x <- x + omega * (b - T x) / d over ``[ncol, nz]``
+    arrays, f32 or f64, nz <= ``RESIDENT_MAX_NZ``; T and b are read once
+    for all sweeps."""
+    _resident("tridiag_jacobi_smooth", (dl, d, du, b, x), x, iters)
+    if x.device.type == "cpu":
+        return tridiag.tridiag_jacobi_smooth(dl, d, du, b, x, iters, omega)
+    ncol, nz = x.shape
+    y = torch.empty_like(x)
+    if ncol == 0 or nz == 0:
+        return y
+    lib = _build.library()
+    fn = lib.mpp_jacobi_smooth_f64 if x.dtype == torch.float64 else \
+        lib.mpp_jacobi_smooth_f32
+    with torch.cuda.device(x.device):
+        rc = fn(dl.data_ptr(), d.data_ptr(), du.data_ptr(), b.data_ptr(),
+                x.data_ptr(), y.data_ptr(), ncol, nz, iters, float(omega),
+                _stream(x))
+    _launched("tridiag_jacobi_smooth", rc)
+    return y
+
+
+#: neighbour exchanges and grids of :func:`spmv_variant`
+EXCHANGES = ("concat", "roll")
+GRIDS = ("tile", "persistent")
+
+
+def spmv_variant(dl, d, du, x, exchange="concat", block=1024, grid="tile"):
+    """y = T x over f32 ``[ncol, nz]`` arrays by tiles of ``block`` whole
+    columns (``ncol % block == 0``, the Pallas ``block_cols``).
+    ``exchange``: "concat" loads the neighbours, "roll" shuffles them
+    between lanes; ``grid``: "tile" is one thread block per tile (the
+    "parallel" grid), "persistent" one per SM walking the tiles in order
+    (the "arbitrary" one).  Every choice computes the same y."""
+    name = "spmv_variant"
+    _check(name, (dl, d, du, x), (torch.float32,), x)
+    if exchange not in EXCHANGES:
+        raise ValueError(f"{name}: exchange {exchange!r} not in {EXCHANGES}")
+    if grid not in GRIDS:
+        raise ValueError(f"{name}: grid {grid!r} not in {GRIDS}")
+    ncol, nz = x.shape
+    if isinstance(block, bool) or not isinstance(block, int) or block < 1 \
+            or ncol % block or block * nz > 2 ** 30:
+        raise ValueError(f"{name}: block={block!r} must be an int >= 1 "
+                         f"dividing ncol={ncol}, with block * nz <= 2**30")
+    if x.device.type == "cpu":
+        return tridiag_matvec(dl, d, du, x)
+    y = torch.empty_like(x)
+    if nz == 0:
+        return y
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        rc = lib.mpp_spmv_variant_f32(
+            dl.data_ptr(), d.data_ptr(), du.data_ptr(), x.data_ptr(),
+            y.data_ptr(), ncol, nz, block, int(exchange == "roll"),
+            int(grid == "persistent"), _stream(x))
+    _launched(name, rc)
+    return y
+
+
+def spmv_packed_plain(t, x):
+    """Plain version of the packed action: the three bands sliced from
+    ``t = [dl | d | du]``, then the stencil."""
+    nz = x.shape[-1]
+    return tridiag_matvec(t[..., :nz], t[..., nz:2 * nz], t[..., 2 * nz:], x)
+
+
+def spmv_packed(t, x):
+    """y = T x with the bands packed into one f32 ``[ncol, 3*nz]`` array
+    ``t = [dl | d | du]`` and x, y f32 ``[ncol, nz]``."""
+    name = "spmv_packed"
+    _check(name, (x,), (torch.float32,), x)
+    if not isinstance(t, torch.Tensor) or t.dim() != 2 or \
+            tuple(t.shape) != (x.shape[0], 3 * x.shape[1]):
+        raise ValueError(f"{name}: t must be a [ncol, 3*nz] = "
+                         f"{(x.shape[0], 3 * x.shape[1])} tensor, got "
+                         f"{getattr(t, 'shape', type(t))}")
+    if t.dtype != torch.float32 or t.device != x.device or \
+            not t.is_contiguous():
+        raise ValueError(f"{name}: t must be a contiguous f32 tensor on "
+                         f"{x.device}")
+    if x.device.type == "cpu":
+        return spmv_packed_plain(t, x)
+    ncol, nz = x.shape
+    y = torch.empty_like(x)
+    if ncol == 0 or nz == 0:
+        return y
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        rc = lib.mpp_spmv_packed_f32(t.data_ptr(), x.data_ptr(), y.data_ptr(),
+                                     ncol, nz, _stream(x))
+    _launched(name, rc)
+    return y
+
+
+def stream_ceiling_plain(a, b, c, x):
+    """Plain version of the elementwise pass: min(a + x*(b - x*c), 2) * 0.9
+    (the loop body of the JAX tool's ``ceiling``)."""
+    return torch.clamp(a + x * (b - x * c), max=2.0) * 0.9
+
+
+def stream_ceiling(a, b, c, x):
+    """min(a + x*(b - x*c), 2) * 0.9 over f32 ``[ncol, nz]`` arrays in one
+    pass: 4 streams read, 1 written."""
+    _check("stream_ceiling", (a, b, c, x), (torch.float32,), x)
+    if x.device.type == "cpu":
+        return stream_ceiling_plain(a, b, c, x)
+    ncol, nz = x.shape
+    y = torch.empty_like(x)
+    if ncol == 0 or nz == 0:
+        return y
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        rc = lib.mpp_stream_ceiling_f32(a.data_ptr(), b.data_ptr(),
+                                        c.data_ptr(), x.data_ptr(),
+                                        y.data_ptr(), ncol, nz, _stream(x))
+    _launched("stream_ceiling", rc)
+    return y

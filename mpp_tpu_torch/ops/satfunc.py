@@ -20,7 +20,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from mpp_tpu.constants import PRESSURE_REF
+from mpp_tpu_torch.constants import PRESSURE_REF
 
 # Model ids (SaturationFunction.F90:19-28)
 SAT_FUNC_VAN_GENUCHTEN = 1301

@@ -46,3 +46,21 @@ def tridiag_matvec(dl, d, du, x):
     lo = torch.cat([z, dl[..., 1:] * x[..., :-1]], -1)
     hi = torch.cat([du[..., :-1] * x[..., 1:], z], -1)
     return d * x + lo + hi
+
+
+def tridiag_spmv_chain(dl, d, du, x, iters, scale=1.0):
+    """y = (scale * T)^iters x, one stencil application at a time: the
+    plain form of ``mpp_tpu/ops/pallas_kernels.tridiag_spmv_chain``, in its
+    order of operations (``tridiag_matvec(...) * scale``)."""
+    for _ in range(iters):
+        x = tridiag_matvec(dl, d, du, x) * scale
+    return x
+
+
+def tridiag_jacobi_smooth(dl, d, du, b, x, iters, omega=2.0 / 3.0):
+    """``iters`` weighted-Jacobi sweeps x <- x + omega * (b - T x) / d: the
+    plain form of ``pallas_kernels.tridiag_jacobi_smooth``, with its division
+    by the diagonal (not a multiplication by its reciprocal)."""
+    for _ in range(iters):
+        x = x + omega * (b - tridiag_matvec(dl, d, du, x)) / d
+    return x

@@ -16,8 +16,9 @@ Counterpart of the TH drivers of ``mpp_tpu/problems/th.py``
 
 Both step through the compiled direct stepper
 (``batched/th_compiled.compile_th(mpp, linear_solver="direct")``) at
-ncol=1 on the CPU in f64.  ``compiled=False``, the serial host SNES with
-ILU(0)+GMRES, is not ported yet (ROADMAP Slice D) and raises.
+ncol=1 in f64, on the card unless the caller passes ``device="cpu"``.
+``compiled=False``, the serial host SNES with ILU(0)+GMRES, is not ported
+yet (ROADMAP Slice D) and raises.
 
 The energy BCs (condition values and the BC auxvar pressure) must be
 staged before any step: unstaged they are 0 K and 0 Pa and the first step
@@ -30,24 +31,24 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mpp_tpu import constants as C
-from mpp_tpu.constants import (Cond, ConnKind, GEType, MPPType, MeshType,
-                               Var, AuxVarKind, Region, PRESSURE_REF,
-                               GRAVITY_CONSTANT, FMWH2O)
-from mpp_tpu.dtypes.mesh import structured_mesh, ConnectionSet
+from mpp_tpu_torch import constants as C
+from mpp_tpu_torch.constants import (Cond, ConnKind, GEType, MPPType, MeshType,
+                                     Var, AuxVarKind, Region, PRESSURE_REF,
+                                     GRAVITY_CONSTANT, FMWH2O)
+from mpp_tpu_torch.dtypes.mesh import structured_mesh, ConnectionSet
 from mpp_tpu_torch.models.thermal_enthalpy import THMPP
 from mpp_tpu_torch.ops import eos, satfunc as sf
 
 PI = 4.0 * np.arctan(1.0)
 
 
-def _compile_direct(mpp, compiled):
+def _compile_direct(mpp, compiled, device):
     if not compiled:
         raise NotImplementedError(
             "compiled=False, the serial TH SNES with ILU(0)+GMRES, is not "
             "ported yet (ROADMAP Slice D)")
     from mpp_tpu_torch.batched.th_compiled import compile_th
-    return compile_th(mpp, linear_solver="direct").install()
+    return compile_th(mpp, linear_solver="direct").install(device)
 
 
 # ---------------------------------------------------------------------------
@@ -74,9 +75,10 @@ def _stage_mass_and_heat_bcs(mpp):
     ge.bc_pressure = np.full_like(ge.bc_pressure, 91325.0)
 
 
-def run_mass_and_heat(nx=100, nz=1, dtime=3600.0, nstep=1, compiled=True):
+def run_mass_and_heat(nx=100, nz=1, dtime=3600.0, nstep=1, compiled=True,
+                      device="cuda"):
     """mass_and_heat_model_problem.F90:22-135; returns (mpp, the
-    [P; T] solution)."""
+    [P; T] solution).  Steps on the card unless ``device="cpu"``."""
     ny = 1
     dx, dy, dz = 1.0 / nx, 1.0 / ny, 1.0 / nz
     n = nx * ny * nz
@@ -124,7 +126,7 @@ def run_mass_and_heat(nx=100, nz=1, dtime=3600.0, nstep=1, compiled=True):
 
     # ICs (:485-553): P=91325, T=283.15
     mpp.set_initial_solution(np.full(n, 91325.0), np.full(n, 283.15))
-    _compile_direct(mpp, compiled)
+    _compile_direct(mpp, compiled, device)
 
     _stage_mass_and_heat_bcs(mpp)
     for istep in range(1, nstep + 1):
@@ -260,10 +262,10 @@ def _mms_sources(xc, mms, density_type, int_energy_type):
     return mass_src, heat_src
 
 
-def run_th_mms(nx=20, compiled=True):
+def run_th_mms(nx=20, compiled=True, device="cuda"):
     """th_mms_problem.F90:89-141 (STEADY_STATE_SOIL_ONLY_1D): one
     dt=1 s step from the uniform initial state; returns (mpp, the [P; T]
-    solution)."""
+    solution).  Steps on the card unless ``device="cpu"``."""
     ny = nz = 1
     x_min, x_max = 0.0, 10.0
     dx = (x_max - x_min) / nx
@@ -351,7 +353,7 @@ def run_th_mms(nx=20, compiled=True):
     mpp.soe.ge_energy.bc_pressure = np.array(pres_bc, np.float64)
     mpp.soe.ge_mass.bc_temperature = np.array(temp_bc, np.float64)
 
-    _compile_direct(mpp, compiled)
+    _compile_direct(mpp, compiled, device)
     converged, _reason = mpp.soe.step_dt(1.0, 1)
     assert converged
     return mpp, mpp.get_data(Var.PRESSURE)

@@ -54,7 +54,8 @@ def _hetero_kwargs(ncol=4, nz=10, seed=0):
 
 
 def _pair(**kw):
-    return jalm.alm_vsfm_initialize(**kw), talm.alm_vsfm_initialize(**kw)
+    return (jalm.alm_vsfm_initialize(**kw),
+            talm.alm_vsfm_initialize(device="cpu", **kw))
 
 
 @pytest.fixture(scope="module")
@@ -155,7 +156,7 @@ def test_state_from_numpy_handover(seep10):
     kw = dict(qflx_infl=np.full(4, 3e-4), qflx_drain=np.full(4, 2e-5))
     for _ in range(2):
         jalm.alm_vsfm_solve(pj, 1800.0, **kw)
-    pt = talm.alm_vsfm_initialize(**_hetero_kwargs())
+    pt = talm.alm_vsfm_initialize(device="cpu", **_hetero_kwargs())
     tree = lambda d: {k: tree(v) if isinstance(v, dict) else np.asarray(v)
                       for k, v in d.items()}
     P, dyn = talm.state_from_numpy(
@@ -175,7 +176,8 @@ def test_state_from_numpy_handover(seep10):
 def test_retry_ladder_tightens_on_audit_failure(monkeypatch):
     """A forced audit failure: the driver tightens and re-solves
     (mass_bal_err_count=1, attempts=2), as Driver.F90:886-905."""
-    prob = talm.alm_vsfm_initialize(**_soil_kwargs(ncol=2, nz=4))
+    prob = talm.alm_vsfm_initialize(device="cpu",
+                                    **_soil_kwargs(ncol=2, nz=4))
     calls = {"n": 0}
     real = talm._audit_err
 
@@ -192,7 +194,8 @@ def test_retry_ladder_tightens_on_audit_failure(monkeypatch):
 
 
 def test_retry_ladder_aborts_after_max_attempts(monkeypatch):
-    prob = talm.alm_vsfm_initialize(**_soil_kwargs(ncol=2, nz=4))
+    prob = talm.alm_vsfm_initialize(device="cpu",
+                                    **_soil_kwargs(ncol=2, nz=4))
     monkeypatch.setattr(talm, "_audit_err", lambda *a: np.full(2, 1.0))
     with pytest.raises(RuntimeError, match="failed to converge"):
         talm.alm_vsfm_solve(prob, 60.0)
@@ -203,6 +206,7 @@ def test_f32_throughput_mode_converges():
     mode; the state stays f32."""
     soil = _hetero_kwargs(ncol=8, nz=12, seed=1)
     prob = talm.alm_vsfm_initialize(dtype=torch.float32, escalate_f64=False,
+                                    device="cpu",
                                     P0=np.full((8, 12), 3.5355e3), **soil)
     prob.audit_threshold_kg = 1e-3
     out = talm.alm_vsfm_solve(prob, 1800.0, qflx_infl=np.full(8, 2e-4))
@@ -213,15 +217,16 @@ def test_f32_throughput_mode_converges():
 
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
-        talm.alm_vsfm_initialize(lateral_connectivity=True,
+        talm.alm_vsfm_initialize(lateral_connectivity=True, device="cpu",
                                  **_soil_kwargs(ncol=2, nz=4))
     with pytest.raises(NotImplementedError):
-        talm.alm_vsfm_initialize(dtype=torch.float32,
+        talm.alm_vsfm_initialize(dtype=torch.float32, device="cpu",
                                  **_soil_kwargs(ncol=2, nz=4))
 
 
 def test_water_table_detection():
-    prob = talm.alm_vsfm_initialize(**_soil_kwargs(ncol=2, nz=10))
+    prob = talm.alm_vsfm_initialize(device="cpu",
+                                    **_soil_kwargs(ncol=2, nz=10))
     Pcol = np.linspace(1.5e5, 0.2e5, 10)      # saturated bottom, dry top
     smp_l = (np.tile(Pcol, (2, 1)) - 101325.0) / (1000.0 * 9.80616) * 1e3
     zwt_t = talm._water_table_depth(torch.as_tensor(smp_l), prob.zi)

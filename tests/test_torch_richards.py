@@ -71,7 +71,7 @@ def _alm_pair(ncol, nz, seed=0):
     shape = (ncol, nz)
     soil = _hetero_soil(ncol, nz, rng)
     pj = jalm.alm_vsfm_initialize(**soil)
-    pt = talm.alm_vsfm_initialize(**soil)
+    pt = talm.alm_vsfm_initialize(device="cpu", **soil)
     T = 273.15 + 5.0 + 20.0 * rng.random(shape)
     fl = 0.5 + 0.5 * rng.random(shape)
     dj = dict(pj.dyn[0], temperature=jnp.asarray(T), frac_liq=jnp.asarray(fl))
@@ -200,7 +200,7 @@ def test_csr_template_and_assembly(case):
     else:
         soil = _hetero_soil(3, 9)
         soe_j = jalm.alm_vsfm_initialize(**soil).mpp.soe
-        soe_t = talm.alm_vsfm_initialize(**soil).mpp.soe
+        soe_t = talm.alm_vsfm_initialize(device="cpu", **soil).mpp.soe
     tj, tt = soe_j.template, soe_t.template
     for k in ("indptr", "indices", "slots"):
         np.testing.assert_array_equal(getattr(tt, k), getattr(tj, k))

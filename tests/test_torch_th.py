@@ -49,15 +49,16 @@ def problems():
     """{name: (JAX mpp, port mpp)}, each with its BCs staged and one step
     taken (the JAX package's serial step, the port's compiled one)."""
     return {"mass_and_heat": (jth.run_mass_and_heat(nx=12)[0],
-                              tth.run_mass_and_heat(nx=12)[0]),
-            "th_mms": (jth.run_th_mms(nx=20)[0], tth.run_th_mms(nx=20)[0])}
+                              tth.run_mass_and_heat(nx=12, device="cpu")[0]),
+            "th_mms": (jth.run_th_mms(nx=20)[0],
+                       tth.run_th_mms(nx=20, device="cpu")[0])}
 
 
 @pytest.fixture(scope="module")
 def mh20():
     """nx=20 mass_and_heat in both packages with their direct steppers."""
     mj = jth.run_mass_and_heat(nx=20)[0]
-    mt = tth.run_mass_and_heat(nx=20)[0]
+    mt = tth.run_mass_and_heat(nx=20, device="cpu")[0]
     return (mj, jcompile_th(mj, linear_solver="direct"),
             mt, compile_th(mt, linear_solver="direct"))
 
@@ -300,7 +301,7 @@ def test_th_mms_step_matches_jax_direct_stepper(problems):
     Xt, it_t, ok_t, r_t = ct.step_batched(
         *CompiledTH.inputs_from_numpy(X0, bc, ss, (), "cpu",
                                       torch.float64)[:3], 1.0,
-        dyn=ct._serial_dyn(1))
+        dyn=ct._serial_dyn(1, "cpu"))
     assert bool(ok_j[0]) and bool(ok_t[0])
     assert int(it_j) == it_t and int(r_j[0]) == int(r_t[0])
     np.testing.assert_allclose(Xt.numpy(), np.asarray(Xj), rtol=1e-9)
@@ -328,15 +329,16 @@ def test_f32_step_converges(mh20):
 
 
 def test_unported_paths_raise():
-    mt, _ = tth.run_mass_and_heat(nx=6, nstep=0)
+    mt, _ = tth.run_mass_and_heat(nx=6, nstep=0, device="cpu")
     with pytest.raises(NotImplementedError):
         compile_th(mt)                      # the default "petsc" plan
     with pytest.raises(ValueError):
         compile_th(mt, linear_solver="other")
     with pytest.raises(NotImplementedError):
-        tth.run_mass_and_heat(nx=6, compiled=False)
+        tth.run_mass_and_heat(nx=6, compiled=False,
+                              device="cpu")
     with pytest.raises(NotImplementedError):
-        tth.run_th_mms(nx=6, compiled=False)
+        tth.run_th_mms(nx=6, compiled=False, device="cpu")
     from mpp_tpu_torch.models.thermal_enthalpy import THSoE
     with pytest.raises(NotImplementedError):
         THSoE.step_dt(mt.soe, DT)           # the serial SNES (Slice D)
@@ -345,7 +347,7 @@ def test_unported_paths_raise():
 def test_unstepped_problem_is_staged():
     """A problem returned with nstep=0 has its energy BCs staged and
     steps through the installed compiled stepper."""
-    mt, _ = tth.run_mass_and_heat(nx=6, nstep=0)
+    mt, _ = tth.run_mass_and_heat(nx=6, nstep=0, device="cpu")
     ge = mt.soe.ge_energy
     np.testing.assert_array_equal(ge.bc_value, [303.15, 293.15])
     np.testing.assert_array_equal(ge.bc_pressure, [91325.0, 91325.0])

@@ -113,7 +113,7 @@ def test_f32_run_converges():
 
 
 def test_entry_runs():
-    fn, (X0, bc0) = entry.entry(ncol=4, nz=16)
+    fn, (X0, bc0) = entry.entry(device="cpu", ncol=4, nz=16)
     X1 = fn(X0, bc0)
     assert X1.shape == (4, 16) and bool(torch.isfinite(X1).all())
     assert float(X1[:, -1].min()) > float(X0.max())
@@ -135,11 +135,11 @@ def test_serial_drop_in_matches_jax():
     nz = 16
     mpp_j, comp_j = graft._build_compiled_celia(nz)
     mpp_t, comp_t = entry.build_compiled_celia(nz)
-    assert comp_t.install() is comp_t
+    assert comp_t.install("cpu") is comp_t
     for mpp in (mpp_j, mpp_t):
         mpp.set_data(AuxVarKind.BC, Var.BC_SS_CONDITION, 1, [9.3991e4])
         mpp.set_data(AuxVarKind.BC, Var.BC_SS_CONDITION, 2, [3.5355e3])
-    bc, ss = comp_t.gather_inputs(3)
+    bc, ss = comp_t.gather_inputs(3, "cpu")
     assert bc[0].shape == (3, 2) and ss[0].shape == (3, 0)
     np.testing.assert_array_equal(bc[0][2].numpy(), [9.3991e4, 3.5355e3])
     for istep in (1, 2):
