@@ -11,7 +11,10 @@ line is printed):
   (c) hold each kernel against its plain PyTorch version on the card at
       [16384, 30] and [16384, 64] (Thomas f64/f32, SpMV f64/f32, mixed
       bf16/f32 SpMV) and time both with CUDA events, the SpMV also as one
-      torch.sparse.mm of a block-diagonal CSR (the library yardstick);
+      torch.sparse.mm of a block-diagonal CSR (the library yardstick); and
+      Thomas at the edge shapes of its tiling (THOMAS_EDGE_LEVELS levels
+      x EDGE_NCOLS columns, f64 and f32, both forms of the kernel in each,
+      and inputs that are not 16-byte aligned);
   (d) the ALM f64 default step at ncol=16384, nz=30 with heterogeneous
       CLM soils, seepage BC, infiltration + ET forcing (numpy seed 0): one
       warm step and 4 timed steps; every column converges, max audit error
@@ -21,8 +24,9 @@ line is printed):
   (f) a 64-column f64 ALM step on the card and on the CPU: equal attempts,
       Newton iterations and per-column reasons, P within rtol 1e-9;
   (g) the 2x2 block-Thomas kernel against its plain version at [8192, 64]
-      and [1024, 100], f64 (tolerance 1e-12) and f32 (2e-5), relative to
-      the output's max |x|, on block diagonally dominant random systems;
+      and [1024, 100] and at the edge shapes of (c), f64 (tolerance 1e-12)
+      and f32 (2e-5), relative to the output's max |x|, on block
+      diagonally dominant random systems;
   (h) the coupled TH step (Richards mass + enthalpy energy) in f64 at
       ncol=8192 and 64 cells per column, dt=3600 s, per-column top
       temperature 296.15-310.15 K: one warm step and 8 timed steps; every
@@ -47,15 +51,26 @@ line is printed):
       JSON line; and a block-diagonal CSR of the same T through
       torch.sparse.mm (cuSPARSE) as the library yardstick.
 
+Every kernel timing is read twice: ``ms``, CUDA events around back-to-back
+calls of the wrapper (host cost per call included), and ``device_ms``, the
+summed duration of the device activities that torch.profiler (CUPTI)
+records for one call (host cost excluded); the library yardstick gets the
+same two readings.  The device readings are queued and taken after (l),
+so that no profiler window comes before a host-clock timing (the step
+times and every ``ms``); the "profiler_after" line then times the f64 ALM
+steps and the (c) kernels' eager calls again, after the windows, beside
+their readings from before them.
+
 The launch counters are reset just before (d) and read just after (e),
 reset just before (h) and read just after (i), reset just before (k)'s
 calls of the ops and read just after them, and reset just before (l)'s
 harness run and read just after it: every kernel of each path must have
 launched on it.  The line before the last is the card's name and power
 limit, the one before it a JSON object with one entry per kernel (its
-launches on its path, error against its plain version, kernel and plain
-times, the least time the card could take for the same work and the time
-of one library call computing the same function, where there is one);
+launches on its path, error against its plain version, kernel (eager and
+device) and plain times, the least time the card could take for the same
+work and the time of one library call computing the same function, where
+there is one);
 the last line is {"ok": true, "device": {...}}.
 """
 import json
@@ -63,6 +78,7 @@ import os
 import re
 import sys
 import time
+from functools import partial
 
 import numpy as np
 
@@ -78,6 +94,16 @@ TH_MASS_KG = 1e-6
 CHAIN_K = 30
 JACOBI_CHECK = dict(iters=200, omega=0.9, shape=(16384, 64), tol=1e-8)
 HARNESS_SHAPE = (131072, 256)
+# edge shapes of the solve kernels' tiling: level counts around the chunk
+# sizes and past the carries' room in shared memory (500), and column
+# counts that are no multiple of a tile
+EDGE_LEVELS = (1, 2, 7, 31, 33, 100, 257, 500)
+# Thomas keeps its carries on chip to 829 levels in f32
+THOMAS_EDGE_LEVELS = EDGE_LEVELS + (900,)
+EDGE_NCOLS = (1000, 8193)
+# the solves' tolerance against their plain versions, of max |x|
+TOLS = {"thomas": {"float64": 1e-12, "float32": 1e-5},
+        "block_thomas2": {"float64": 1e-12, "float32": 2e-5}}
 # the H100 SXM's published peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s,
 # and operations/s outside the tensor cores
 HBM_BYTES_S = 3.35e12
@@ -130,6 +156,29 @@ def fail(msg):
 def check(cond, msg):
     if not cond:
         fail(msg)
+
+
+# device-time readings queued by the phases, taken after (l) by settle()
+PENDING = []
+# the (c) kernels' main-shape calls, timed eagerly again after settle()
+AGAIN = {}
+
+
+def later(fn, reps, *rows, key="device_ms"):
+    """Queue ``device_time(fn, reps)``; settle() writes its reading into
+    ``row[key]`` of every row of ``rows``."""
+    for row in rows:
+        row[key] = None
+    PENDING.append((fn, reps, rows, key))
+
+
+def settle(torch):
+    """Take the queued device-time readings."""
+    for fn, reps, rows, key in PENDING:
+        ms = device_time(torch, fn, reps)
+        for row in rows:
+            row[key] = ms
+    PENDING.clear()
 
 
 def alm_inputs(ncol, nz, seed=0):
@@ -190,10 +239,12 @@ def block_diag_csr(torch, dl, d, du):
                                    (n, n))
 
 
-def library_spmv(torch, dl, d, du, x, ref, rtol):
+def library_spmv(torch, dl, d, du, x, ref, rtol, *rows):
     """Time one torch.sparse.mm of the block-diagonal CSR with x (CUDA
-    events, the CSR built outside the timed region), after checking it
-    against ``ref`` to ``rtol`` of max |ref|; returns ms."""
+    events, and device time queued; the CSR built outside the timed
+    region), after checking it against ``ref`` to ``rtol`` of max |ref|;
+    the readings go into ``library_ms`` and ``library_device_ms`` of every
+    row of ``rows``."""
     csr = block_diag_csr(torch, dl, d, du)
     xv = x.reshape(-1, 1)
     y = torch.sparse.mm(csr, xv).reshape(x.shape)
@@ -201,9 +252,11 @@ def library_spmv(torch, dl, d, du, x, ref, rtol):
     err = float((y - ref).abs().max())
     check(err <= rtol * scale, f"library SpMV {tuple(x.shape)} off the "
           f"plain form: {err:.3e} > {rtol:g} * {scale:.3e}")
-    ms = time_cuda(torch, lambda: torch.sparse.mm(csr, xv), 20)
-    del csr
-    return ms
+    call = partial(torch.sparse.mm, csr, xv)
+    ms = time_cuda(torch, call, 20)
+    for row in rows:
+        row["library_ms"] = ms
+    later(call, 20, *rows, key="library_device_ms")
 
 
 def time_cuda(torch, fn, reps):
@@ -222,8 +275,106 @@ def time_cuda(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def device_time(torch, fn, reps, tries=5):
+    """Mean device milliseconds of one ``fn()``: the summed durations of the
+    device activities (kernels, copies, fills) that torch.profiler (CUPTI)
+    records over ``reps`` runs, after two warm-up runs, divided by
+    ``reps``.  The host's cost of a call (checks, allocation, the launch
+    itself) is not in it.
+
+    A window counts only when it is whole: every activity's record count a
+    positive multiple of ``reps``.  The trace sometimes comes back a record
+    or more short, most often in the first window after a long stretch of
+    untraced work (tracing host activities too and opening and closing the
+    window 1 ms away from the calls make it rarer), so a short window is
+    taken again, up to ``tries`` times; the run fails if none is whole."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def window():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(1e-3)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(1e-3)
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by_name.setdefault(e.name, []).append(
+                    e.time_range.elapsed_us())
+        return by_name
+
+    for _ in range(2):
+        fn()
+    counts = []
+    for _ in range(tries):
+        by_name = window()
+        counts.append({k: len(t) for k, t in by_name.items()})
+        if by_name and all(len(t) % reps == 0 for t in by_name.values()):
+            return sum(sum(t) for t in by_name.values()) / reps / 1e3
+    fail(f"torch.profiler: no whole window of {reps} calls in {tries} "
+         f"tries; records per activity: {counts}")
+
+
+def misaligned(torch, a):
+    """A contiguous copy of ``a`` that starts one element into a larger
+    buffer, so its data_ptr is not 16-byte aligned."""
+    out = torch.empty(a.numel() + 1, dtype=a.dtype, device=a.device)[1:]
+    return out.view(a.shape).copy_(a)
+
+
+def hold(torch, label, got, ref, tol):
+    """Fail unless ``got`` is finite and within ``tol`` of max |ref| of
+    ``ref``; returns (max |got - ref|, max |ref|)."""
+    torch.cuda.synchronize()
+    scale = float(torch.max(torch.abs(ref)))
+    err = float(torch.max(torch.abs(got - ref)))
+    check(bool(torch.isfinite(got).all()), f"{label}: non-finite output")
+    check(err <= tol * scale, f"{label}: max |kernel - plain| {err:.3e} > "
+          f"{tol:g} * {scale:.3e}")
+    return err, scale
+
+
+def edge_rows(torch, hk, name, plain, systems, tols, levels):
+    """Kernel ``name`` of ``hk`` against ``plain`` at the edge shapes:
+    every level count of ``levels`` at every column count of EDGE_NCOLS,
+    f64 and f32, and [1000, 31] with every input not 16-byte aligned;
+    ``systems(shape, dtype)`` gives the inputs, ``tols[dtype name]`` the
+    tolerance relative to max |x|.  Fails unless ``levels`` reach both
+    forms of the kernel (carries on chip, and in global memory) in each
+    dtype.  Returns the kernel_check rows."""
+    kern = getattr(hk, name)
+    for dt_name in tols:
+        top = hk.max_on_chip(name, getattr(torch, dt_name))
+        check(min(levels) <= top < max(levels), f"{name} {dt_name}: edge "
+              f"levels {levels} miss a form (on chip to {top} levels)")
+    cases = [(ncol, n, dt_name, False) for n in levels
+             for ncol in EDGE_NCOLS for dt_name in tols]
+    cases += [(1000, 31, dt_name, True) for dt_name in tols]
+    rows = []
+    for ncol, n, dt_name, skew in cases:
+        args = systems((ncol, n), getattr(torch, dt_name))
+        if skew:
+            args = [misaligned(torch, a) for a in args]
+        err, scale = hold(torch, f"{name} {(ncol, n)} {dt_name}"
+                          f"{' misaligned' if skew else ''}", kern(*args),
+                          plain(*args), tols[dt_name])
+        call = partial(kern, *args)
+        rows.append(dict(
+            kernel=name, shape=[ncol, n], dtype=dt_name, misaligned=skew,
+            max_abs_err=err, max_abs_x=scale, rel_tol=tols[dt_name],
+            ms=time_cuda(torch, call, 20),
+            **bound_fields(name, (ncol, n), dt_name)))
+        later(call, 10, rows[-1])
+    return rows
+
+
 def kernel_checks(torch, hk, tridiag):
-    """Phase (c): every kernel against its plain version on the card."""
+    """Phase (c): every kernel against its plain version on the card, and
+    Thomas at the edge shapes."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(1)
     rows, results = [], {}
@@ -233,41 +384,29 @@ def kernel_checks(torch, hk, tridiag):
         du_np = rng.random(shape) - 0.5
         d_np = 2.5 + rng.random(shape)          # diagonally dominant
         x_np = rng.standard_normal(shape)
-        for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        for dt_name, tol in TOLS["thomas"].items():
+            dtype = getattr(torch, dt_name)
             t = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)
             dl, d, du, x = t(dl_np), t(d_np), t(du_np), t(x_np)
             cases = (
-                ("thomas", lambda: hk.thomas(dl, d, du, x),
-                 lambda: tridiag.thomas(dl, d, du, x)),
-                ("tridiag_spmv", lambda: hk.tridiag_spmv(dl, d, du, x),
-                 lambda: tridiag.tridiag_matvec(dl, d, du, x)))
+                ("thomas", partial(hk.thomas, dl, d, du, x),
+                 partial(tridiag.thomas, dl, d, du, x)),
+                ("tridiag_spmv", partial(hk.tridiag_spmv, dl, d, du, x),
+                 partial(tridiag.tridiag_matvec, dl, d, du, x)))
             if dtype == torch.float32:
                 b16 = [a.to(torch.bfloat16) for a in (dl, d, du)]
                 cases += (("tridiag_spmv_mixed",
-                           lambda: hk.tridiag_spmv_mixed(*b16, x),
-                           lambda: hk.tridiag_spmv_mixed_plain(*b16, x)),)
+                           partial(hk.tridiag_spmv_mixed, *b16, x),
+                           partial(hk.tridiag_spmv_mixed_plain, *b16, x)),)
             for name, kern, plain in cases:
-                yk = kern()
                 yp = plain()
-                torch.cuda.synchronize()
-                scale = float(torch.max(torch.abs(yp)))
-                err = float(torch.max(torch.abs(yk - yp)))
-                check(bool(torch.isfinite(yk).all()),
-                      f"{name} {shape} {dtype}: non-finite output")
-                check(err <= tol * scale,
-                      f"{name} {shape} {dtype}: max |kernel - plain| "
-                      f"{err:.3e} > {tol:g} * {scale:.3e}")
-                ms = time_cuda(torch, kern, 50)
-                plain_ms = time_cuda(torch, plain, 5)
-                dt_name = str(dtype).replace("torch.", "")
+                err, _ = hold(torch, f"{name} {shape} {dt_name}", kern(), yp,
+                              tol)
                 nbytes = 14 * NCOL * nz if name == "tridiag_spmv_mixed" \
                     else None
-                library_ms = None
-                if name == "tridiag_spmv":
-                    library_ms = library_spmv(torch, dl, d, du, x, yp,
-                                              10 * tol)
-                row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                           library_ms=library_ms,
+                row = dict(max_abs_err=err, ms=time_cuda(torch, kern, 50),
+                           plain_ms=time_cuda(torch, plain, 5),
+                           library_ms=None, library_device_ms=None,
                            **bound_fields(name, shape, dt_name, nbytes))
                 rows.append(dict(kernel=name, shape=list(shape),
                                  dtype=dt_name, rel_tol=tol, **row))
@@ -275,12 +414,24 @@ def kernel_checks(torch, hk, tridiag):
                 # shape and precision (nz=30; f64, or f32 for the mixed)
                 main = nz == NZ and (dtype == torch.float64
                                      or name == "tridiag_spmv_mixed")
+                targets = [rows[-1]]
                 if main:
                     results[name] = dict(shape=list(shape), dtype=dt_name,
                                          **row)
-    for r in rows:
-        print("kernel_check " + json.dumps(r))
-    return results
+                    targets.append(results[name])
+                    AGAIN[name] = (kern, row["ms"])
+                later(kern, 20, *targets)
+                if name == "tridiag_spmv":
+                    library_spmv(torch, dl, d, du, x, yp, 10 * tol, *targets)
+
+    def systems(shape, dtype):
+        g = np.random.default_rng(5)
+        return [torch.as_tensor(a, dtype=dtype, device=dev) for a in (
+            g.random(shape) - 0.5, 2.5 + g.random(shape),
+            g.random(shape) - 0.5, g.standard_normal(shape))]
+    rows += edge_rows(torch, hk, "thomas", tridiag.thomas, systems,
+                      TOLS["thomas"], THOMAS_EDGE_LEVELS)
+    return results, rows
 
 
 def block_systems(shape, seed):
@@ -298,41 +449,40 @@ def block_systems(shape, seed):
 
 
 def block_kernel_checks(torch, hk, block_thomas):
-    """Phase (g): block_thomas2 against its plain version on the card."""
+    """Phase (g): block_thomas2 against its plain version on the card, at
+    the TH shapes and the edge shapes."""
     dev = torch.device("cuda")
     rows, result = [], None
     for shape in ((TH_NCOL, TH_NH), (1024, 100)):
         sys_np = block_systems(shape, 2)
-        ncol, n = shape
-        for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 2e-5)):
-            L, D, U, b = (torch.as_tensor(a, dtype=dtype, device=dev)
-                          for a in sys_np)
-            xk = hk.block_thomas2(L, D, U, b)
-            xp = block_thomas(L, D, U, b)
-            torch.cuda.synchronize()
-            scale = float(torch.max(torch.abs(xp)))
-            err = float(torch.max(torch.abs(xk - xp)))
-            name = f"block_thomas2 {shape} {dtype}"
-            check(bool(torch.isfinite(xk).all()), f"{name}: non-finite")
-            check(err <= tol * scale, f"{name}: max |kernel - plain| "
-                  f"{err:.3e} > {tol:g} * {scale:.3e}")
-            ms = time_cuda(torch, lambda: hk.block_thomas2(L, D, U, b), 50)
-            plain_ms = time_cuda(torch, lambda: block_thomas(L, D, U, b), 5)
+        for dt_name, tol in TOLS["block_thomas2"].items():
+            dtype = getattr(torch, dt_name)
+            args = [torch.as_tensor(a, dtype=dtype, device=dev)
+                    for a in sys_np]
+            kern = partial(hk.block_thomas2, *args)
+            err, scale = hold(torch, f"block_thomas2 {shape} {dt_name}",
+                              kern(), block_thomas(*args), tol)
+            ms = time_cuda(torch, kern, 50)
+            plain_ms = time_cuda(torch, partial(block_thomas, *args), 5)
             # 14 values read (L, D, U, b) and 2 written (x) per level
-            dt_name = str(dtype).replace("torch.", "")
             fields = bound_fields("block_thomas2", shape, dt_name)
-            row = dict(kernel="block_thomas2", shape=list(shape),
-                       dtype=dt_name, max_abs_err=err, max_abs_x=scale,
-                       rel_tol=tol, ms=ms, plain_ms=plain_ms,
-                       gb_per_s=fields["bytes"] / (ms * 1e-3) / 1e9, **fields)
-            rows.append(row)
+            rows.append(dict(kernel="block_thomas2", shape=list(shape),
+                             dtype=dt_name, max_abs_err=err, max_abs_x=scale,
+                             rel_tol=tol, ms=ms, plain_ms=plain_ms, **fields))
+            targets = [rows[-1]]
             if shape == (TH_NCOL, TH_NH) and dtype == torch.float64:
                 result = dict(shape=list(shape), dtype=dt_name,
                               max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                              library_ms=None, **fields)
-    for r in rows:
-        print("kernel_check " + json.dumps(r))
-    return result
+                              library_ms=None, library_device_ms=None,
+                              **fields)
+                targets.append(result)
+            later(kern, 20, *targets)
+    rows += edge_rows(
+        torch, hk, "block_thomas2", block_thomas,
+        lambda shape, dtype: [torch.as_tensor(a, dtype=dtype, device=dev)
+                              for a in block_systems(shape, 6)],
+        TOLS["block_thomas2"], EDGE_LEVELS)
+    return result, rows
 
 
 def resident_systems(torch, shape, dtype, seed):
@@ -378,33 +528,29 @@ def resident_checks(torch, hk, tridiag):
         dt_name = str(dtype).replace("torch.", "")
         for name, got, kern, plain in (
                 ("tridiag_spmv_chain", yc,
-                 lambda: hk.tridiag_spmv_chain(dl, d, du, x, CHAIN_K, scale),
-                 lambda: tridiag.tridiag_spmv_chain(dl, d, du, x, CHAIN_K,
-                                                    scale)),
+                 partial(hk.tridiag_spmv_chain, dl, d, du, x, CHAIN_K,
+                         scale),
+                 partial(tridiag.tridiag_spmv_chain, dl, d, du, x, CHAIN_K,
+                         scale)),
                 ("tridiag_jacobi_smooth", yj,
-                 lambda: hk.tridiag_jacobi_smooth(dl, d, du, b, x, CHAIN_K),
-                 lambda: tridiag.tridiag_jacobi_smooth(dl, d, du, b, x,
-                                                       CHAIN_K))):
-            ref = plain()
-            torch.cuda.synchronize()
-            ymax = float(ref.abs().max())
-            err = float((got - ref).abs().max())
-            check(bool(torch.isfinite(got).all()),
-                  f"{name} {shape} {dt_name}: non-finite output")
-            check(err <= tols[dtype] * ymax,
-                  f"{name} {shape} {dt_name}: max |kernel - plain| "
-                  f"{err:.3e} > {tols[dtype]:g} * {ymax:.3e}")
-            ms = time_cuda(torch, kern, 20)
-            plain_ms = time_cuda(torch, plain, 3)
-            row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       library_ms=None,
+                 partial(hk.tridiag_jacobi_smooth, dl, d, du, b, x, CHAIN_K),
+                 partial(tridiag.tridiag_jacobi_smooth, dl, d, du, b, x,
+                         CHAIN_K))):
+            err, ymax = hold(torch, f"{name} {shape} {dt_name}", got,
+                             plain(), tols[dtype])
+            row = dict(max_abs_err=err, ms=time_cuda(torch, kern, 20),
+                       plain_ms=time_cuda(torch, plain, 3), library_ms=None,
+                       library_device_ms=None,
                        **bound_fields(name, shape, dt_name))
             rows.append(dict(kernel=name, shape=list(shape), dtype=dt_name,
                              iters=CHAIN_K, max_abs_y=ymax,
                              rel_tol=tols[dtype], **row))
+            targets = [rows[-1]]
             if shape == HARNESS_SHAPE:
                 results[name] = dict(shape=list(shape), dtype=dt_name,
                                      launches=launches[name], **row)
+                targets.append(results[name])
+            later(kern, 10, *targets)
     # 200 sweeps at omega = 0.9 reach the Thomas kernel's solution
     # (the system of tests/test_pallas_kernels.py:11-17 and :36-44)
     rng = np.random.default_rng(7)
@@ -421,13 +567,11 @@ def resident_checks(torch, hk, tridiag):
     check(rel <= JACOBI_CHECK["tol"],
           f"Jacobi x{JACOBI_CHECK['iters']} vs Thomas: {rel:.3e} > "
           f"{JACOBI_CHECK['tol']:g}")
-    for r in rows:
-        print("kernel_check " + json.dumps(r))
     print("jacobi_vs_thomas " + json.dumps(dict(
         shape=list(shape), iters=JACOBI_CHECK["iters"],
         omega=JACOBI_CHECK["omega"], max_rel_diff=rel)))
     print("launches_on_ops_path " + json.dumps(launches))
-    return results
+    return results, rows
 
 
 def harness_run(torch, hk, card):
@@ -446,10 +590,13 @@ def harness_run(torch, hk, card):
     for key in ("spmv_variant", "tridiag_spmv_mixed", "spmv_packed",
                 "stream_ceiling"):
         check(launches[key] > 0, f"(l) harness did not launch {key}")
-    lib_ms = library_spmv(torch, *data, exp_spmv.jnp_concat(*data), 1e-5)
+    variants = {"ceiling_elementwise": exp_spmv.CEILING,
+                **exp_spmv.variants()}
+    x = data[3]
     results = {}
     for row, names in HARNESS_ROWS.items():
         rep = res[names[0]]
+        v = variants[names[0]]
         runs = [res[n]["launches"] for n in names]
         check(all(n > 0 for n in runs),
               f"(l) {row}: a variant launched no kernel: {runs}")
@@ -462,9 +609,12 @@ def harness_run(torch, hk, card):
             shape=list(HARNESS_SHAPE), dtype="float32", variant=names[0],
             launches=sum(runs), max_abs_err=rep["max_abs_err"],
             ms=rep["kernel_ms"], plain_ms=rep["plain_ms"], bytes=nbytes,
-            bound_ms=ms, bound_by=by,
-            library_ms=lib_ms if row in ("spmv_variant", "spmv_variant_cp",
-                                         "spmv_packed") else None)
+            bound_ms=ms, bound_by=by, library_ms=None,
+            library_device_ms=None)
+        later(partial(v.apply, *v.prep(*data), x), 10, results[row])
+    library_spmv(torch, *data, exp_spmv.jnp_concat(*data), 1e-5,
+                 *(results[row] for row in ("spmv_variant", "spmv_variant_cp",
+                                            "spmv_packed")))
     return results
 
 
@@ -608,7 +758,7 @@ def main():
     print("ptxas " + json.dumps(ptxas_summary(_build.build_log)))
 
     # (c) kernels against their plain versions
-    results = kernel_checks(torch, hk, tridiag)
+    results, checks = kernel_checks(torch, hk, tridiag)
     from mpp_tpu_torch.driver import alm
 
     # (d) + (e): the main path, counted
@@ -638,6 +788,7 @@ def main():
             attempts=[s["attempts"] for s in steps])))
     print("launches_on_main_path " + json.dumps(
         dict(f64=after64, total=launches)))
+    alm_f64_ms = ms64
 
     # (f) card against CPU on a small f64 problem
     gpu = run_alm(torch, alm, torch.float64, 1, "cuda", ncol=64)[1]
@@ -656,7 +807,9 @@ def main():
 
     # (g) the block-Thomas kernel against its plain version
     from mpp_tpu_torch.ops.block_thomas import block_thomas
-    results["block_thomas2"] = block_kernel_checks(torch, hk, block_thomas)
+    results["block_thomas2"], rows = block_kernel_checks(torch, hk,
+                                                         block_thomas)
+    checks += rows
 
     # (h) + (i): the TH path, counted
     from mpp_tpu_torch.problems import th
@@ -725,10 +878,23 @@ def main():
         results[name]["launches"] = launches[name]
 
     # (k) the matrix-resident chain and smoother, counted on the ops path
-    results.update(resident_checks(torch, hk, tridiag))
+    resident, rows = resident_checks(torch, hk, tridiag)
+    results.update(resident)
+    checks += rows
 
     # (l) the SpMV harness, counted
     results.update(harness_run(torch, hk, card))
+
+    # the device times queued by (c)-(l), then the host-clock readings of
+    # (d) and (c) again, after those profiler windows
+    settle(torch)
+    for r in checks:
+        print("kernel_check " + json.dumps(r))
+    print("profiler_after " + json.dumps(dict(
+        alm_f64_ms_per_step=[alm_f64_ms, run_alm(torch, alm, torch.float64,
+                                                 4, "cuda")[0]],
+        eager_ms={name: [ms, time_cuda(torch, kern, 50)]
+                  for name, (kern, ms) in AGAIN.items()})))
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

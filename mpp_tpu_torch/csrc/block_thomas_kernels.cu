@@ -26,94 +26,241 @@
 // form needs f32 and n % 8 == 0).
 //
 // Bound on the H100: bytes.  Per level a column reads 14 values (L, D, U,
-// b) and writes 2 (x), plus 4 of Cp written forward and read backward and
-// dp kept in x; about 40 flops and one division per level.  At [8192, 64]
-// f64 that is 58.7 MB read, 8.4 MB of x and 16.8 MB of Cp, more than the
-// 50 MB L2.
+// b) and writes 2 (x); about 40 flops and 6 divisions per level.  At
+// [8192, 64] f64 that is 58.7 MB read and 8.4 MB written, more than the
+// 50 MB L2: a cold stream.
 //
-// Design: one thread per column, the forward carries (Cp 2x2, dp 2) in
-// registers, Cp spilled to the scratch only for the back substitution.
-// The level recurrence is serial, so columns are the parallel axis, and a
-// batch of 8192 columns is only 8192 threads: kThreads = 64 gives 128
-// blocks, one on each of 128 of the 132 SMs (256 would give 32 blocks and
-// leave 100 SMs idle).  Loads are strided by 4n (blocks) per thread, so
-// they are not coalesced; staging a tile of columns through shared memory
-// (the Pallas kernel's in-VMEM transpose) is the next step.
+// Design (the Pallas kernel's VMEM tile, rethought for an SM; see
+// column_tiles.cuh): a CTA owns a tile of 32 consecutive columns, one a
+// lane of its computing warp; 8192 columns make 256 CTAs, two on each SM.
+// A column's chunk of KL levels is 4*KL contiguous values of L, D and U
+// (64 bytes) and 2*KL of b, so a chunk of the tile is 32 strided runs a
+// plane; the CTA's copy warp copies them with cp.async (consecutive lanes
+// on consecutive values, L2::256B fetches) into a ring of two shared
+// stages: chunk j+1 lands while the computing warp eliminates chunk j.
+// The computing warp reads a chunk's values into registers before it
+// stores any Cp or dp, keeps the forward carries (Cp 2x2, dp 2) in
+// registers and every level's Cp and dp in shared memory, so the back
+// substitution touches no global memory, and the tile of x (contiguous in
+// global memory) leaves from shared memory as coalesced stores.  Shared
+// memory a CTA: the ring (14.4 KB) plus n * 1552 B (f64; 776 B f32),
+// 111.4 KB at n = 64 f64, which keeps two CTAs an SM (all 256 resident at
+// once).  Where Cp and dp would not fit one CTA's 227 KB (n > 140 in f64,
+// > 280 in f32) they go to the global scratch `cp` and to x instead, read
+// back by each lane in the back substitution.
+// ptxas (sm_90a, CUDA 12.8): 88 / 86 registers (f64 on chip / spilled),
+// 76 / 75 (f32), no spills; 64 threads a CTA.  What holds it at 40 % of
+// its bound at [8192, 64] f64 (PERF.md): two limits of about one size.
+// With the recurrence skipped the copies take as long as the kernel
+// (64-byte runs from ~33k column streams; two stages, all that two CTAs'
+// Cp and dp leave room for); with the copies' waits skipped the
+// recurrence does too (six IEEE divisions a level, which the compiler
+// does not overlap).
 // ---------------------------------------------------------------------------
 
 #include <cuda_runtime.h>
 
+#include "column_tiles.cuh"
+
 namespace {
 
-constexpr int kThreads = 64;
+using mpp::kCols;
+using mpp::kRow;
+using mpp::kStages;
+
+// levels of a chunk: a 64-byte run of each column of L, D and U
+template <typename T>
+__host__ __device__ constexpr int block_chunk() {
+  return 16 / static_cast<int>(sizeof(T));
+}
 
 template <typename T>
-__global__ void block_thomas2_kernel(const T* __restrict__ L,
-                                     const T* __restrict__ D,
-                                     const T* __restrict__ U,
-                                     const T* __restrict__ b,
-                                     T* __restrict__ cp, T* __restrict__ x,
-                                     int ncol, int n) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= ncol) return;
-  const size_t o4 = static_cast<size_t>(c) * n * 4;
-  const size_t o2 = static_cast<size_t>(c) * n * 2;
+constexpr size_t block_ring_bytes() {
+  return sizeof(T) * kStages * 14 * block_chunk<T>() * kRow;
+}
+
+// dynamic shared memory of a CTA; with `on_chip` the ring plus Cp (4n rows
+// of kCols) and dp (2n rows of kRow, stored from there as x)
+template <typename T>
+size_t block_smem(int n, bool on_chip) {
+  return block_ring_bytes<T>() +
+         (on_chip ? sizeof(T) * static_cast<size_t>(n) * (4 * kCols + 2 * kRow)
+                  : 0);
+}
+
+// the deepest n whose Cp and dp fit one CTA's shared memory beside the
+// ring (140 in f64, 280 in f32); deeper columns take the global scratch
+template <typename T>
+constexpr int block_max_on_chip() {
+  return static_cast<int>((mpp::kOnChipBytes - block_ring_bytes<T>()) /
+                          (sizeof(T) * (4 * kCols + 2 * kRow)));
+}
+
+// kOnChip: Cp and dp in shared memory; else Cp in the global scratch cp
+// [ncol, n, 2, 2] and dp in x.
+template <typename T, bool kOnChip>
+__global__ void __launch_bounds__(mpp::kTileThreads)
+block_thomas2_kernel(const T* __restrict__ L, const T* __restrict__ D,
+                     const T* __restrict__ U, const T* __restrict__ b,
+                     T* __restrict__ cp, T* __restrict__ x, int ncol, int n) {
+  constexpr int KL = block_chunk<T>();
+  // stage rows: L, D, U (4*KL each), b (2*KL)
+  constexpr int kStage = 14 * KL * kRow;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ring = reinterpret_cast<T*>(smem_raw);
+  const int lane = threadIdx.x;               // the computing warp's lanes
+  const int c0 = blockIdx.x * kCols;
+  const int ct = min(kCols, ncol - c0);       // columns of this tile
+  const bool live = lane < ct;
+  const size_t base4 = static_cast<size_t>(c0) * n * 4;
+  const size_t base2 = static_cast<size_t>(c0) * n * 2;
+  // this lane's Cp and dp: value (k, j) at cpv[(4k + j) * kCStep] and
+  // dpv[(2k + j) * kDStep]
+  T* const cps = ring + kStages * kStage;                      // [4n][kCols]
+  T* const dps = cps + static_cast<size_t>(n) * 4 * kCols;     // [2n][kRow]
+  T* const cpv = kOnChip ? cps + lane
+                         : cp + base4 + static_cast<size_t>(lane) * n * 4;
+  T* const dpv = kOnChip ? dps + lane
+                         : x + base2 + static_cast<size_t>(lane) * n * 2;
+  constexpr int kCStep = kOnChip ? kCols : 1;
+  constexpr int kDStep = kOnChip ? kRow : 1;
+  const int nchunk = (n + KL - 1) / KL;
+  const size_t n4 = 4 * static_cast<size_t>(n);
+  const size_t n2 = 2 * static_cast<size_t>(n);
+  // chunk j of a block plane / of b, column 0
+  auto at4 = [&](const T* plane, int j) {
+    return plane + base4 + 4 * static_cast<size_t>(j) * KL;
+  };
+  auto at2 = [&](int j) {
+    return b + base2 + 2 * static_cast<size_t>(j) * KL;
+  };
+  // the copy warp copies chunk j into its stage
+  const bool copier = threadIdx.x >= kCols;
+  auto fetch = [&](int j) {
+    if (j < nchunk && copier) {
+      T* stage = ring + (j % kStages) * kStage;
+      const int kl = min(KL, n - j * KL);
+      T* const dst[3] = {stage, stage + 4 * KL * kRow, stage + 8 * KL * kRow};
+      const T* const src[3] = {at4(L, j), at4(D, j), at4(U, j)};
+      mpp::copy_columns<T, 3>(dst, src, n4, 4 * kl, ct);
+      T* const dstb[1] = {stage + 12 * KL * kRow};
+      const T* const srcb[1] = {at2(j)};
+      mpp::copy_columns<T, 1>(dstb, srcb, n2, 2 * kl, ct);
+    }
+    mpp::cp_async_commit();
+  };
+
+  for (int j = 0; j < kStages - 1; ++j) fetch(j);
   // carries: Cp_{k-1} (c00 c01 / c10 c11) and dp_{k-1} (p0, p1)
   T c00 = T(0), c01 = T(0), c10 = T(0), c11 = T(0);
   T p0 = T(0), p1 = T(0);
-  for (int k = 0; k < n; ++k) {
-    const size_t q = o4 + 4 * static_cast<size_t>(k);
-    const size_t r = o2 + 2 * static_cast<size_t>(k);
-    T a = D[q], bb = D[q + 1], cc = D[q + 2], dd = D[q + 3];
-    T r0 = b[r], r1 = b[r + 1];
-    if (k > 0) {
-      const T l00 = L[q], l01 = L[q + 1], l10 = L[q + 2], l11 = L[q + 3];
-      a -= l00 * c00 + l01 * c10;
-      bb -= l00 * c01 + l01 * c11;
-      cc -= l10 * c00 + l11 * c10;
-      dd -= l10 * c01 + l11 * c11;
-      r0 -= l00 * p0 + l01 * p1;
-      r1 -= l10 * p0 + l11 * p1;
+  for (int j = 0; j < nchunk; ++j) {
+    mpp::cp_async_wait<kStages - 2>();   // chunk j has landed
+    __syncthreads();                     // ... for every thread's copies
+    fetch(j + kStages - 1);              // into the stage chunk j-1 left
+    if (live) {
+      // the chunk's values, all read before any of its stores
+      const T* st = ring + (j % kStages) * kStage + lane;
+      T v[14 * KL];
+#pragma unroll
+      for (int r = 0; r < 14 * KL; ++r) v[r] = st[r * kRow];
+      const int k0 = j * KL;
+      const int kl = min(KL, n - k0);
+#pragma unroll
+      for (int kk = 0; kk < KL; ++kk) {
+        if (kk < kl) {
+          const int k = k0 + kk;
+          const T* Lk = v + 4 * kk;
+          const T* Dk = v + 4 * (KL + kk);
+          const T* Uk = v + 4 * (2 * KL + kk);
+          const T* bk = v + 12 * KL + 2 * kk;
+          T a = Dk[0], bb = Dk[1], cc = Dk[2], dd = Dk[3];
+          T r0 = bk[0], r1 = bk[1];
+          if (k > 0) {
+            a -= Lk[0] * c00 + Lk[1] * c10;
+            bb -= Lk[0] * c01 + Lk[1] * c11;
+            cc -= Lk[2] * c00 + Lk[3] * c10;
+            dd -= Lk[2] * c01 + Lk[3] * c11;
+            r0 -= Lk[0] * p0 + Lk[1] * p1;
+            r1 -= Lk[2] * p0 + Lk[3] * p1;
+          }
+          const T det = a * dd - bb * cc;
+          if (k < n - 1) {
+            c00 = (dd * Uk[0] - bb * Uk[2]) / det;
+            c01 = (dd * Uk[1] - bb * Uk[3]) / det;
+            c10 = (-cc * Uk[0] + a * Uk[2]) / det;
+            c11 = (-cc * Uk[1] + a * Uk[3]) / det;
+            T* cpk = cpv + 4 * k * kCStep;
+            cpk[0] = c00;
+            cpk[kCStep] = c01;
+            cpk[2 * kCStep] = c10;
+            cpk[3 * kCStep] = c11;
+          }
+          p0 = (dd * r0 - bb * r1) / det;
+          p1 = (-cc * r0 + a * r1) / det;
+          T* dpk = dpv + 2 * k * kDStep;
+          dpk[0] = p0;
+          dpk[kDStep] = p1;
+        }
+      }
     }
-    const T det = a * dd - bb * cc;
-    if (k < n - 1) {
-      const T u00 = U[q], u01 = U[q + 1], u10 = U[q + 2], u11 = U[q + 3];
-      c00 = (dd * u00 - bb * u10) / det;
-      c01 = (dd * u01 - bb * u11) / det;
-      c10 = (-cc * u00 + a * u10) / det;
-      c11 = (-cc * u01 + a * u11) / det;
-      cp[q] = c00;
-      cp[q + 1] = c01;
-      cp[q + 2] = c10;
-      cp[q + 3] = c11;
-    }
-    p0 = (dd * r0 - bb * r1) / det;
-    p1 = (-cc * r0 + a * r1) / det;
-    x[r] = p0;
-    x[r + 1] = p1;
   }
-  // back substitution in place: x holds dp, becomes the solution
-  T xn0 = x[o2 + 2 * static_cast<size_t>(n - 1)];
-  T xn1 = x[o2 + 2 * static_cast<size_t>(n - 1) + 1];
-  for (int k = n - 2; k >= 0; --k) {
-    const size_t q = o4 + 4 * static_cast<size_t>(k);
-    const size_t r = o2 + 2 * static_cast<size_t>(k);
-    const T x0 = x[r] - (cp[q] * xn0 + cp[q + 1] * xn1);
-    const T x1 = x[r + 1] - (cp[q + 2] * xn0 + cp[q + 3] * xn1);
-    x[r] = x0;
-    x[r + 1] = x1;
-    xn0 = x0;
-    xn1 = x1;
+  // back substitution in place, dp becoming the solution; each level's
+  // loads are issued before the stores of the level above
+  if (live && n > 1) {
+    T xn0 = dpv[2 * (n - 1) * kDStep];
+    T xn1 = dpv[(2 * (n - 1) + 1) * kDStep];
+    auto load = [&](int k, T (&c)[6]) {
+      const T* cpk = cpv + 4 * k * kCStep;
+      const T* dpk = dpv + 2 * k * kDStep;
+      c[0] = cpk[0];
+      c[1] = cpk[kCStep];
+      c[2] = cpk[2 * kCStep];
+      c[3] = cpk[3 * kCStep];
+      c[4] = dpk[0];
+      c[5] = dpk[kDStep];
+    };
+    T cur[6], nxt[6];
+    load(n - 2, cur);
+#pragma unroll 2
+    for (int k = n - 2; k >= 0; --k) {
+      if (k > 0) load(k - 1, nxt);
+      const T x0 = cur[4] - (cur[0] * xn0 + cur[1] * xn1);
+      const T x1 = cur[5] - (cur[2] * xn0 + cur[3] * xn1);
+      T* dpk = dpv + 2 * k * kDStep;
+      dpk[0] = x0;
+      dpk[kDStep] = x1;
+      xn0 = x0;
+      xn1 = x1;
+#pragma unroll
+      for (int i = 0; i < 6; ++i) cur[i] = nxt[i];
+    }
+  }
+  if (kOnChip) {
+    __syncthreads();
+    mpp::store_columns(x + base2, dps, 2 * n, ct);
   }
 }
 
+// cp: the global scratch [ncol, n, 2, 2], read only where n exceeds
+// block_max_on_chip (and then required).
 template <typename T>
 int launch_block_thomas2(const void* L, const void* D, const void* U,
                          const void* b, void* cp, void* x, int ncol, int n,
                          void* stream) {
-  const int blocks = (ncol + kThreads - 1) / kThreads;
-  block_thomas2_kernel<T><<<blocks, kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
+  const bool on_chip = n <= block_max_on_chip<T>();
+  if (!on_chip && cp == nullptr) return cudaErrorInvalidValue;
+  static std::atomic<bool> smem_set[mpp::kMaxDevices];
+  const cudaError_t attr = mpp::allow_smem(
+      smem_set, block_thomas2_kernel<T, true>,
+      block_thomas2_kernel<T, false>);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int blocks = (ncol + kCols - 1) / kCols;
+  const size_t smem = block_smem<T>(n, on_chip);
+  auto s = static_cast<cudaStream_t>(stream);
+  auto kernel = on_chip ? block_thomas2_kernel<T, true>
+                        : block_thomas2_kernel<T, false>;
+  kernel<<<blocks, mpp::kTileThreads, smem, s>>>(
       static_cast<const T*>(L), static_cast<const T*>(D),
       static_cast<const T*>(U), static_cast<const T*>(b),
       static_cast<T*>(cp), static_cast<T*>(x), ncol, n);
@@ -123,6 +270,13 @@ int launch_block_thomas2(const void* L, const void* D, const void* U,
 }  // namespace
 
 extern "C" {
+
+// the deepest n that block_thomas2 solves with Cp and dp on chip for
+// elem_bytes-sized values (4 or 8); deeper columns need the scratch cp
+int mpp_block_thomas2_max_on_chip(int elem_bytes) {
+  return elem_bytes == 8 ? block_max_on_chip<double>()
+                         : block_max_on_chip<float>();
+}
 
 int mpp_block_thomas2_f32(const void* L, const void* D, const void* U,
                           const void* b, void* cp, void* x, int ncol, int n,

@@ -4,7 +4,8 @@
 ``sm_90a`` (one ``nvcc`` process per source, all started together), links
 the objects into one shared library with a plain C interface, placed in
 ``mpp_tpu_torch/_build/`` under a name that carries a hash of the sources
-(a changed source rebuilds), and loads it with ``ctypes``.  It runs at the
+and their headers (``csrc/*.cuh``; a changed file rebuilds), and loads it
+with ``ctypes``.  It runs at the
 first kernel launch on a CUDA tensor, never at import.  A missing ``nvcc``
 or a failed compile raises with the compiler's output; there is no
 fallback.
@@ -30,13 +31,16 @@ _I = ctypes.c_int
 _D = ctypes.c_double
 #: C signature of each launcher: device pointers and the stream as
 #: ``c_void_p``, sizes and switches as ``c_int``, coefficients as
-#: ``c_double``; every launcher returns cudaError_t
+#: ``c_double``; every launcher returns cudaError_t (the ``*_max_on_chip``
+#: queries the deepest column a solve keeps on chip, for 4- or 8-byte values)
 SIGNATURES = {
+    "mpp_thomas_max_on_chip": (_I,),
     "mpp_thomas_f32": (_P,) * 6 + (_I, _I, _P),
     "mpp_thomas_f64": (_P,) * 6 + (_I, _I, _P),
     "mpp_spmv_f32": (_P,) * 5 + (_I, _I, _P),
     "mpp_spmv_f64": (_P,) * 5 + (_I, _I, _P),
     "mpp_spmv_bf16_f32": (_P,) * 5 + (_I, _I, _P),
+    "mpp_block_thomas2_max_on_chip": (_I,),
     "mpp_block_thomas2_f32": (_P,) * 6 + (_I, _I, _P),
     "mpp_block_thomas2_f64": (_P,) * 6 + (_I, _I, _P),
     "mpp_spmv_chain_f32": (_P,) * 5 + (_I, _I, _I, _D, _P),
@@ -72,7 +76,7 @@ def sources():
 
 def library_path() -> str:
     h = hashlib.sha256()
-    for path in sources():
+    for path in sources() + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
             h.update(f.read())

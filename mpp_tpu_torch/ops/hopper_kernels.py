@@ -62,6 +62,21 @@ def reset_launches():
         LAUNCHES[k] = 0
 
 
+_MAX_ON_CHIP = {}
+
+
+def max_on_chip(kernel, dtype):
+    """The deepest column (levels) that ``kernel`` ("thomas" or
+    "block_thomas2") solves with its carries in shared memory in ``dtype``;
+    deeper columns need a global scratch.  The launcher's own rule, read
+    from the library (built at first use) once per kernel and dtype."""
+    key = (kernel, dtype)
+    if key not in _MAX_ON_CHIP:
+        query = getattr(_build.library(), f"mpp_{kernel}_max_on_chip")
+        _MAX_ON_CHIP[key] = query(torch.empty((), dtype=dtype).element_size())
+    return _MAX_ON_CHIP[key]
+
+
 def _check(name, arrays, dtypes, ref):
     """Raise ValueError unless every array is a contiguous 2-D tensor of
     ``ref``'s shape on ``ref``'s device with a dtype in ``dtypes``."""
@@ -105,13 +120,14 @@ def thomas(dl, d, du, b):
     x = torch.empty_like(b)
     if ncol == 0 or nz == 0:
         return x
-    cp = torch.empty_like(b)
     lib = _build.library()
+    cp = torch.empty_like(b) if nz > max_on_chip("thomas", b.dtype) else None
     fn = lib.mpp_thomas_f64 if d.dtype == torch.float64 else \
         lib.mpp_thomas_f32
     with torch.cuda.device(d.device):
         rc = fn(dl.data_ptr(), d.data_ptr(), du.data_ptr(), b.data_ptr(),
-                cp.data_ptr(), x.data_ptr(), ncol, nz, _stream(d))
+                None if cp is None else cp.data_ptr(), x.data_ptr(), ncol,
+                nz, _stream(d))
     _launched("thomas", rc)
     return x
 
@@ -203,13 +219,15 @@ def block_thomas2(L, D, U, b):
     x = torch.empty_like(b)
     if ncol == 0 or n == 0:
         return x
-    cp = torch.empty_like(D)
     lib = _build.library()
+    cp = torch.empty_like(D) if n > max_on_chip("block_thomas2", b.dtype) \
+        else None
     fn = lib.mpp_block_thomas2_f64 if b.dtype == torch.float64 else \
         lib.mpp_block_thomas2_f32
     with torch.cuda.device(b.device):
         rc = fn(L.data_ptr(), D.data_ptr(), U.data_ptr(), b.data_ptr(),
-                cp.data_ptr(), x.data_ptr(), ncol, n, _stream(b))
+                None if cp is None else cp.data_ptr(), x.data_ptr(), ncol, n,
+                _stream(b))
     _launched("block_thomas2", rc)
     return x
 

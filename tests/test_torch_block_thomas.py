@@ -104,7 +104,12 @@ def test_block_thomas2_matches_pallas_interpret_f32():
     np.testing.assert_allclose(got.numpy(), ref, rtol=2e-5, atol=2e-5)
 
 
-@pytest.mark.parametrize("n", [30, 7])
+# the level counts the CUDA kernel's tiling and chunking must get right
+# (chip_smoke.py adds 500 on the card)
+EDGE_LEVELS = [1, 2, 7, 31, 33, 100, 257]
+
+
+@pytest.mark.parametrize("n", [30, 7] + [n for n in EDGE_LEVELS if n != 7])
 def test_block_thomas2_matches_jax_scan_f64(n):
     L, D, U, b = _pallas_system(64, n, n, np.float64)
     ref = np.asarray(jbt.block_thomas(*(jnp.asarray(a) for a in
@@ -140,21 +145,29 @@ def test_block_thomas2_bad_inputs_raise(case):
         hk.block_thomas2(*_bad_inputs()[case])
 
 
-@pytest.mark.cuda
-def test_block_thomas2_kernel_matches_plain_on_gpu():
-    """On the card: the CUDA kernel against its plain version at the TH
-    shape (run there with `python -m pytest -m cuda tests/`)."""
+def _gpu_system(ncol, n, seed):
+    """Block diagonally dominant systems (chip_smoke.py's block_systems)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
-    rng = np.random.default_rng(3)
-    ncol, n = 4096, 64
+    rng = np.random.default_rng(seed)
     L = 0.2 * rng.standard_normal((ncol, n, 2, 2))
     U = 0.2 * rng.standard_normal((ncol, n, 2, 2))
     D = 0.2 * rng.standard_normal((ncol, n, 2, 2))
     D[..., 0, 0] = 2.5 + rng.random((ncol, n))
     D[..., 1, 1] = 2.5 + rng.random((ncol, n))
     b = rng.standard_normal((ncol, n, 2))
-    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 2e-5)):
+    return L, D, U, b
+
+
+GPU_TOLS = ((torch.float64, 1e-12), (torch.float32, 2e-5))
+
+
+@pytest.mark.cuda
+def test_block_thomas2_kernel_matches_plain_on_gpu():
+    """On the card: the CUDA kernel against its plain version at the TH
+    shape (run there with `python -m pytest -m cuda tests/`)."""
+    L, D, U, b = _gpu_system(4096, 64, 3)
+    for dtype, tol in GPU_TOLS:
         t = [torch.as_tensor(a, dtype=dtype, device="cuda")
              for a in (L, D, U, b)]
         got = hk.block_thomas2(*t)
@@ -162,4 +175,39 @@ def test_block_thomas2_kernel_matches_plain_on_gpu():
         torch.testing.assert_close(got, ref, rtol=0,
                                    atol=tol * float(ref.abs().max()))
     assert hk.LAUNCHES["block_thomas2"] == 2
+    hk.reset_launches()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", EDGE_LEVELS + [500])
+@pytest.mark.parametrize("ncol", [1000, 8193])
+@pytest.mark.parametrize("dtype,tol", GPU_TOLS, ids=["f64", "f32"])
+def test_block_thomas2_kernel_edge_shapes_on_gpu(ncol, n, dtype, tol):
+    """On the card: the kernel where its tiles of 32 columns and its level
+    chunks end ragged, and where Cp and dp leave shared memory (n >= 257
+    in f64, n=500 in f32); tolerance of max |x|."""
+    t = [torch.as_tensor(a, dtype=dtype, device="cuda")
+         for a in _gpu_system(ncol, n, 6)]
+    top = hk.max_on_chip("block_thomas2", dtype)
+    assert (n > top) == (n >= (257 if dtype == torch.float64 else 500))
+    got, ref = hk.block_thomas2(*t), tbt.block_thomas(*t)
+    torch.testing.assert_close(got, ref, rtol=0,
+                               atol=tol * float(ref.abs().max()))
+    assert hk.LAUNCHES["block_thomas2"] == 1
+    hk.reset_launches()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", GPU_TOLS, ids=["f64", "f32"])
+def test_block_thomas2_kernel_misaligned_inputs_on_gpu(dtype, tol):
+    """On the card: inputs that start one element into a larger buffer
+    (data_ptr not 16-byte aligned)."""
+    t = []
+    for a in _gpu_system(1000, 31, 7):
+        buf = torch.empty(a.size + 1, dtype=dtype, device="cuda")
+        t.append(buf[1:].view(a.shape).copy_(torch.as_tensor(a)))
+    assert all(a.data_ptr() % 16 for a in t)
+    got, ref = hk.block_thomas2(*t), tbt.block_thomas(*t)
+    torch.testing.assert_close(got, ref, rtol=0,
+                               atol=tol * float(ref.abs().max()))
     hk.reset_launches()

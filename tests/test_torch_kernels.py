@@ -22,6 +22,10 @@ from mpp_tpu_torch.ops import hopper_kernels as hk
 from mpp_tpu_torch.ops import tridiag
 
 SHAPES = [(16, 32), (8, 30)]
+# the level counts the CUDA Thomas kernel's tiling and chunking must get
+# right (chip_smoke.py adds 500 and 900 on the card), at small ncol here
+EDGE_LEVELS = [1, 2, 7, 31, 33, 100, 257]
+EDGE_SHAPES = [(5 + i % 2 * 4, nz) for i, nz in enumerate(EDGE_LEVELS)]
 DTYPES = [(np.float64, torch.float64, 1e-12), (np.float32, torch.float32, 1e-5)]
 
 
@@ -42,9 +46,12 @@ def _fresh_counters():
     assert all(v == 0 for v in hk.LAUNCHES.values()), hk.LAUNCHES
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + EDGE_SHAPES)
 @pytest.mark.parametrize("np_dtype,dtype,rtol", DTYPES)
 def test_thomas_matches_pallas_thomas(shape, np_dtype, dtype, rtol):
+    """The wrapper on CPU tensors (its plain version) against the JAX
+    package's pallas_thomas, which solves with mpp_tpu.ops.tridiag.thomas
+    off the TPU."""
     dl, d, du, b = _bands(shape, 0, np_dtype)
     ref = np.asarray(pk.pallas_thomas(*(jnp.asarray(a) for a in
                                         (dl, d, du, b))))
@@ -113,12 +120,16 @@ def test_mixed_rejects_wide_bands_and_wide_state():
         hk.tridiag_spmv_mixed(b16, b16, b16, a32.double())
 
 
+def _needs_gpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_on_gpu():
     """On the card: each kernel against its plain version at the ALM
     shape (run there with `python -m pytest -m cuda tests/`)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    _needs_gpu()
     for np_dtype, dtype, rtol in DTYPES:
         dl, d, du, x = (torch.as_tensor(a, device="cuda")
                         for a in _bands((4096, 30), 3, np_dtype))
@@ -131,4 +142,43 @@ def test_kernels_match_plain_on_gpu():
                           hk.tridiag_spmv_mixed_plain(*b16, x)))
         for got, ref in pairs:
             torch.testing.assert_close(got, ref, rtol=rtol, atol=rtol)
+    hk.reset_launches()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nz", EDGE_LEVELS + [500, 900])
+@pytest.mark.parametrize("ncol", [1000, 8193])
+@pytest.mark.parametrize("np_dtype,dtype,rtol", DTYPES)
+def test_thomas_kernel_edge_shapes_on_gpu(ncol, nz, np_dtype, dtype, rtol):
+    """On the card: the Thomas kernel against its plain version where its
+    tiles of 32 columns and its level chunks end ragged, and where cp and
+    bp leave shared memory (nz=500 in f64, nz=900 in both); tolerance of
+    max |x|."""
+    _needs_gpu()
+    top = hk.max_on_chip("thomas", dtype)
+    assert (nz > top) == (nz >= (500 if dtype == torch.float64 else 900))
+    dl, d, du, b = (torch.as_tensor(a, device="cuda")
+                    for a in _bands((ncol, nz), 4, np_dtype))
+    got, ref = hk.thomas(dl, d, du, b), tridiag.thomas(dl, d, du, b)
+    torch.testing.assert_close(got, ref, rtol=0,
+                               atol=rtol * float(ref.abs().max()))
+    assert hk.LAUNCHES["thomas"] == 1
+    hk.reset_launches()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("np_dtype,dtype,rtol", DTYPES)
+def test_thomas_kernel_misaligned_inputs_on_gpu(np_dtype, dtype, rtol):
+    """On the card: inputs that start one element into a larger buffer
+    (data_ptr not 16-byte aligned)."""
+    _needs_gpu()
+    shape = (1000, 31)
+    args = []
+    for a in _bands(shape, 5, np_dtype):
+        buf = torch.empty(a.size + 1, dtype=dtype, device="cuda")
+        args.append(buf[1:].view(shape).copy_(torch.as_tensor(a)))
+    assert all(t.data_ptr() % 16 for t in args)
+    got, ref = hk.thomas(*args), tridiag.thomas(*args)
+    torch.testing.assert_close(got, ref, rtol=0,
+                               atol=rtol * float(ref.abs().max()))
     hk.reset_launches()
