@@ -41,10 +41,14 @@ line is printed):
   (k) the matrix-resident chain y = (scale T)^30 x (scale = 1/||T||_inf)
       and 30 weighted-Jacobi sweeps (omega = 2/3) through the public ops,
       f64 and f32 at [16384, 30] and [16384, 64] and f32 at [131072, 256],
-      each held against its plain version on the same inputs (max |kernel
-      - plain| <= 1e-12 (f64) / 1e-5 (f32) of max |plain|) and timed; and
-      200 sweeps at omega = 0.9 against the Thomas kernel's solution at
-      [16384, 64] f64, to 1e-8;
+      each held against its plain version on the same inputs bit for bit
+      and timed; both kernels bitwise at
+      RESIDENT_EDGE_LEVELS levels x EDGE_NCOLS columns in f64 and f32
+      (every form: registers, shared memory, streamed) and misaligned at
+      RESIDENT_SKEWED; the f32 smoother bitwise where every quotient is a
+      tie of the subnormal grid (SUBNORMAL_TIE_SHAPES); and 200 sweeps at
+      omega = 0.9 against the Thomas kernel's solution at [16384, 64] f64,
+      to 1e-8;
   (l) the SpMV harness (python -m mpp_tpu_torch.tools.exp_spmv) at its
       full size, [131072, 256] f32 with 100 chained applications: every
       variant checked against its plain form and timed, one "exp_spmv"
@@ -101,6 +105,15 @@ EDGE_LEVELS = (1, 2, 7, 31, 33, 100, 257, 500)
 # Thomas keeps its carries on chip to 829 levels in f32
 THOMAS_EDGE_LEVELS = EDGE_LEVELS + (900,)
 EDGE_NCOLS = (1000, 8193)
+# the chain's and the smoother's edge levels: every register width (R = 1,
+# 2, 16; with and without pads), the shared form (513, 2000) and the
+# streamed one (16000, past every on-chip depth); misaligned at one of each
+RESIDENT_EDGE_LEVELS = (1, 2, 31, 32, 33, 255, 256, 512, 513, 2000, 16000)
+RESIDENT_SKEWED = (31, 2000, 16000)
+# the smoother's f32 register widths (R = 1, 2, 4 with pads, 8, 16) at which
+# every quotient is a tie of the subnormal grid
+SUBNORMAL_TIE_SHAPES = ((8192, 1), (4096, 32), (2048, 64), (1024, 100),
+                        (512, 256), (512, 512))
 # the solves' tolerance against their plain versions, of max |x|
 TOLS = {"thomas": {"float64": 1e-12, "float32": 1e-5},
         "block_thomas2": {"float64": 1e-12, "float32": 2e-5}}
@@ -328,37 +341,49 @@ def misaligned(torch, a):
 
 def hold(torch, label, got, ref, tol):
     """Fail unless ``got`` is finite and within ``tol`` of max |ref| of
-    ``ref``; returns (max |got - ref|, max |ref|)."""
+    ``ref`` (with ``tol`` 0: equal to it bit for bit); returns
+    (max |got - ref|, max |ref|)."""
     torch.cuda.synchronize()
     scale = float(torch.max(torch.abs(ref)))
     err = float(torch.max(torch.abs(got - ref)))
     check(bool(torch.isfinite(got).all()), f"{label}: non-finite output")
     check(err <= tol * scale, f"{label}: max |kernel - plain| {err:.3e} > "
           f"{tol:g} * {scale:.3e}")
+    if tol == 0:
+        ints = torch.int64 if got.dtype == torch.float64 else torch.int32
+        check(torch.equal(got.view(ints), ref.view(ints)),
+              f"{label}: not bitwise equal to the plain version")
     return err, scale
 
 
-def edge_rows(torch, hk, name, plain, systems, tols, levels):
+def edge_rows(torch, hk, name, plain, systems, tols, levels,
+              memories=("shared",), skewed=(31,)):
     """Kernel ``name`` of ``hk`` against ``plain`` at the edge shapes:
     every level count of ``levels`` at every column count of EDGE_NCOLS,
-    f64 and f32, and [1000, 31] with every input not 16-byte aligned;
-    ``systems(shape, dtype)`` gives the inputs, ``tols[dtype name]`` the
-    tolerance relative to max |x|.  Fails unless ``levels`` reach both
-    forms of the kernel (carries on chip, and in global memory) in each
-    dtype.  Returns the kernel_check rows."""
+    f64 and f32, and [1000, n] for n in ``skewed`` with every input not
+    16-byte aligned; ``systems(shape, dtype)`` gives the arguments,
+    ``tols[dtype name]`` the tolerance relative to max |x| (0: bitwise).
+    Fails unless ``levels`` reach every form of the kernel in each dtype:
+    one level at most each threshold of ``memories`` (``max_on_chip``), one
+    between each two, one past the last.  Returns the kernel_check rows."""
     kern = getattr(hk, name)
     for dt_name in tols:
-        top = hk.max_on_chip(name, getattr(torch, dt_name))
-        check(min(levels) <= top < max(levels), f"{name} {dt_name}: edge "
-              f"levels {levels} miss a form (on chip to {top} levels)")
+        tops = sorted(hk.max_on_chip(name, getattr(torch, dt_name), m)
+                      for m in memories)
+        edges = [0] + tops + [float("inf")]
+        check(all(any(lo < n <= hi for n in levels)
+                  for lo, hi in zip(edges, edges[1:])),
+              f"{name} {dt_name}: edge levels {levels} miss a form "
+              f"(thresholds {tops})")
     cases = [(ncol, n, dt_name, False) for n in levels
              for ncol in EDGE_NCOLS for dt_name in tols]
-    cases += [(1000, 31, dt_name, True) for dt_name in tols]
+    cases += [(1000, n, dt_name, True) for n in skewed for dt_name in tols]
     rows = []
     for ncol, n, dt_name, skew in cases:
         args = systems((ncol, n), getattr(torch, dt_name))
         if skew:
-            args = [misaligned(torch, a) for a in args]
+            args = [misaligned(torch, a) if torch.is_tensor(a) else a
+                    for a in args]
         err, scale = hold(torch, f"{name} {(ncol, n)} {dt_name}"
                           f"{' misaligned' if skew else ''}", kern(*args),
                           plain(*args), tols[dt_name])
@@ -501,14 +526,48 @@ def resident_systems(torch, shape, dtype, seed):
     return (t(dl), t(d), t(du), t(x), t(b)), scale
 
 
+def resident_edge_systems(torch, name, shape, dtype):
+    """The chain's or the smoother's arguments at an edge shape, drawn on
+    the card (torch generator, seed 11): diagonally dominant bands,
+    ||T||_inf <= 4.5, scale 0.25."""
+    g = torch.Generator(device="cuda").manual_seed(11)
+    u = lambda: torch.rand(shape, generator=g, device="cuda",
+                           dtype=torch.float64)
+    dl, du, d = u() - 0.5, u() - 0.5, 2.5 + u()
+    x = torch.randn(shape, generator=g, device="cuda", dtype=torch.float64)
+    b = torch.randn(shape, generator=g, device="cuda", dtype=torch.float64)
+    dl, d, du, x, b = (a.to(dtype) for a in (dl, d, du, x, b))
+    if name == "tridiag_spmv_chain":
+        return [dl, d, du, x, CHAIN_K, 0.25]
+    return [dl, d, du, b, x, CHAIN_K]
+
+
+def subnormal_ties(torch, shape):
+    """Smoother arguments at ``shape`` (f32) whose every quotient b/d is a
+    midpoint of the f32 subnormal grid: b = M D 2^-145, d = 32 D (M, D odd,
+    so b/d = M 2^-150); with x = 0 and omega = 1 one sweep gives y =
+    RN(b/d), a tie, which a quotient through an f64 reciprocal can round
+    the wrong way."""
+    m, dd = np.meshgrid(np.arange(3, 64, 2), np.arange(3, 4096, 2),
+                        indexing="ij")
+    pick = np.resize(np.arange(m.size), shape)
+    md, dd = (m * dd).ravel()[pick], dd.ravel()[pick]
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device="cuda")
+    zero = torch.zeros(shape, dtype=torch.float32, device="cuda")
+    return [zero, t(np.ldexp(dd, 5)), zero, t(np.ldexp(md, -145)), zero, 1,
+            1.0]
+
+
 def resident_checks(torch, hk, tridiag):
     """Phase (k): the chain and the smoother through the public ops at
-    every shape (the counted path), then each against its plain version and
-    timed; then the smoother's convergence to the Thomas solution."""
+    every shape (the counted path), then each against its plain version,
+    bit for bit, and timed; both at the edge levels of every form; the
+    smoother at
+    ties of the f32 subnormal grid; then its convergence to the Thomas
+    solution."""
     cases = [(torch.float64, (NCOL, NZ)), (torch.float64, (NCOL, 64)),
              (torch.float32, (NCOL, NZ)), (torch.float32, (NCOL, 64)),
              (torch.float32, HARNESS_SHAPE)]
-    tols = {torch.float64: 1e-12, torch.float32: 1e-5}
     systems = [resident_systems(torch, shape, dtype, 4)
                for dtype, shape in cases]
     hk.reset_launches()
@@ -526,31 +585,49 @@ def resident_checks(torch, hk, tridiag):
     for (dtype, shape), ((dl, d, du, x, b), scale), (yc, yj) in zip(
             cases, systems, outs):
         dt_name = str(dtype).replace("torch.", "")
-        for name, got, kern, plain in (
-                ("tridiag_spmv_chain", yc,
-                 partial(hk.tridiag_spmv_chain, dl, d, du, x, CHAIN_K,
-                         scale),
-                 partial(tridiag.tridiag_spmv_chain, dl, d, du, x, CHAIN_K,
-                         scale)),
-                ("tridiag_jacobi_smooth", yj,
-                 partial(hk.tridiag_jacobi_smooth, dl, d, du, b, x, CHAIN_K),
-                 partial(tridiag.tridiag_jacobi_smooth, dl, d, du, b, x,
-                         CHAIN_K))):
+        runs = [
+            ("tridiag_spmv_chain", yc,
+             partial(hk.tridiag_spmv_chain, dl, d, du, x, CHAIN_K, scale),
+             partial(tridiag.tridiag_spmv_chain, dl, d, du, x, CHAIN_K,
+                     scale)),
+            ("tridiag_jacobi_smooth", yj,
+             partial(hk.tridiag_jacobi_smooth, dl, d, du, b, x, CHAIN_K),
+             partial(tridiag.tridiag_jacobi_smooth, dl, d, du, b, x,
+                     CHAIN_K))]
+        for name, got, kern, plain in runs:
             err, ymax = hold(torch, f"{name} {shape} {dt_name}", got,
-                             plain(), tols[dtype])
-            row = dict(max_abs_err=err, ms=time_cuda(torch, kern, 20),
+                             plain(), 0)
+            row = dict(max_abs_err=err, bitwise=True,
+                       ms=time_cuda(torch, kern, 20),
                        plain_ms=time_cuda(torch, plain, 3), library_ms=None,
                        library_device_ms=None,
                        **bound_fields(name, shape, dt_name))
             rows.append(dict(kernel=name, shape=list(shape), dtype=dt_name,
-                             iters=CHAIN_K, max_abs_y=ymax,
-                             rel_tol=tols[dtype], **row))
+                             iters=CHAIN_K, max_abs_y=ymax, rel_tol=0,
+                             **row))
             targets = [rows[-1]]
             if shape == HARNESS_SHAPE:
                 results[name] = dict(shape=list(shape), dtype=dt_name,
                                      launches=launches[name], **row)
                 targets.append(results[name])
             later(kern, 10, *targets)
+    print("resident_bitwise " + json.dumps(dict(
+        shapes=[list(shape) for _, shape in cases],
+        dtypes=[str(dtype).replace("torch.", "") for dtype, _ in cases],
+        max_abs_err=max(r["max_abs_err"] for r in rows), bitwise=True)))
+    for name in ("tridiag_spmv_chain", "tridiag_jacobi_smooth"):
+        rows += edge_rows(
+            torch, hk, name, getattr(tridiag, name),
+            partial(resident_edge_systems, torch, name),
+            {"float64": 0, "float32": 0}, RESIDENT_EDGE_LEVELS,
+            memories=("registers", "shared"), skewed=RESIDENT_SKEWED)
+    for shape in SUBNORMAL_TIE_SHAPES:
+        args = subnormal_ties(torch, shape)
+        hold(torch, f"tridiag_jacobi_smooth {shape} float32 subnormal ties",
+             hk.tridiag_jacobi_smooth(*args),
+             tridiag.tridiag_jacobi_smooth(*args), 0)
+    print("subnormal_ties " + json.dumps(dict(
+        shapes=[list(s) for s in SUBNORMAL_TIE_SHAPES], bitwise=True)))
     # 200 sweeps at omega = 0.9 reach the Thomas kernel's solution
     # (the system of tests/test_pallas_kernels.py:11-17 and :36-44)
     rng = np.random.default_rng(7)

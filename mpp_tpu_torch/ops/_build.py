@@ -32,7 +32,8 @@ _D = ctypes.c_double
 #: C signature of each launcher: device pointers and the stream as
 #: ``c_void_p``, sizes and switches as ``c_int``, coefficients as
 #: ``c_double``; every launcher returns cudaError_t (the ``*_max_on_chip``
-#: queries the deepest column a solve keeps on chip, for 4- or 8-byte values)
+#: and ``*_max_in_registers`` queries the deepest column a kernel keeps on
+#: chip, or in registers, for 4- or 8-byte values)
 SIGNATURES = {
     "mpp_thomas_max_on_chip": (_I,),
     "mpp_thomas_f32": (_P,) * 6 + (_I, _I, _P),
@@ -43,10 +44,14 @@ SIGNATURES = {
     "mpp_block_thomas2_max_on_chip": (_I,),
     "mpp_block_thomas2_f32": (_P,) * 6 + (_I, _I, _P),
     "mpp_block_thomas2_f64": (_P,) * 6 + (_I, _I, _P),
-    "mpp_spmv_chain_f32": (_P,) * 5 + (_I, _I, _I, _D, _P),
-    "mpp_spmv_chain_f64": (_P,) * 5 + (_I, _I, _I, _D, _P),
-    "mpp_jacobi_smooth_f32": (_P,) * 6 + (_I, _I, _I, _D, _P),
-    "mpp_jacobi_smooth_f64": (_P,) * 6 + (_I, _I, _I, _D, _P),
+    "mpp_tridiag_spmv_chain_max_in_registers": (_I,),
+    "mpp_tridiag_spmv_chain_max_on_chip": (_I,),
+    "mpp_tridiag_jacobi_smooth_max_in_registers": (_I,),
+    "mpp_tridiag_jacobi_smooth_max_on_chip": (_I,),
+    "mpp_spmv_chain_f32": (_P,) * 6 + (_I, _I, _I, _D, _P),
+    "mpp_spmv_chain_f64": (_P,) * 6 + (_I, _I, _I, _D, _P),
+    "mpp_jacobi_smooth_f32": (_P,) * 7 + (_I, _I, _I, _D, _P),
+    "mpp_jacobi_smooth_f64": (_P,) * 7 + (_I, _I, _I, _D, _P),
     "mpp_spmv_variant_f32": (_P,) * 5 + (_I,) * 5 + (_P,),
     "mpp_spmv_packed_f32": (_P,) * 3 + (_I, _I, _P),
     "mpp_stream_ceiling_f32": (_P,) * 5 + (_I, _I, _P),

@@ -17,10 +17,11 @@ Each kernel sits beside its plain PyTorch version.  The first three
 The SpMV family (``csrc/spmv_family_kernels.cu``) serves the public ops
 and the SpMV measurement harness (``tools/exp_spmv.py``):
 
-* :func:`tridiag_spmv_chain` — y = (scale T)^K x with the bands resident
-  in registers; replaces ``tridiag_spmv_chain`` (l.214-247).
-* :func:`tridiag_jacobi_smooth` — K weighted-Jacobi sweeps with T and b
-  resident; replaces ``tridiag_jacobi_smooth`` (l.250-286).
+* :func:`tridiag_spmv_chain` — y = (scale T)^K x with the bands read once
+  (in registers, in shared memory, or streamed past both); replaces
+  ``tridiag_spmv_chain`` (l.214-247).
+* :func:`tridiag_jacobi_smooth` — K weighted-Jacobi sweeps, T and b kept
+  the same way; replaces ``tridiag_jacobi_smooth`` (l.250-286).
 * :func:`spmv_variant` — y = T x in f32 by tiles of whole columns, the
   neighbours loaded or shuffled, one block per tile or a persistent grid;
   replaces ``pallas_kernel`` and ``pallas_kernel_cp`` of the JAX package's
@@ -52,10 +53,6 @@ LAUNCHES = {"thomas": 0, "tridiag_spmv": 0, "tridiag_spmv_mixed": 0,
             "tridiag_jacobi_smooth": 0, "spmv_variant": 0, "spmv_packed": 0,
             "stream_ceiling": 0}
 
-#: the largest nz of the register-resident chain and smoother (16 slots of
-#: 32 levels in each lane of a warp)
-RESIDENT_MAX_NZ = 512
-
 
 def reset_launches():
     for k in LAUNCHES:
@@ -65,14 +62,19 @@ def reset_launches():
 _MAX_ON_CHIP = {}
 
 
-def max_on_chip(kernel, dtype):
-    """The deepest column (levels) that ``kernel`` ("thomas" or
-    "block_thomas2") solves with its carries in shared memory in ``dtype``;
-    deeper columns need a global scratch.  The launcher's own rule, read
-    from the library (built at first use) once per kernel and dtype."""
-    key = (kernel, dtype)
+def max_on_chip(kernel, dtype, memory="shared"):
+    """The deepest column (levels) that ``kernel`` keeps on chip in
+    ``dtype``: for "thomas" and "block_thomas2" with the carries in shared
+    memory, for "tridiag_spmv_chain" and "tridiag_jacobi_smooth" with the
+    bands, b and x in shared memory, or with ``memory="registers"`` in a
+    warp's registers (those two only).  Deeper columns need a global
+    scratch.  The launcher's own rule, read from the library (built at
+    first use) once per kernel, dtype and memory."""
+    key = (kernel, dtype, memory)
     if key not in _MAX_ON_CHIP:
-        query = getattr(_build.library(), f"mpp_{kernel}_max_on_chip")
+        which = {"shared": "max_on_chip",
+                 "registers": "max_in_registers"}[memory]
+        query = getattr(_build.library(), f"mpp_{kernel}_{which}")
         _MAX_ON_CHIP[key] = query(torch.empty((), dtype=dtype).element_size())
     return _MAX_ON_CHIP[key]
 
@@ -239,16 +241,23 @@ def _resident(name, arrays, x, iters):
         raise ValueError(f"{name}: all arrays must share one dtype")
     if isinstance(iters, bool) or not isinstance(iters, int) or iters < 0:
         raise ValueError(f"{name}: iters must be an int >= 0, got {iters!r}")
-    if x.shape[1] > RESIDENT_MAX_NZ:
-        raise ValueError(f"{name}: nz={x.shape[1]} > {RESIDENT_MAX_NZ}, the "
-                         "largest column the register-resident kernel holds")
+
+
+def _scratch(name, x, iters):
+    """The streamed form's ping-pong buffer: needed past the on-chip depth
+    when there is more than one sweep."""
+    if x.shape[1] > max_on_chip(name, x.dtype) and iters > 1:
+        return torch.empty_like(x)
+    return None
 
 
 def tridiag_spmv_chain(dl, d, du, x, iters, scale=1.0):
-    """y = (scale * T)^iters x over ``[ncol, nz]`` arrays, f32 or f64,
-    nz <= ``RESIDENT_MAX_NZ``; the bands are read once for all ``iters``
-    applications."""
-    _resident("tridiag_spmv_chain", (dl, d, du, x), x, iters)
+    """y = (scale * T)^iters x over ``[ncol, nz]`` arrays, f32 or f64, any
+    nz; the bands are read once for all ``iters`` applications where the
+    column fits on chip (``max_on_chip``: in registers, then in shared
+    memory), and once a sweep past that."""
+    name = "tridiag_spmv_chain"
+    _resident(name, (dl, d, du, x), x, iters)
     if x.device.type == "cpu":
         return tridiag.tridiag_spmv_chain(dl, d, du, x, iters, scale)
     ncol, nz = x.shape
@@ -259,17 +268,23 @@ def tridiag_spmv_chain(dl, d, du, x, iters, scale=1.0):
     fn = lib.mpp_spmv_chain_f64 if x.dtype == torch.float64 else \
         lib.mpp_spmv_chain_f32
     with torch.cuda.device(x.device):
+        sc = _scratch(name, x, iters)
         rc = fn(dl.data_ptr(), d.data_ptr(), du.data_ptr(), x.data_ptr(),
-                y.data_ptr(), ncol, nz, iters, float(scale), _stream(x))
-    _launched("tridiag_spmv_chain", rc)
+                None if sc is None else sc.data_ptr(), y.data_ptr(), ncol,
+                nz, iters, float(scale), _stream(x))
+    _launched(name, rc)
     return y
 
 
 def tridiag_jacobi_smooth(dl, d, du, b, x, iters, omega=2.0 / 3.0):
     """``iters`` sweeps x <- x + omega * (b - T x) / d over ``[ncol, nz]``
-    arrays, f32 or f64, nz <= ``RESIDENT_MAX_NZ``; T and b are read once
-    for all sweeps."""
-    _resident("tridiag_jacobi_smooth", (dl, d, du, b, x), x, iters)
+    arrays, f32 or f64, any nz; T and b are read once for all sweeps where
+    the column fits on chip, as in :func:`tridiag_spmv_chain`.  In f32 the
+    register form divides through a reciprocal taken once a level in f64,
+    which gives ``/``'s bits (``csrc/spmv_family_kernels.cu``); every other
+    form, and f64, divides with ``/``."""
+    name = "tridiag_jacobi_smooth"
+    _resident(name, (dl, d, du, b, x), x, iters)
     if x.device.type == "cpu":
         return tridiag.tridiag_jacobi_smooth(dl, d, du, b, x, iters, omega)
     ncol, nz = x.shape
@@ -280,10 +295,11 @@ def tridiag_jacobi_smooth(dl, d, du, b, x, iters, omega=2.0 / 3.0):
     fn = lib.mpp_jacobi_smooth_f64 if x.dtype == torch.float64 else \
         lib.mpp_jacobi_smooth_f32
     with torch.cuda.device(x.device):
+        sc = _scratch(name, x, iters)
         rc = fn(dl.data_ptr(), d.data_ptr(), du.data_ptr(), b.data_ptr(),
-                x.data_ptr(), y.data_ptr(), ncol, nz, iters, float(omega),
-                _stream(x))
-    _launched("tridiag_jacobi_smooth", rc)
+                x.data_ptr(), None if sc is None else sc.data_ptr(),
+                y.data_ptr(), ncol, nz, iters, float(omega), _stream(x))
+    _launched(name, rc)
     return y
 
 

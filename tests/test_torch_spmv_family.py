@@ -34,6 +34,7 @@ from mpp_tpu.ops.tridiag import thomas as jthomas
 from mpp_tpu_torch.ops import hopper_kernels as hk
 from mpp_tpu_torch.ops import tridiag
 from mpp_tpu_torch.tools import exp_spmv as te
+from mpp_tpu_torch.tools import resident_variants as rv
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SHAPES = [(16, 32), (8, 30), (4, 128)]
@@ -117,6 +118,27 @@ def test_jacobi_converges_to_thomas():
         x_exact.numpy(), np.asarray(jthomas(*(jnp.asarray(a) for a in
                                                (dl, d, du, b)))),
         rtol=1e-12)
+
+
+@pytest.mark.parametrize("iters", [1, 30])
+@pytest.mark.parametrize("nz", [513, 1000])
+@pytest.mark.parametrize("np_dtype,dtype,rtol", DTYPES)
+@pytest.mark.parametrize("name", ["chain", "jacobi"])
+def test_deep_columns_match_pallas(name, nz, iters, np_dtype, dtype, rtol):
+    """Every nz, as the JAX functions take it (their fori_loop form past the
+    Pallas shapes): columns deeper than a warp's registers hold."""
+    dl, d, du, x, b = _system((3, nz), 8, np_dtype)
+    j = [jnp.asarray(a) for a in (dl, d, du, x, b)]
+    t = [torch.as_tensor(a) for a in (dl, d, du, x, b)]
+    if name == "chain":
+        ref = pk.tridiag_spmv_chain(*j[:4], iters=iters, scale=0.25)
+        got = hk.tridiag_spmv_chain(*t[:4], iters, 0.25)
+    else:
+        ref = pk.tridiag_jacobi_smooth(j[0], j[1], j[2], j[4], j[3],
+                                       iters=iters)
+        got = hk.tridiag_jacobi_smooth(t[0], t[1], t[2], t[4], t[3], iters)
+    assert got.dtype == dtype
+    _close(got, ref, rtol)
 
 
 def test_zero_iterations_return_x():
@@ -223,19 +245,31 @@ def test_harness_refuses_to_run_without_cuda(monkeypatch):
         te.run(data=te.inputs(8, 16, device="cpu"))
 
 
+@pytest.mark.parametrize("name", sorted(rv.VARIANTS))
+def test_resident_variant_edits_apply(name):
+    """Each variant build of the chain and smoother the measurement tool
+    times is the kernel source with its edits in place."""
+    src = (ROOT / "mpp_tpu_torch" / rv.SOURCE).read_text()
+    text = rv.variant_source(name)
+    for old, new in rv.VARIANTS[name]:
+        assert old in src and old not in text and new in text
+    assert text != src
+
+
+def test_resident_variants_refuse_to_run_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        rv.main(["this"])
+
+
 # --- wrapper checks ---------------------------------------------------------
 def _bad_calls():
     a = torch.ones(4, 8, dtype=torch.float64)
     f = a.float()
-    wide = torch.ones(2, hk.RESIDENT_MAX_NZ + 1, dtype=torch.float64)
     return {
-        "chain nz above the resident limit":
-            lambda: hk.tridiag_spmv_chain(wide, wide, wide, wide, 1),
         "chain negative iters": lambda: hk.tridiag_spmv_chain(a, a, a, a, -1),
         "chain float iters": lambda: hk.tridiag_spmv_chain(a, a, a, a, 2.0),
         "chain mixed dtypes": lambda: hk.tridiag_spmv_chain(a, f, a, a, 1),
-        "jacobi nz above the resident limit":
-            lambda: hk.tridiag_jacobi_smooth(wide, wide, wide, wide, wide, 1),
         "jacobi shape mismatch": lambda: hk.tridiag_jacobi_smooth(
             a, a, a, torch.ones(4, 9, dtype=torch.float64), a, 1),
         "jacobi non-contiguous": lambda: hk.tridiag_jacobi_smooth(
@@ -256,16 +290,6 @@ def _bad_calls():
 def test_bad_inputs_raise(case):
     with pytest.raises(ValueError):
         _bad_calls()[case]()
-
-
-def test_resident_limit_is_accepted():
-    n = hk.RESIDENT_MAX_NZ
-    dl, d, du, x, b = (torch.as_tensor(a) for a in
-                       _system((2, n), 4, np.float64))
-    y = hk.tridiag_spmv_chain(dl, d, du, x, 2, 0.25)
-    _close(y, tridiag.tridiag_matvec(dl, d, du, tridiag.tridiag_matvec(
-        dl, d, du, x) * 0.25).numpy() * 0.25, 1e-12)
-    assert hk.tridiag_jacobi_smooth(dl, d, du, b, x, 2).shape == (2, n)
 
 
 # --- on the card ------------------------------------------------------------
@@ -291,6 +315,113 @@ def test_resident_kernels_match_plain_on_gpu(shape, np_dtype, dtype, rtol):
         scale = float(ref.abs().max())
         assert float((got - ref).abs().max()) <= rtol * scale
     hk.reset_launches()
+
+
+# levels that reach every form of the chain and the smoother in both
+# dtypes: registers (R = 1, 2, 16 with and without pads), shared memory
+# (513, 2000) and streamed (16000 > every on-chip depth)
+EDGE_NZ = [1, 2, 31, 32, 33, 255, 256, 512, 513, 2000, 16000]
+
+
+def _bits(t):
+    return t.view(torch.int64 if t.dtype == torch.float64 else torch.int32)
+
+
+def _misaligned(a):
+    out = torch.empty(a.numel() + 1, dtype=a.dtype, device=a.device)[1:]
+    return out.view(a.shape).copy_(a)
+
+
+def _bitwise_on_gpu(shape, dtype, skew=False):
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    arrs = [torch.as_tensor(a, device="cuda")
+            for a in _system(shape, 9, np_dtype)]
+    if skew:
+        arrs = [_misaligned(a) for a in arrs]
+    dl, d, du, x, b = arrs
+    pairs = [(hk.tridiag_spmv_chain(dl, d, du, x, 30, 0.25),
+              tridiag.tridiag_spmv_chain(dl, d, du, x, 30, 0.25)),
+             (hk.tridiag_jacobi_smooth(dl, d, du, b, x, 30),
+              tridiag.tridiag_jacobi_smooth(dl, d, du, b, x, 30))]
+    for got, ref in pairs:
+        assert bool(torch.isfinite(ref).all())
+        assert torch.equal(_bits(got), _bits(ref))
+    hk.reset_launches()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nz", EDGE_NZ)
+@pytest.mark.parametrize("ncol", [1000, 8193])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_resident_kernels_bitwise_at_every_depth_on_gpu(nz, ncol, dtype):
+    """Both kernels equal their plain versions bit for bit at every form
+    and ragged column counts."""
+    _cuda_or_skip()
+    _bitwise_on_gpu((ncol, nz), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nz", [31, 256, 2000, 16000])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_resident_kernels_bitwise_misaligned_on_gpu(nz, dtype):
+    _cuda_or_skip()
+    _bitwise_on_gpu((1000, nz), dtype, skew=True)
+
+
+def _subnormal_ties(shape, device):
+    """f32 smoother arguments whose every quotient b/d is a midpoint of the
+    subnormal grid (b = M D 2^-145, d = 32 D, M and D odd): with x = 0 and
+    omega = 1, one sweep gives y = RN(b/d)."""
+    m, dd = np.meshgrid(np.arange(3, 64, 2), np.arange(3, 4096, 2),
+                        indexing="ij")
+    pick = np.resize(np.arange(m.size), shape)
+    md, dd = (m * dd).ravel()[pick], dd.ravel()[pick]
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    zero = torch.zeros(shape, dtype=torch.float32, device=device)
+    return [zero, t(np.ldexp(dd, 5)), zero, t(np.ldexp(md, -145)), zero, 1,
+            1.0]
+
+
+def test_subnormal_ties_need_ieee_division():
+    """The inputs of the test below: the plain smoother gives `/`'s ties,
+    and a quotient through an f64 reciprocal, (float)((double)b *
+    (1/(double)d)), rounds some of them the other way; so the register
+    form's hoisted quotient must not be taken there."""
+    args = _subnormal_ties((64, 256), "cpu")
+    b, d = args[3].numpy(), args[1].numpy()
+    ieee = b / d
+    y = tridiag.tridiag_jacobi_smooth(*args)
+    assert np.array_equal(y.numpy().view(np.int32), ieee.view(np.int32))
+    assert np.all(np.abs(ieee) < np.float32(2.0 ** -126))
+    rcp = (b.astype(np.float64) * (1.0 / d.astype(np.float64))) \
+        .astype(np.float32)
+    assert np.any(rcp.view(np.int32) != ieee.view(np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nz", [1, 32, 64, 100, 256, 512])
+def test_smoother_rounds_subnormal_ties_as_division_on_gpu(nz):
+    """Every register width of the f32 smoother at ties of the subnormal
+    grid: the hoisted quotient's guard hands them to `/`."""
+    _cuda_or_skip()
+    args = _subnormal_ties((2048, nz), "cuda")
+    got = hk.tridiag_jacobi_smooth(*args)
+    ref = tridiag.tridiag_jacobi_smooth(*args)
+    assert torch.equal(_bits(got), _bits(ref))
+    hk.reset_launches()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("name", ["tridiag_spmv_chain",
+                                  "tridiag_jacobi_smooth"])
+def test_resident_edge_levels_reach_every_form_on_gpu(name, dtype):
+    _cuda_or_skip()
+    regs = hk.max_on_chip(name, dtype, "registers")
+    shared = hk.max_on_chip(name, dtype)
+    assert regs == 512 and 2000 <= shared < 16000
+    for lo, hi in ((0, regs), (regs, shared), (shared, 10 ** 9)):
+        assert any(lo < n <= hi for n in EDGE_NZ), (lo, hi)
 
 
 @pytest.mark.cuda
