@@ -53,22 +53,47 @@ line is printed):
       full size, [131072, 256] f32 with 100 chained applications: every
       variant checked against its plain form and timed, one "exp_spmv"
       JSON line; and a block-diagonal CSR of the same T through
-      torch.sparse.mm (cuSPARSE) as the library yardstick.
+      torch.sparse.mm (cuSPARSE) as the library yardstick;
+  (m) the ALM f32 step with the per-column f64 escalation (the default
+      precision policy) at ncol=16384, nz=48, dz=0.05 m, uniform soils,
+      P0=1e3 Pa, infiltration 8e-3 mm/s on the first half of the columns,
+      dt=3600 s (tests/test_alm.py:221 at full width): one warm step and 2
+      timed steps; the warm step escalates columns, every column lands
+      under 1e-5 kg, the state stays f32, and the escalation's f64 re-solve
+      launches thomas and tridiag_spmv (the counters read around it);
+  (n) the ring lateral: (d)'s f64 soils with lateral_connectivity,
+      conductance 1e-10 kmol/s/Pa, the first half of the columns wet
+      (9e4 Pa), no forcing: 2 steps; |sum qflx_lateral| < 1e-10 *
+      sum |qflx_lateral|, total water mass conserved to rel 1e-6, audit
+      < 1e-5 kg;
+  (o) (d)'s step with linesearch_jac="fused" against "separate", one step
+      each from the same state at [16384, 30] f64: equal reasons, states
+      within atol 1e-7 Pa, both ms/step;
+  (p) the thermal KSP (thermal_batched): the 64-cell 1-D MMS column through
+      compile_ksp(linear_solver="direct") at [16384, 64] f32, T0 = 280 +
+      10 rand K, per-column liq = 5 rand (numpy seed 0), dt=1800 s: one
+      warm step and 20 timed steps; every column ok and finite, Thomas
+      launched once a step, the Thomas kernel held against its plain
+      version at that step's bands; and a 64-column f64 step on the card
+      equal to the CPU's within rtol 1e-9.
 
 Every kernel timing is read twice: ``ms``, CUDA events around back-to-back
 calls of the wrapper (host cost per call included), and ``device_ms``, the
 summed duration of the device activities that torch.profiler (CUPTI)
 records for one call (host cost excluded); the library yardstick gets the
-same two readings.  The device readings are queued and taken after (l),
+same two readings.  The device readings are queued and taken after (p),
 so that no profiler window comes before a host-clock timing (the step
 times and every ``ms``); the "profiler_after" line then times the f64 ALM
 steps and the (c) kernels' eager calls again, after the windows, beside
-their readings from before them.
+their readings from before them.  One more step of (m) and 10 of (p) are
+read the same way: their device time over the step's host-clock time is
+the cell's device-busy share (the "step_device" lines).
 
 The launch counters are reset just before (d) and read just after (e),
 reset just before (h) and read just after (i), reset just before (k)'s
-calls of the ops and read just after them, and reset just before (l)'s
-harness run and read just after it: every kernel of each path must have
+calls of the ops and read just after them, reset just before (l)'s
+harness run and read just after it, and reset just before each of
+(m)-(p) and read just after it: every kernel of each path must have
 launched on it.  The line before the last is the card's name and power
 limit, the one before it a JSON object with one entry per kernel (its
 launches on its path, error against its plain version, kernel (eager and
@@ -95,6 +120,13 @@ TH_DT = 3600.0
 TH_STEPS = 8
 TH_F32_TOLS = dict(rtol=2e-3, stol=1e-5)
 TH_MASS_KG = 1e-6
+# (m): tests/test_alm.py:221's column at full width
+ESC_NZ, ESC_DZ, ESC_P0, ESC_QINFL, ESC_DT, ESC_STEPS = 48, 0.05, 1e3, 8e-3, \
+    3600.0, 2
+# (n): the ring's conductance [kmol/s/Pa] and the wet half's pressure [Pa]
+LAT_G, LAT_WET_P = 1e-10, 9.0e4
+# (p): the thermal_batched cell
+THERM_NCOL, THERM_NX, THERM_DT, THERM_STEPS = 16384, 64, 1800.0, 20
 CHAIN_K = 30
 JACOBI_CHECK = dict(iters=200, omega=0.9, shape=(16384, 64), tol=1e-8)
 HARNESS_SHAPE = (131072, 256)
@@ -171,7 +203,7 @@ def check(cond, msg):
         fail(msg)
 
 
-# device-time readings queued by the phases, taken after (l) by settle()
+# device-time readings queued by the phases, taken after (p) by settle()
 PENDING = []
 # the (c) kernels' main-shape calls, timed eagerly again after settle()
 AGAIN = {}
@@ -212,6 +244,16 @@ def alm_inputs(ncol, nz, seed=0):
     forcing = dict(qflx_infl=2e-4 * (0.2 + rng.random(ncol)),
                    qflx_tran_veg=1e-4 * rng.random(ncol), rootr=rootr)
     return soils, forcing
+
+
+def uniform_soils(ncol, nz, dz):
+    """The uniform CLM soils of tests/test_alm.py:22 (``_soil_kwargs``)."""
+    shape = (ncol, nz)
+    return dict(watsat=np.full(shape, 0.368),
+                hksat=np.full(shape, 0.0070556), bsw=np.full(shape, 2.0),
+                sucsat=np.full(shape, 29.772),
+                residual_sat=np.full(shape, 0.2772), dz=np.full(shape, dz),
+                area=np.ones(ncol))
 
 
 def bound(nbytes, ops, dtype):
@@ -300,7 +342,11 @@ def device_time(torch, fn, reps, tries=5):
     or more short, most often in the first window after a long stretch of
     untraced work (tracing host activities too and opening and closing the
     window 1 ms away from the calls make it rarer), so a short window is
-    taken again, up to ``tries`` times; the run fails if none is whole."""
+    taken again, up to ``tries`` times; the run fails if none is whole.
+    A window of many kernels queued with no host synchronisation (the
+    thermal step) lost its first three records in every try, so each
+    window opens with spin kernels of a name of their own, waited for and
+    left out of the sums."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -308,6 +354,9 @@ def device_time(torch, fn, reps, tries=5):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            for _ in range(4):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
             time.sleep(1e-3)
             for _ in range(reps):
                 fn()
@@ -315,7 +364,8 @@ def device_time(torch, fn, reps, tries=5):
             time.sleep(1e-3)
         by_name = {}
         for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
+            if e.device_type == DeviceType.CUDA \
+                    and "spin_kernel" not in e.name:
                 by_name.setdefault(e.name, []).append(
                     e.time_range.elapsed_us())
         return by_name
@@ -811,6 +861,300 @@ def run_alm(torch, alm, dtype, nsteps, device, ncol=NCOL):
     return ms, out, steps, setup_s
 
 
+def sync(torch, device="cuda"):
+    if device != "cpu":
+        torch.cuda.synchronize()
+
+
+def held_at_path(torch, hk, tridiag, captured, path):
+    """Each kernel of ``captured`` ({(name, dtype name): its arguments as
+    the path gave them}) against its plain version on those arguments,
+    timed; returns the kernel_check rows."""
+    plains = {"thomas": tridiag.thomas,
+              "tridiag_spmv": tridiag.tridiag_matvec,
+              "tridiag_spmv_mixed": hk.tridiag_spmv_mixed_plain}
+    rows = []
+    for (name, dt_name), args in sorted(captured.items()):
+        kern = partial(getattr(hk, name), *args)
+        plain = partial(plains[name], *args)
+        tol = TOLS["thomas"][dt_name]
+        shape = tuple(args[-1].shape)
+        err, scale = hold(torch, f"{name} {path} {shape} {dt_name}", kern(),
+                          plain(), tol)
+        nbytes = 14 * shape[0] * shape[1] if name == "tridiag_spmv_mixed" \
+            else None
+        rows.append(dict(kernel=name, path=path, shape=list(shape),
+                         dtype=dt_name, max_abs_err=err, max_abs_x=scale,
+                         rel_tol=tol, ms=time_cuda(torch, kern, 20),
+                         plain_ms=time_cuda(torch, plain, 5),
+                         **bound_fields(name, shape, dt_name, nbytes)))
+        later(kern, 10, rows[-1])
+    return rows
+
+
+def run_escalation(torch, hk, tridiag, alm):
+    """Phase (m): the f32 ALM step with the per-column f64 escalation.
+    Returns (the launches of the phase, the step's device-busy row, its
+    device time queued, the kernel_check rows of thomas, tridiag_spmv and
+    tridiag_spmv_mixed at the bands and right-hand sides the phase gave
+    them: the f32 step's and the f64 escalation's)."""
+    soils = uniform_soils(NCOL, ESC_NZ, ESC_DZ)
+    qinfl = np.zeros(NCOL)
+    qinfl[:NCOL // 2] = ESC_QINFL
+    t_setup = time.perf_counter()
+    prob = alm.alm_vsfm_initialize(P0=np.full((NCOL, ESC_NZ), ESC_P0),
+                                   dtype=torch.float32, device="cuda",
+                                   **soils)
+    check(prob.escalate_f64, "(m): escalation is not the f32 default")
+    q = torch.as_tensor(qinfl, dtype=torch.float64, device="cuda")
+    counted = ("thomas", "tridiag_spmv", "tridiag_spmv_mixed")
+    in_escalation = []
+    real = alm._escalate_f64
+
+    def escalate(*args, **kw):
+        before = {k: hk.LAUNCHES[k] for k in counted}
+        out = real(*args, **kw)
+        in_escalation.append({k: hk.LAUNCHES[k] - before[k]
+                              for k in counted})
+        return out
+
+    # the first arguments each kernel gets in each dtype, through the
+    # stepper's solve and J*Y hooks (the escalation uses the same stepper)
+    captured = {}
+    comp = prob.comp
+
+    def solve(bands, F):
+        key = ("thomas", str(F.dtype).split(".")[-1])
+        if key not in captured:
+            captured[key] = [a.clone() for a in bands] + [F.contiguous()
+                                                          .clone()]
+        return real_solve(bands, F)
+
+    def matvec(bands, x):
+        f32 = x.dtype == torch.float32
+        key = ("tridiag_spmv_mixed" if f32 else "tridiag_spmv",
+               str(x.dtype).split(".")[-1])
+        if key not in captured:
+            b = [a.to(torch.bfloat16) if f32 else a.clone() for a in bands]
+            captured[key] = b + [x.contiguous().clone()]
+        return real_matvec(bands, x)
+
+    real_solve, real_matvec = comp._solve, comp._matvec
+    comp._solve, comp._matvec = solve, matvec
+    alm._escalate_f64 = escalate
+    try:
+        hk.reset_launches()
+        outs = [alm.alm_vsfm_solve(prob, ESC_DT, qflx_infl=q)]
+        sync(torch)
+        setup_s = time.perf_counter() - t_setup
+        t0 = time.perf_counter()
+        for _ in range(ESC_STEPS):
+            outs.append(alm.alm_vsfm_solve(prob, ESC_DT, qflx_infl=q))
+        sync(torch)
+        ms = (time.perf_counter() - t0) / ESC_STEPS * 1e3
+        launches = dict(hk.LAUNCHES)
+    finally:
+        alm._escalate_f64 = real
+        del comp._solve, comp._matvec
+    check(outs[0]["escalated_cols"] > 0, "(m): the first step escalated no "
+          "column")
+    for o in outs:
+        check(o["abs_mass_error_col"] < F64_AUDIT_KG,
+              f"(m): audit error {o['abs_mass_error_col']:.3e} kg >= "
+              f"{F64_AUDIT_KG:g} after escalation")
+    check(prob.P.dtype == torch.float32, "(m): the state is not f32")
+    check(bool(torch.isfinite(prob.P).all()), "(m): non-finite state")
+    for k in ("h2osoi_liq", "smp_l", "zwt"):
+        check(bool(torch.isfinite(outs[-1][k]).all()), f"(m): non-finite {k}")
+    check(in_escalation and all(e["thomas"] > 0 and e["tridiag_spmv"] > 0
+                                and e["tridiag_spmv_mixed"] == 0
+                                for e in in_escalation),
+          f"(m): an escalation did not launch the f64 thomas and "
+          f"tridiag_spmv: {in_escalation}")
+    print("alm " + json.dumps(dict(
+        mode="f32_escalated", ncol=NCOL, nz=ESC_NZ, dt=ESC_DT,
+        setup_s=setup_s, ms_per_step=ms,
+        escalated_cols=[o["escalated_cols"] for o in outs],
+        attempts=[o["attempts"] for o in outs],
+        max_audit_err_kg=max(o["abs_mass_error_col"] for o in outs),
+        launches_in_escalation=in_escalation, launches=launches)))
+    check(set(captured) == {("thomas", "float32"), ("thomas", "float64"),
+                            ("tridiag_spmv_mixed", "float32"),
+                            ("tridiag_spmv", "float64")},
+          f"(m): the path's kernel calls {sorted(captured)}")
+    rows = held_at_path(torch, hk, tridiag, captured, "alm_f32_escalated")
+    busy = dict(cell="alm_f32_escalated", ms_per_step=ms)
+    later(lambda: alm.alm_vsfm_solve(prob, ESC_DT, qflx_infl=q), 1, busy,
+          key="step_device_ms")
+    return launches, busy, rows
+
+
+def run_lateral(torch, hk, alm):
+    """Phase (n): the ring lateral on (d)'s soils, no forcing.  Returns
+    the launches of the phase."""
+    soils, _ = alm_inputs(NCOL, NZ)
+    P0 = soils.pop("P0")
+    P0[:NCOL // 2] = LAT_WET_P
+    prob = alm.alm_vsfm_initialize(P0=P0, lateral_connectivity=True,
+                                   lateral_conductance=LAT_G, device="cuda",
+                                   **soils)
+    m0 = float(alm.cell_mass_kg(prob, prob.P).sum())
+    hk.reset_launches()
+    outs = [alm.alm_vsfm_solve(prob, DT) for _ in range(2)]
+    sync(torch)
+    launches = dict(hk.LAUNCHES)
+    m1 = float(alm.cell_mass_kg(prob, prob.P).sum())
+    sums = []
+    for o in outs:
+        q = o["qflx_lateral"]
+        net, gross = float(q.sum()), float(q.abs().sum())
+        sums.append([net, gross])
+        check(gross > 0 and abs(net) < 1e-10 * gross,
+              f"(n): sum qflx_lateral {net:.3e} vs sum |.| {gross:.3e}")
+        check(float(q[NCOL // 2 - 1]) > 0 and float(q[NCOL // 2]) < 0,
+              "(n): the wet side does not drain toward the dry side")
+        check(o["abs_mass_error_col"] < F64_AUDIT_KG,
+              f"(n): audit error {o['abs_mass_error_col']:.3e} kg")
+        check(bool((o["reason"] > 0).all()), "(n): a column did not converge")
+    check(abs(m1 - m0) <= 1e-6 * m0,
+          f"(n): total mass {m0:.9e} -> {m1:.9e} kg")
+    check(launches["thomas"] > 0 and launches["tridiag_spmv"] > 0,
+          f"(n): the lateral path did not launch its kernels: {launches}")
+    print("lateral " + json.dumps(dict(
+        ncol=NCOL, nz=NZ, conductance=LAT_G, steps=2, mass_kg=[m0, m1],
+        qflx_lateral_net_gross=sums,
+        max_audit_err_kg=max(o["abs_mass_error_col"] for o in outs),
+        launches=launches)))
+    return launches
+
+
+def run_fused(torch, hk, alm):
+    """Phase (o): (d)'s step with linesearch_jac="fused" against
+    "separate", one step each from the same state.  Returns the launches
+    of the fused step."""
+    from mpp_tpu_torch.batched.vsfm_compiled import compile_vsfm
+    soils, forcing = alm_inputs(NCOL, NZ)
+    prob = alm.alm_vsfm_initialize(device="cuda", **soils)
+    P0 = prob.P
+    dev_forcing = {k: torch.as_tensor(v, dtype=torch.float64, device="cuda")
+                   for k, v in forcing.items()}
+    res = {}
+    for mode in ("separate", "fused"):
+        prob.comp = compile_vsfm(prob.mpp, linear_solver="direct",
+                                 linesearch_jac=mode)
+        prob.P = P0
+        hk.reset_launches()
+        sync(torch)
+        t0 = time.perf_counter()
+        out = alm.alm_vsfm_solve(prob, DT, **dev_forcing)
+        sync(torch)
+        res[mode] = (out, (time.perf_counter() - t0) * 1e3,
+                     dict(hk.LAUNCHES))
+    (o_s, ms_s, _), (o_f, ms_f, launches) = res["separate"], res["fused"]
+    check(bool((o_s["reason"] > 0).all()) and bool((o_f["reason"] > 0).all()),
+          "(o): a column did not converge")
+    check(torch.equal(o_s["reason"], o_f["reason"]),
+          "(o): fused and separate reasons differ")
+    dP = float((o_f["soilp"] - o_s["soilp"]).abs().max())
+    check(dP <= 1e-7, f"(o): fused vs separate max |dP| {dP:.3e} Pa > 1e-7")
+    check(launches["thomas"] > 0 and launches["tridiag_spmv"] > 0,
+          f"(o): the fused step did not launch its kernels: {launches}")
+    print("fused_vs_separate " + json.dumps(dict(
+        ncol=NCOL, nz=NZ, dtype="float64", separate_ms_per_step=ms_s,
+        fused_ms_per_step=ms_f, max_abs_dP_Pa=dP,
+        newton_iters=[o_s["newton_iters"], o_f["newton_iters"]],
+        launches=launches)))
+    return launches
+
+
+def run_thermal(torch, hk, tridiag):
+    """Phase (p): the thermal_batched cell.  Returns (the launches of the
+    timed path, the Thomas kernel's row at the path's inputs, the step's
+    device-busy row, its device time queued)."""
+    from mpp_tpu_torch.batched.ksp_compiled import compile_ksp
+    from mpp_tpu_torch.problems import thermal_mms
+    t0 = time.perf_counter()
+    mpp, _ = thermal_mms.run_thermal_mms_problem(1, nx=THERM_NX,
+                                                 device="cpu")
+    comp = compile_ksp(mpp, linear_solver="direct")
+    problem_s = time.perf_counter() - t0
+    check(comp.is_tridiag, "(p): the MMS column is not tridiagonal")
+    n = comp.n
+    rng = np.random.default_rng(0)
+    T0_np = 280.0 + 10.0 * rng.random((THERM_NCOL, n))
+    liq_np = 5.0 * rng.random((THERM_NCOL, n))
+
+    def inputs(ncol, device, dtype):
+        bc, ss = comp.gather_inputs(ncol, device, dtype)
+        t = lambda a: torch.as_tensor(a[:ncol], dtype=dtype, device=device)
+        return t(T0_np), bc, ss, ({"liq": t(liq_np)},)
+
+    t_setup = time.perf_counter()
+    T0, bc, ss, dyn = inputs(THERM_NCOL, "cuda", torch.float32)
+    hk.reset_launches()
+    T, ok, _ = comp.step_batched(T0, bc, ss, THERM_DT, dyn=dyn)
+    oks = [ok]
+    sync(torch)
+    setup_s = time.perf_counter() - t_setup
+    t0 = time.perf_counter()
+    for _ in range(THERM_STEPS):
+        T, ok, _ = comp.step_batched(T, bc, ss, THERM_DT, dyn=dyn)
+        oks.append(ok)
+    sync(torch)
+    ms = (time.perf_counter() - t0) / THERM_STEPS * 1e3
+    launches = dict(hk.LAUNCHES)
+    check(all(bool(o.all()) for o in oks), "(p): a column failed its solve")
+    check(bool(torch.isfinite(T).all()) and T.dtype == torch.float32
+          and tuple(T.shape) == (THERM_NCOL, n), "(p): state")
+    check(launches["thomas"] == THERM_STEPS + 1,
+          f"(p): thomas launched {launches['thomas']} times in "
+          f"{THERM_STEPS + 1} steps")
+    # the Thomas kernel against its plain version at the path's bands
+    vals, b = comp._assemble(T0, bc, ss, THERM_DT, dyn)
+    dl, d, du = comp._tri_bands(vals)
+    b = b.contiguous()
+    kern = partial(hk.thomas, dl, d, du, b)
+    plain = partial(tridiag.thomas, dl, d, du, b)
+    err, _ = hold(torch, f"thomas thermal {(THERM_NCOL, n)} float32", kern(),
+                  plain(), TOLS["thomas"]["float32"])
+    row = dict(kernel="thomas", path="thermal", shape=[THERM_NCOL, n],
+               dtype="float32", launches=launches["thomas"],
+               max_abs_err=err, rel_tol=TOLS["thomas"]["float32"],
+               ms=time_cuda(torch, kern, 50),
+               plain_ms=time_cuda(torch, plain, 5), library_ms=None,
+               library_device_ms=None,
+               **bound_fields("thomas", (THERM_NCOL, n), "float32"))
+    later(kern, 20, row)
+    # card against CPU, f64, 64 columns
+    out = {}
+    for device in ("cuda", "cpu"):
+        T64, bc64, ss64, dyn64 = inputs(64, device, torch.float64)
+        Tn, ok64, _ = comp.step_batched(T64, bc64, ss64, THERM_DT,
+                                        dyn=dyn64)
+        check(bool(ok64.all()), f"(p): the 64-column f64 step on {device}")
+        out[device] = Tn.cpu()
+    rel = float(torch.max(torch.abs(out["cuda"] - out["cpu"])
+                          / torch.abs(out["cpu"])))
+    check(rel <= 1e-9, f"(p): card/CPU thermal step differ: max rel "
+          f"{rel:.3e} > 1e-9")
+    # the step's parts, each timed alone (CUDA events, host cost included)
+    vals = comp._assemble(T, bc, ss, THERM_DT, dyn)[0]
+    split = dict(
+        assemble_ms=time_cuda(torch, partial(comp._assemble, T, bc, ss,
+                                             THERM_DT, dyn), 10),
+        bands_ms=time_cuda(torch, partial(comp._tri_bands, vals), 10),
+        thomas_ms=row["ms"])
+    print("thermal " + json.dumps(dict(
+        cell="thermal_batched", ncol=THERM_NCOL, nz=n, dtype="float32",
+        dt=THERM_DT, problem_build_s=problem_s, setup_s=setup_s,
+        ms_per_step=ms, cell_steps_per_s=THERM_NCOL * n / (ms * 1e-3),
+        card_vs_cpu_f64_max_rel=rel, launches=launches, **split)))
+    busy = dict(cell="thermal_batched", ms_per_step=ms)
+    later(lambda: comp.step_batched(T, bc, ss, THERM_DT, dyn=dyn), 10, busy,
+          key="step_device_ms")
+    return launches, row, busy
+
+
 def main():
     here = os.path.dirname(os.path.abspath(__file__))
     check(os.path.isdir(os.path.join(here, "mpp_tpu_torch")),
@@ -962,11 +1306,33 @@ def main():
     # (l) the SpMV harness, counted
     results.update(harness_run(torch, hk, card))
 
-    # the device times queued by (c)-(l), then the host-clock readings of
+    # (m)-(p): the f32 escalation, the ring lateral, the fused line search
+    # and the thermal KSP, each counted
+    by_path = {"alm": {k: launches[k] for k in ("thomas", "tridiag_spmv",
+                                                "tridiag_spmv_mixed")}}
+    by_path["alm_f32_escalated"], esc_busy, rows = run_escalation(
+        torch, hk, tridiag, alm)
+    checks += rows
+    by_path["alm_lateral"] = run_lateral(torch, hk, alm)
+    by_path["alm_fused"] = run_fused(torch, hk, alm)
+    by_path["thermal"], thermal_row, thermal_busy = run_thermal(torch, hk,
+                                                                tridiag)
+    checks.append(thermal_row)
+    for name in ("thomas", "tridiag_spmv", "tridiag_spmv_mixed"):
+        results[name]["launches_by_path"] = {
+            path: counts.get(name, 0) for path, counts in by_path.items()}
+        results[name]["launches"] = sum(
+            results[name]["launches_by_path"].values())
+    results["thomas"]["thermal"] = thermal_row
+
+    # the device times queued by (c)-(p), then the host-clock readings of
     # (d) and (c) again, after those profiler windows
     settle(torch)
     for r in checks:
         print("kernel_check " + json.dumps(r))
+    for r in (esc_busy, thermal_busy):
+        r["device_busy"] = r["step_device_ms"] / r["ms_per_step"]
+        print("step_device " + json.dumps(r))
     print("profiler_after " + json.dumps(dict(
         alm_f64_ms_per_step=[alm_f64_ms, run_alm(torch, alm, torch.float64,
                                                  4, "cuda")[0]],

@@ -87,6 +87,7 @@ class CompiledTH(CompiledVSFM):
                                    ksp_rtol=self.snes.ksp_rtol)
         self.max_cuts = max_cuts
         self.compact_frac = 8
+        self._ls_fused = False        # TH has no fused residual+Jacobian
         self.host_syncs = 0
         # no COND_DIRICHLET_FRM_OTR_GOVEQ coupling in the TH SoE: the
         # inter-GE coupling is the internal-auxvar exchange

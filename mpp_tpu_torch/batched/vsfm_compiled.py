@@ -12,7 +12,9 @@ over ``ncol`` independent copies of the problem (one row of the
   the coupled-BC value slots;
 * a solver plan supplies three hooks: ``_jac`` (the Jacobian in the plan's
   form), ``_solve`` (the Newton direction) and ``_matvec`` (J Y, the line
-  search's initial slope).  This module has the tridiagonal plan: the
+  search's initial slope); ``linesearch_jac="fused"`` builds the Jacobian
+  with the residual at the line search's full-step trial instead
+  (``_resjac``) and carries it into the next iteration.  This module has the tridiagonal plan: the
   Jacobian assembled straight into its three bands with ``index_add_``,
   the Thomas kernel and the stencil-SpMV kernel
   (``ops/hopper_kernels.py``); ``batched/th_compiled.py`` has the 2x2
@@ -27,9 +29,9 @@ control flow here: each one reads a device value on the host.  Every such
 read goes through :meth:`CompiledVSFM._sync`, which counts it in
 ``host_syncs``.
 
-Not ported yet (raise ``NotImplementedError``; ROADMAP Slice D and Queue
-2): block-Thomas, dense LU and the ILU(0)+GMRES "petsc" plan for
-non-tridiagonal VSFM problems, and ``linesearch_jac="fused"``.
+Not ported yet (raise ``NotImplementedError``; ROADMAP Slice D):
+block-Thomas, dense LU and the ILU(0)+GMRES "petsc" plan for
+non-tridiagonal VSFM problems.
 """
 from __future__ import annotations
 
@@ -78,18 +80,27 @@ class CompiledVSFM:
     """
 
     def __init__(self, mpp, snes: SNESParams = None, max_cuts: int = 20,
+                 linear_solver: str = "petsc",
                  linesearch_jac: str = "separate"):
-        """Tridiagonal problems use Thomas (the exact LU, which is what
-        ILU(0) is for a tridiagonal matrix); the plans of non-tridiagonal
-        problems are not ported yet.  ``linesearch_jac``: "separate" (the
-        Jacobian at the start of each Newton iteration); "fused" is not
-        ported yet."""
+        """``linear_solver``: "petsc" (the default) or "direct"; a
+        tridiagonal problem runs Thomas for either (the exact LU, which is
+        what ILU(0) is for a tridiagonal matrix); the plans of
+        non-tridiagonal problems are not ported yet.
+
+        ``linesearch_jac``: "separate" (the default) evaluates the Jacobian
+        at the start of each Newton iteration; "fused" evaluates residual
+        and Jacobian together at the line search's full-step trial and
+        carries the bands of the columns that settled there into the next
+        iteration, re-evaluating those of backtracked columns.  The same
+        iteration map either way."""
+        if linear_solver not in ("petsc", "direct"):
+            raise ValueError(f"linear_solver {linear_solver!r}: expected "
+                             '"petsc" or "direct"')
         if linesearch_jac not in ("separate", "fused"):
-            raise ValueError(linesearch_jac)
-        if linesearch_jac == "fused":
-            raise NotImplementedError(
-                'linesearch_jac="fused" is not ported yet '
-                "(ROADMAP Queue 2, deferred pieces of Slice A)")
+            raise ValueError(f"linesearch_jac {linesearch_jac!r}: expected "
+                             '"separate" or "fused"')
+        self.linear_solver = linear_solver
+        self._ls_fused = linesearch_jac == "fused"
         self.mpp = mpp
         soe = mpp.soe
         soe._ensure_template()
@@ -234,6 +245,20 @@ class CompiledVSFM:
                 ss_value=ss_values[k], dyn=dyn[k]))
         return self._tri_assemble(torch.cat(vals, dim=1))
 
+    def _resjac(self, X, bc_values, ss_values, accum_prevs, dt, src, dyn):
+        """(F, the plan's Jacobian) from one constitutive evaluation per GE
+        (``residual_and_jac_values``): the same math as ``_residual`` and
+        ``_jac``."""
+        Fs, vals = [], []
+        for k, g, a, b in self._ges():
+            F, v = g.residual_and_jac_values(
+                X[:, a:b], dt, bc_value=self._stage_bc(k, bc_values[k], X),
+                ss_value=ss_values[k], accum_prev=accum_prevs[k], dyn=dyn[k])
+            Fs.append(F - src[:, a:b])
+            vals.append(v)
+        return (torch.cat(Fs, dim=1),
+                self._tri_assemble(torch.cat(vals, dim=1)))
+
     def _accum_prev(self, X, dt, dyn):
         out = []
         for k, g, a, b in self._ges():
@@ -261,13 +286,44 @@ class CompiledVSFM:
         compact = self.compact_frac
         K = (ncol // compact) if compact and ncol >= 4096 else 0
 
+        fused = self._ls_fused
+
         def make_body(bc, ss, accum_prev, dtl, src, dyn, fnorm0, ttol):
+            ncol_b = dtl.shape[0]
+            kbt = max(1, ncol_b // 8)
+
             def res(X):
                 return self._residual(X, bc, ss, accum_prev, dtl, src, dyn)
 
+            def jac_of(X, idx=None):
+                if idx is None:
+                    return self._jac(X, bc, ss, dtl, dyn)
+                return self._jac(X[idx], tuple(b[idx] for b in bc),
+                                 tuple(v[idx] for v in ss), dtl[idx],
+                                 _take(dyn, idx))
+
+            def next_jac(Xw, A_try, stale):
+                """The fused mode's Jacobian at the accepted iterate: the
+                first-trial bands stand for every column settled at the
+                full step; columns that backtracked are re-evaluated, as a
+                narrow gather of at most ncol/8 columns, or the whole batch
+                when more backtracked."""
+                n_st = self._sync(torch.sum(stale))
+                if n_st == 0:
+                    return A_try
+                if kbt < ncol_b and n_st <= kbt:
+                    # stale first (stable)
+                    idx = torch.argsort((~stale).to(torch.int8),
+                                        stable=True)[:kbt]
+                    Af = jac_of(Xw, idx)
+                    return tuple(a.index_copy(0, idx, f)
+                                 for a, f in zip(A_try, Af))
+                return jac_of(Xw)
+
             def bt_linesearch(X, F, fnorm, Y, initslope, done):
                 """Batched SNESLineSearchBT (cubic), per-column lambda.
-                Returns (ok, X_new, G, gnorm, snorm)."""
+                Returns (ok, X_new, G, A_new, gnorm, snorm); A_new (the
+                Jacobian at X_new) only in the fused mode."""
                 ynorm0 = _colnorm(Y)
                 zero = ynorm0 == 0.0
                 safe_y = torch.where(zero, 1.0, ynorm0)
@@ -284,10 +340,15 @@ class CompiledVSFM:
 
                 lam = torch.full_like(fnorm, sp.ls_damping)
                 Xw = torch.where(done[:, None], X, X - lam[:, None] * Y)
-                G = res(Xw)
+                if fused:
+                    G, A_try = self._resjac(Xw, bc, ss, accum_prev, dtl, src,
+                                            dyn)
+                else:
+                    G, A_try = res(Xw), None
                 gnorm = _colnorm(G)
                 acc = accept_of(lam, gnorm) | zero | done
                 fail = ~acc & ~torch.isfinite(gnorm)
+                settled_first = acc | fail
                 lamprev, gnormprev = lam, gnorm
 
                 # quadratic backtrack for the columns that did not accept
@@ -350,21 +411,24 @@ class CompiledVSFM:
                 acc = acc | newly
                 fail = fail | ~acc
                 snorm = torch.abs(lam) * ynorm
-                return acc & ~fail, Xw, G, gnorm, snorm
+                A_new = next_jac(Xw, A_try, ~settled_first) if fused \
+                    else None
+                return acc & ~fail, Xw, G, A_new, gnorm, snorm
 
             def body(state):
-                X, F, fnorm, it, done, reason = state
-                # the Jacobian at the iteration's start point
-                # (SOEBaseStepDT_SNES -> SNESSolve)
-                A = self._jac(X, bc, ss, dtl, dyn)
+                X, F, fnorm, it, done, reason, A = state
+                if not fused:
+                    # the Jacobian at the iteration's start point
+                    # (SOEBaseStepDT_SNES -> SNESSolve)
+                    A = jac_of(X)
                 Y = self._solve(A, F)
                 # BT initslope from the true Jacobian action
                 W = self._matvec(A, Y)
                 islope = torch.sum(F * W, dim=-1)
                 islope = torch.where(islope > 0.0, -islope, islope)
                 islope = torch.where(islope == 0.0, -1.0, islope)
-                ok, Xn, Gn, gnormn, snorm = bt_linesearch(X, F, fnorm, Y,
-                                                          islope, done)
+                ok, Xn, Gn, An, gnormn, snorm = bt_linesearch(
+                    X, F, fnorm, Y, islope, done)
                 # PETSc SNESSolve_NEWTONLS failure path: a failed line
                 # search with stol*xnorm > ynorm means the update is
                 # already negligible — SNORM convergence at the pre-step
@@ -405,13 +469,18 @@ class CompiledVSFM:
                 done2 = done | newly
                 if it2 >= sp.max_it:
                     reason2 = torch.where(~done2, DIVERGED_MAX_IT, reason2)
-                return (X2, F2, fnorm2, it2, done2, reason2)
+                # the fused An needs no keep-merge: a done column's trial
+                # point is X itself, and tiny/failed columns are done now
+                return (X2, F2, fnorm2, it2, done2, reason2, An)
 
             return body
 
         # ---- phase A: full batch (until all done or only the stiff tail
         # of <= K columns remains) ----
-        F0 = self._residual(X0, bc, ss, accum_prev, dt, src, dyn)
+        if fused:
+            F0, A0 = self._resjac(X0, bc, ss, accum_prev, dt, src, dyn)
+        else:
+            F0, A0 = self._residual(X0, bc, ss, accum_prev, dt, src, dyn), None
         fnorm0 = _colnorm(F0)
         ttol = fnorm0 * rtol
         nan0 = ~torch.isfinite(fnorm0)
@@ -422,7 +491,7 @@ class CompiledVSFM:
             torch.where(small0, CONVERGED_FNORM_ABS,
                         torch.zeros_like(fnorm0, dtype=torch.int32)))
         bodyA = make_body(bc, ss, accum_prev, dt, src, dyn, fnorm0, ttol)
-        st = (X0, F0, fnorm0, 0, done0, reason0)
+        st = (X0, F0, fnorm0, 0, done0, reason0, A0)
         nrem = None
         while st[3] < sp.max_it:
             nrem = self._sync(torch.sum(~st[4]))
@@ -435,7 +504,7 @@ class CompiledVSFM:
             if nrem is None:
                 nrem = self._sync(torch.sum(~st[4]))
             if nrem > 0:
-                X, F, fnorm, it, done, reason = st
+                X, F, fnorm, it, done, reason, A = st
                 # not-done first (stable)
                 idx = torch.argsort(done.to(torch.int8), stable=True)[:K]
                 bodyB = make_body(
@@ -443,15 +512,15 @@ class CompiledVSFM:
                     tuple(a[idx] for a in accum_prev), dt[idx], src[idx],
                     _take(dyn, idx), fnorm0[idx], ttol[idx])
                 sB = (X[idx], F[idx], fnorm[idx], it, done[idx],
-                      reason[idx])
+                      reason[idx], None if A is None else _take(A, idx))
                 while sB[3] < sp.max_it and self._sync(torch.any(~sB[4])):
                     sB = bodyB(sB)
-                Xb, Fb, fnb, itb, db, rb = sB
+                Xb, Fb, fnb, itb, db, rb, _ = sB
                 st = (X.index_copy(0, idx, Xb), F.index_copy(0, idx, Fb),
                       fnorm.index_copy(0, idx, fnb), itb,
                       done.index_copy(0, idx, db),
-                      reason.index_copy(0, idx, rb))
-        X, F, fnorm, iters, done, reason = st
+                      reason.index_copy(0, idx, rb), None)
+        X, F, fnorm, iters, done, reason, _ = st
         reason = torch.where(reason == 0, DIVERGED_MAX_IT, reason)
         return X, iters, reason
 

@@ -9,8 +9,9 @@ per-column mass balance in f64 and unpacks the results to CLM arrays.
 * One Richards GE over a CLM column mesh, built through the ``VSFMMPP``
   facade in the reference's order: SS ``COND_MASS_RATE`` conditions
   Infiltration/Evapotranspiration/Dew/Drainage/Snow-disappearance/
-  Sublimation and an optional ``COND_SEEPAGE_BC`` at the top
-  (Initialize.F90:814-882); per-column heterogeneous CLM soils
+  Sublimation, Lateral_flux under lateral connectivity, and an optional
+  ``COND_SEEPAGE_BC`` at the top (Initialize.F90:814-882); per-column
+  heterogeneous CLM soils
   (smooth_brooks_corey_bz3 + DENSITY_TGDPB01 by default) ride the
   stepper's dynamic-parameter contract (``dyn``).
 * Flux unit conversion mm/s -> kg/s via ``area * denh2o * 1e-3``
@@ -21,6 +22,15 @@ per-column mass balance in f64 and unpacks the results to CLM arrays.
   convergence audit |mass_beg - mass_end + total_flux*dt| < 1e-5 kg per
   column and, if violated, tighten rtol or stol by 10x according to the
   converged reason and re-solve.
+* Lateral connectivity, the operator-split 'source_sink' model
+  (ibid:465-532): the columns form a ring over the batch axis with
+  edge-replicated ends; the lateral flux -g*((P-left)+(P-right)) of the
+  pre-step pressures is staged as the Lateral_flux SS condition and
+  returned as ``qflx_lateral`` [mm/s].
+* Per-column f64 escalation of f32 state (beyond the reference, which is
+  f64 throughout): columns whose audit error stays at or above the
+  threshold (the f32 evaluation floor) are gathered, re-solved from the
+  pre-step state in f64 on the same stepper and scattered back.
 * Unpacking: h2osoi_liq/ice, smp_l [mm], water-table depth zwt,
   qflx_seepage, qcharge = 0.
 
@@ -33,9 +43,9 @@ predicates; the output's ``host_round_trips_per_step`` and
 Level convention: arrays are [ncol, nz] with level 0 at the column BOTTOM
 and level nz-1 at the surface; ``zi`` is top-first.
 
-Not ported yet (raise ``NotImplementedError``, ROADMAP Queue 2): lateral
-connectivity (ring and UGDM) and the per-column f64 escalation of f32
-state (``escalate_f64=True`` with f32 state).
+Not ported yet (raise ``NotImplementedError``, ROADMAP Slice G): the
+general-graph (UGDM, ``ugrid``) lateral model and column sharding over a
+device mesh (``device_mesh``).
 """
 from __future__ import annotations
 
@@ -80,8 +90,12 @@ class ALMVSFMProblem:
                                      # [ncol, nz+1] (zi[:,0]=0, top-first)
     ss_slices: dict                  # condition name -> (offset, size)
     include_seepage_bc: bool = False
+    lateral_connectivity: bool = False
+    lateral_conductance: float = 0.0  # [kmol/s/Pa] per column pair (ring)
+    # f32 state: re-solve audit-failing columns in f64
+    escalate_f64: bool = True
     # per-problem audit threshold [kg] (the reference's 1e-5; an f32
-    # throughput mode relaxes it to its evaluation floor)
+    # throughput mode without escalation relaxes it to its evaluation floor)
     audit_threshold_kg: float = MAX_ABS_MASS_ERROR_COL
     # f64 device copies of area / zi / dz and staged defaults
     consts: dict = dataclasses.field(default_factory=dict, repr=False)
@@ -106,7 +120,7 @@ class ALMVSFMProblem:
 
 def _build_template_mpp(dz0, area0, satfunc_type, density_type,
                         watsat0, hksat0, bsw0, sucsat0, residual_sat0,
-                        include_seepage_bc):
+                        lateral_connectivity, include_seepage_bc):
     """The 8-step builder sequence of MPPVSFMALM_Initialize.F90 for one
     template column; per-column heterogeneity rides the dyn contract."""
     nz = dz0.size
@@ -129,6 +143,10 @@ def _build_template_mpp(dz0, area0, satfunc_type, density_type,
                          ("Sublimation_Flux", Region.SOIL_TOP_CELLS)):
         mpp.add_condition_in_goveqn(ieqn, Cond.SS, name, "kg/s",
                                     Cond.MASS_RATE, region=region)
+    if lateral_connectivity:
+        mpp.add_condition_in_goveqn(ieqn, Cond.SS, "Lateral_flux", "kg/s",
+                                    Cond.MASS_RATE,
+                                    region=Region.SOIL_CELLS)
     if include_seepage_bc:
         mpp.add_condition_in_goveqn(ieqn, Cond.BC, "Seepage_Flux", "kg/s",
                                     Cond.SEEPAGE_BC,
@@ -149,7 +167,8 @@ def _build_template_mpp(dz0, area0, satfunc_type, density_type,
 def alm_vsfm_initialize(watsat, hksat, bsw, sucsat, residual_sat, dz, area,
                         P0=None, satfunc_type="smooth_brooks_corey_bz3",
                         density_type=eos.DENSITY_TGDPB01,
-                        lateral_connectivity=False, dtype=torch.float64,
+                        lateral_connectivity=False, lateral_conductance=0.0,
+                        device_mesh=None, ugrid=None, dtype=torch.float64,
                         device="cuda", include_seepage_bc=False,
                         escalate_f64=True):
     """Build the batched VSFM problem from CLM column data (numpy
@@ -157,19 +176,18 @@ def alm_vsfm_initialize(watsat, hksat, bsw, sucsat, residual_sat, dz, area,
 
     CLM Clapp-Hornberger inputs are converted as ``VSFMMPPSetSoilsCLM``
     (MultiPhysicsProbVSFM.F90:367-419): perm = hksat_mm/s * 1e-3 * vish2o
-    / (denh2o*g), lambda = 1/bsw, alpha = 1/(sucsat*g).  ``escalate_f64``
-    matters only for f32 state, where the escalation is not ported yet:
-    f32 runs pass ``escalate_f64=False`` (the throughput mode).  The state
-    lives on the card unless ``device="cpu"``."""
+    / (denh2o*g), lambda = 1/bsw, alpha = 1/(sucsat*g).
+    ``lateral_connectivity`` couples the columns as a ring with
+    ``lateral_conductance`` [kmol/s/Pa] per pair.  ``escalate_f64``
+    matters only for f32 state: audit-failing columns are re-solved in
+    f64 (``escalate_f64=False`` is the throughput mode, with a relaxed
+    ``audit_threshold_kg``).  The state lives on the card unless
+    ``device="cpu"``."""
     device = device_of(device)
-    if lateral_connectivity:
+    if ugrid is not None or device_mesh is not None:
         raise NotImplementedError(
-            "ALM lateral connectivity (ring and UGDM) is not ported yet "
-            "(ROADMAP Queue 2, deferred pieces of Slice A)")
-    if dtype != F64 and escalate_f64:
-        raise NotImplementedError(
-            "per-column f64 escalation of f32 state is not ported yet "
-            "(ROADMAP Queue 2); pass escalate_f64=False for f32 state")
+            "the UGDM lateral model (ugrid) and column sharding "
+            "(device_mesh) are not ported yet (ROADMAP Slice G)")
     watsat = np.asarray(watsat, np.float64)
     ncol, nz = watsat.shape
     full = lambda v: np.broadcast_to(np.asarray(v, np.float64), (ncol, nz))
@@ -180,8 +198,9 @@ def alm_vsfm_initialize(watsat, hksat, bsw, sucsat, residual_sat, dz, area,
 
     mpp = _build_template_mpp(dz[0], area[0], satfunc_type, density_type,
                               watsat[0], hksat[0], bsw[0], sucsat[0],
-                              residual_sat[0], include_seepage_bc)
-    comp = compile_vsfm(mpp)
+                              residual_sat[0], lateral_connectivity,
+                              include_seepage_bc)
+    comp = compile_vsfm(mpp, linear_solver="direct")
 
     # per-column dynamic parameters; conversion constants match
     # VSFMMPPSetSoilsCLM exactly (CLM's grav, not GRAVITY_CONSTANT)
@@ -219,7 +238,10 @@ def alm_vsfm_initialize(watsat, hksat, bsw, sucsat, residual_sat, dz, area,
     zi[:, 1:] = np.cumsum(dz[:, ::-1], axis=1)
     return ALMVSFMProblem(mpp=mpp, comp=comp, dyn=(dyn_g,), P=f(P0),
                           area=area, dz=dz, zi=zi, ss_slices=ss_slices,
-                          include_seepage_bc=include_seepage_bc)
+                          include_seepage_bc=include_seepage_bc,
+                          lateral_connectivity=lateral_connectivity,
+                          lateral_conductance=lateral_conductance,
+                          escalate_f64=escalate_f64)
 
 
 def state_from_numpy(P, dyn, *, device, dtype):
@@ -247,6 +269,15 @@ def cell_mass_kg(prob: ALMVSFMProblem, P, dyn=None):
     g = prob.comp.goveqns[0]
     dyn = prob.dyn if dyn is None else dyn
     return g.accum(P, dyn=dyn[0]) * FMWH2O
+
+
+def _lateral_source(prob: ALMVSFMProblem, P):
+    """Operator-split lateral flux [kmol/s] per cell (Driver:465-532,
+    'source_sink'): the ring stencil over the column axis with
+    edge-replicated neighbours, in P's dtype."""
+    left = torch.cat([P[:1], P[:-1]], dim=0)
+    right = torch.cat([P[1:], P[-1:]], dim=0)
+    return -prob.lateral_conductance * ((P - left) + (P - right))
 
 
 def _stage_drainage(qflx_drain, zwt, zi, dz, h2osoi_liq, dtime, conv):
@@ -348,6 +379,12 @@ def _attempt(prob: ALMVSFMProblem, P_prev, dyn_base, temperature, frac_liq,
     drain, qflx_drain_tot = _stage_drainage(
         forcing["qflx_drain"], zwt_prev, zi, dz, h2o_prev, dtime, conv)
     parts["Drainage_Flux"] = drain
+    qflx_lateral = torch.zeros(ncol, dtype=F64, device=dev)
+    if "Lateral_flux" in parts:
+        lat_kg = _lateral_source(prob, P_prev).to(F64) * FMWH2O
+        parts["Lateral_flux"] = lat_kg
+        # qflx_lateral = -sum(mflx)/conv (Driver:522-523), mm/s
+        qflx_lateral = -lat_kg.sum(dim=1) / conv
     ss64 = torch.cat([parts[name] for name in prob.ss_slices], dim=1)
     total_flux_col = ss64.sum(dim=1)             # [kg/s]
     ss = ss64.to(dtype)
@@ -373,14 +410,6 @@ def _attempt(prob: ALMVSFMProblem, P_prev, dyn_base, temperature, frac_liq,
     err = torch.abs(mass_beg - S_end * FMWH2O
                     + (total_flux_col - bflux * FMWH2O) * dtime)
 
-    # ---- unpack to CLM arrays (Driver:700-900) ----
-    mass_cell = g.accum(X, dyn=dyn[0]) * FMWH2O
-    smp_l = (X - PRESSURE_REF) / (DENH2O * GRAVITY_CONSTANT) * 1e3
-    h2osoi_liq = (1.0 - frac_ice) * mass_cell / area[:, None]
-    h2osoi_ice = frac_ice * mass_cell / area[:, None]
-    zwt = _water_table_depth(smp_l, zi)
-    qflx_seepage = bflux * FMWH2O / conv
-
     diag = torch.stack([
         torch.all(done).to(F64), err.max(),
         torch.tensor(float(iters), dtype=F64, device=dev),
@@ -390,10 +419,8 @@ def _attempt(prob: ALMVSFMProblem, P_prev, dyn_base, temperature, frac_liq,
             "diag": diag, "mass_beg": mass_beg,
             "total_flux_col": total_flux_col, "ss": ss, "bc": bc,
             "S_end": S_end, "bflux": bflux,
-            "mass_cell": mass_cell, "smp_l": smp_l,
-            "h2osoi_liq": h2osoi_liq, "h2osoi_ice": h2osoi_ice,
-            "zwt": zwt, "qflx_seepage": qflx_seepage,
-            "qflx_lateral": torch.zeros(ncol, dtype=F64, device=dev),
+            **_unpack(prob, X, dyn, frac_ice, bflux),
+            "qflx_lateral": qflx_lateral,
             "qflx_drain_tot": qflx_drain_tot}
 
 
@@ -409,7 +436,9 @@ def alm_vsfm_solve(prob: ALMVSFMProblem, dtime,
     bottom-first], ``qflx_dew`` [mm/s], ``qflx_sub_snow`` [mm/s],
     ``qflx_drain`` [mm/s] drainage split below the water table,
     ``mflx_snowlyr`` [kg/s], ``t_soil`` [K, ncol, nz], ``frac_ice``
-    [ncol, nz] (stages frac_liq = 1 - frac_ice).
+    [ncol, nz] (stages frac_liq = 1 - frac_ice).  f32 state with
+    ``escalate_f64`` re-solves the columns that fail the audit twice (or
+    that diverge twice) in f64; ``escalated_cols`` counts them.
 
     Returns a dict of CLM-facing outputs (h2osoi_liq/ice [kg/m^2], smp_l
     [mm], zwt [m], qflx_lateral/qflx_seepage [mm/s], soilp [Pa]) and
@@ -460,11 +489,21 @@ def alm_vsfm_solve(prob: ALMVSFMProblem, dtime,
     rtol, stol = sp.rtol, sp.stol
     # the mass-closure gate (|sum F|*dt*FMWH2O, the audit integrand)
     # applies to f64 state only: the f32 residual-evaluation floor cannot
-    # iterate toward the f64-audited threshold (KNOWN_GAPS #9)
+    # iterate toward the f64-audited threshold (KNOWN_GAPS #9); those
+    # columns go through the f64 escalation instead
     gate = 0.5 * MAX_ABS_MASS_ERROR_COL if dtype == F64 else 0.0
+    escalate = dtype != F64 and prob.escalate_f64
+
+    def escalation_dyn():
+        dyn_g = dict(dyn_base)
+        dyn_g["temperature"] = temperature
+        dyn_g["frac_liq"] = torch.ones((ncol, nz), dtype=dtype, device=dev) \
+            if reset_fl else frac_liq
+        return (dyn_g,)
 
     P_prev = prob.P
     attempts = diverged_count = mass_bal_err_count = 0
+    escalated_cols = 0
     diag_pulls = 0
     abs_mass_error = np.inf
     reset_fl = False
@@ -483,7 +522,22 @@ def alm_vsfm_solve(prob: ALMVSFMProblem, dtime,
             diverged_count += 1
             if diverged_count > 1:
                 reset_fl = True
+                if escalate:
+                    # the stiff f32 tail cannot converge at this dt:
+                    # re-solve the unconverged columns in f64
+                    err_stub = np.where(out["done"].cpu().numpy(), 0.0,
+                                        np.inf)
+                    P, err_np, nesc = _escalate_f64(
+                        prob, P_prev, P, out["bc"], out["ss"],
+                        escalation_dyn(), err_stub, dtime,
+                        out["total_flux_col"].cpu().numpy())
+                    escalated_cols += nesc
+                    if np.all(np.isfinite(err_np)):
+                        abs_mass_error = float(err_np.max())
+                        if abs_mass_error < prob.audit_threshold_kg:
+                            break
         else:
+            err_np = None
             if _audit_err is not _AUDIT_ERR_DEFAULT:
                 # failure-injection seam of the tests
                 err_np = _audit_err(prob, P, out["bc"], None,
@@ -495,11 +549,25 @@ def alm_vsfm_solve(prob: ALMVSFMProblem, dtime,
                 abs_mass_error = float(diag[1])
             if abs_mass_error >= prob.audit_threshold_kg:
                 mass_bal_err_count += 1
-                # Driver:886-905: tighten the criterion that fired
-                if diag[3]:
-                    rtol = rtol / 10.0
-                if diag[4]:
-                    stol = stol / 10.0
+                if escalate and mass_bal_err_count >= 2:
+                    # tightening below the f32 evaluation floor cannot
+                    # help: escalate the failing columns to f64
+                    if err_np is None:
+                        err_np = out["err"].cpu().numpy()
+                    P, err_np, nesc = _escalate_f64(
+                        prob, P_prev, P, out["bc"], out["ss"],
+                        escalation_dyn(), err_np, dtime,
+                        out["total_flux_col"].cpu().numpy())
+                    escalated_cols += nesc
+                    abs_mass_error = float(err_np.max())
+                    if abs_mass_error < prob.audit_threshold_kg:
+                        break
+                else:
+                    # Driver:886-905: tighten the criterion that fired
+                    if diag[3]:
+                        rtol = rtol / 10.0
+                    if diag[4]:
+                        stol = stol / 10.0
             else:
                 break
         if attempts >= MAX_ITER_COUNT:
@@ -510,6 +578,13 @@ def alm_vsfm_solve(prob: ALMVSFMProblem, dtime,
 
     prob.P = P
     syncs = comp.host_syncs - syncs0 + diag_pulls
+    if escalated_cols:
+        # escalation replaced column states: the CLM unpack again, at the
+        # final state
+        dyn = escalation_dyn()
+        bflux = comp.column_bc_flux(P.to(F64), (out["bc"].to(F64),),
+                                    _to64(dyn))
+        out = dict(out, **_unpack(prob, P, dyn, frac_ice, bflux))
     return {
         "h2osoi_liq": out["h2osoi_liq"], "h2osoi_ice": out["h2osoi_ice"],
         "smp_l": out["smp_l"], "soilp": P, "zwt": out["zwt"],
@@ -520,7 +595,7 @@ def alm_vsfm_solve(prob: ALMVSFMProblem, dtime,
         "attempts": attempts, "diverged_count": diverged_count,
         "mass_bal_err_count": mass_bal_err_count,
         "abs_mass_error_col": abs_mass_error,
-        "escalated_cols": 0,
+        "escalated_cols": escalated_cols,
         "newton_iters": int(diag[2]),
         "reason": out["reason"],
         "dispatches_per_step": syncs,
@@ -550,3 +625,60 @@ def _audit_err(prob, P, bc, dyn, mass_beg_col, total_flux_col, dtime,
 #: sentinel for the failure-injection test seam: the driver skips the
 #: full-array audit pulls unless `_audit_err` was replaced
 _AUDIT_ERR_DEFAULT = _audit_err
+
+
+def _escalate_f64(prob, P_prev, P, bc, ss, dyn, err, dtime, total_flux_col):
+    """Gather the columns whose audit error ``err`` (numpy [ncol]) is at or
+    above the threshold, re-solve them from the pre-step state in f64 on
+    the same stepper at rtol 1e-10 / stol 1e-12, re-audit them in f64 and
+    scatter back the ones that converged.  Returns (P, err, number of
+    failing columns); P keeps its dtype.
+
+    The gather is padded to the next power of two by repeating its last
+    column (the JAX package's bound on recompiles), so the solved batch
+    is the one the JAX driver solves."""
+    comp = prob.comp
+    fail = np.nonzero(err >= prob.audit_threshold_kg)[0]
+    if fail.size == 0:
+        return P, err, 0
+    cap = 1 << int(np.ceil(np.log2(fail.size)))
+    idx = torch.as_tensor(np.pad(fail, (0, cap - fail.size), mode="edge"),
+                          device=P.device)
+    gather = lambda a: a[idx].to(F64)
+    dyn64 = (_take_tree(dyn[0], gather),)
+    P0 = gather(P_prev)
+    bc64, ss64 = gather(bc), gather(ss)
+    # tight f64 tolerances: the escalated columns land well under the
+    # audit threshold (the default 1e-8 leaves ~1e-8 kg of Newton
+    # truncation)
+    X64, _, ok64, _ = comp.step_batched(P0, (bc64,), (ss64,), dtime,
+                                        dyn=dyn64, rtol=1e-10, stol=1e-12)
+    mass_beg64 = comp.column_storage(P0, dyn64).cpu().numpy() * FMWH2O
+    err64 = _audit_err(prob, X64, bc64, dyn64, mass_beg64,
+                       np.asarray(total_flux_col)[idx.cpu().numpy()], dtime)
+    sel = ok64[:fail.size].cpu().numpy()
+    err_new = err.copy()
+    err_new[fail[sel]] = err64[:fail.size][sel]
+    rows = torch.as_tensor(fail[sel], device=P.device)
+    P_new = P.index_copy(0, rows, X64[:fail.size][torch.as_tensor(
+        sel, device=P.device)].to(P.dtype))
+    return P_new, err_new, int(fail.size)
+
+
+def _take_tree(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _take_tree(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _unpack(prob, P, dyn, frac_ice, bflux):
+    """The CLM unpack (Driver:700-900) of state P whose boundary flux is
+    ``bflux`` [kmol/s, f64]: h2osoi_liq/ice, smp_l, zwt, qflx_seepage."""
+    area, zi = prob.consts["area"], prob.consts["zi"]
+    mass_cell = prob.comp.goveqns[0].accum(P, dyn=dyn[0]) * FMWH2O
+    smp_l = (P - PRESSURE_REF) / (DENH2O * GRAVITY_CONSTANT) * 1e3
+    return {"mass_cell": mass_cell, "smp_l": smp_l,
+            "h2osoi_liq": (1.0 - frac_ice) * mass_cell / area[:, None],
+            "h2osoi_ice": frac_ice * mass_cell / area[:, None],
+            "zwt": _water_table_depth(smp_l, zi),
+            "qflx_seepage": bflux * FMWH2O / (area * DENH2O * 1e-3)}

@@ -22,9 +22,10 @@ from mpp_tpu_torch.models.richards import VSFMMPP
 from mpp_tpu_torch.ops import eos
 
 
-def build_compiled_celia(nz):
+def build_compiled_celia(nz, linear_solver="direct"):
     """Facade-build the celia1990 problem with ``nz`` cells and freeze it
-    into a batched stepper; returns (mpp, comp)."""
+    into a batched stepper (``linear_solver`` as ``compile_vsfm`` takes
+    it); returns (mpp, comp)."""
     mpp = VSFMMPP()
     mpp.set_id(MPPType.VSFM_SNES_CLM)
     mesh = structured_mesh("Soil mesh", 1.0, 1.0, 1.0, 1, 1, nz,
@@ -49,7 +50,7 @@ def build_compiled_celia(nz):
                   satfunc_type="van_genuchten",
                   density_type=eos.DENSITY_TGDPB01)
     mpp.restart(np.full(nz, 3.5355e3))
-    return mpp, compile_vsfm(mpp)
+    return mpp, compile_vsfm(mpp, linear_solver=linear_solver)
 
 
 def entry(device="cuda", ncol=256, nz=128):

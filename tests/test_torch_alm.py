@@ -216,12 +216,81 @@ def test_f32_throughput_mode_converges():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        talm.alm_vsfm_initialize(lateral_connectivity=True, device="cpu",
+    """The UGDM lateral model (ugrid) and column sharding (device_mesh)
+    wait for Slice G; the ring lateral and f32 escalation are ported."""
+    with pytest.raises(NotImplementedError, match="Slice G"):
+        talm.alm_vsfm_initialize(lateral_connectivity=True, ugrid=object(),
+                                 device="cpu", **_soil_kwargs(ncol=2, nz=4))
+    with pytest.raises(NotImplementedError, match="Slice G"):
+        talm.alm_vsfm_initialize(lateral_connectivity=True,
+                                 device_mesh=object(), device="cpu",
                                  **_soil_kwargs(ncol=2, nz=4))
-    with pytest.raises(NotImplementedError):
-        talm.alm_vsfm_initialize(dtype=torch.float32, device="cpu",
-                                 **_soil_kwargs(ncol=2, nz=4))
+    prob = talm.alm_vsfm_initialize(dtype=torch.float32, device="cpu",
+                                    lateral_connectivity=True,
+                                    **_soil_kwargs(ncol=2, nz=4))
+    assert prob.escalate_f64 and "Lateral_flux" in prob.ss_slices
+
+
+def test_f32_escalates_failing_columns_to_f64():
+    """tests/test_alm.py:221 on both packages: f32 state (escalation on by
+    default) with a stiff infiltration front on half the columns; the
+    failing half is re-solved in f64.  Equal escalated_cols and retry
+    counters, P within 1e-6 relative of JAX, audit < 1e-5 kg, the state
+    f32."""
+    ncol, nz = 8, 48
+    soil = _soil_kwargs(ncol, nz, dz=0.05)
+    P0 = np.full((ncol, nz), 1.0e3)
+    pj = jalm.alm_vsfm_initialize(P0=P0, dtype=jnp.float32, **soil)
+    pt = talm.alm_vsfm_initialize(P0=P0, dtype=torch.float32, device="cpu",
+                                  **soil)
+    qinfl = np.zeros(ncol)
+    qinfl[: ncol // 2] = 8e-3
+    oj = jalm.alm_vsfm_solve(pj, 3600.0, qflx_infl=qinfl)
+    ot = talm.alm_vsfm_solve(pt, 3600.0, qflx_infl=qinfl)
+    assert ot["escalated_cols"] == oj["escalated_cols"] == ncol // 2
+    for k in ("attempts", "mass_bal_err_count", "diverged_count"):
+        assert ot[k] == oj[k], k
+    assert ot["abs_mass_error_col"] < talm.MAX_ABS_MASS_ERROR_COL
+    assert pt.P.dtype == torch.float32
+    np.testing.assert_allclose(pt.P.numpy(), np.asarray(pj.P), rtol=1e-6)
+    # the unpack at the escalated state
+    np.testing.assert_allclose(ot["smp_l"].numpy(), np.asarray(oj["smp_l"]),
+                               rtol=1e-6)
+    np.testing.assert_allclose(ot["zwt"].numpy(), np.asarray(oj["zwt"]),
+                               rtol=1e-6)
+
+
+def test_ring_lateral_matches_jax():
+    """The single-device ring lateral (Driver:465-532 'source_sink'):
+    wet and dry halves relax toward each other, two 600 s steps at
+    ncol 8, nz 8, f64; qflx_lateral and P within rtol 1e-10 of JAX, the
+    far columns see no net flux on the first step, the pair-antisymmetric
+    source conserves mass."""
+    ncol, nz = 8, 8
+    P0 = np.full((ncol, nz), 3.5355e3)
+    P0[: ncol // 2] = 9.0e4
+    kw = dict(P0=P0, lateral_connectivity=True, lateral_conductance=1e-10,
+              **_soil_kwargs(ncol, nz))
+    pj = jalm.alm_vsfm_initialize(**kw)
+    pt = talm.alm_vsfm_initialize(device="cpu", **kw)
+    assert pt.ss_slices == pj.ss_slices
+    m0 = float(talm.cell_mass_kg(pt, pt.P).sum())
+    for step in range(2):
+        oj = jalm.alm_vsfm_solve(pj, 600.0)
+        ot = talm.alm_vsfm_solve(pt, 600.0)
+        qj, qt = np.asarray(oj["qflx_lateral"]), ot["qflx_lateral"].numpy()
+        np.testing.assert_allclose(qt, qj, rtol=1e-10, atol=1e-300)
+        np.testing.assert_allclose(pt.P.numpy(), np.asarray(pj.P),
+                                   rtol=1e-10)
+        assert abs(qt[0]) < 1e-12 and abs(qt[-1]) < 1e-12
+        if step == 0:
+            far = np.r_[0:ncol // 2 - 1, ncol // 2 + 1:ncol]
+            assert np.abs(qt[far]).max() < 1e-12
+        assert qt[ncol // 2 - 1] > 0 and qt[ncol // 2] < 0
+        assert abs(float(qt.sum())) < 1e-10
+        assert ot["abs_mass_error_col"] < talm.MAX_ABS_MASS_ERROR_COL
+    m1 = float(talm.cell_mass_kg(pt, pt.P).sum())
+    assert m1 == pytest.approx(m0, rel=1e-6)
 
 
 def test_water_table_detection():

@@ -30,6 +30,13 @@ assert out["abs_mass_error_col"] < alm.MAX_ABS_MASS_ERROR_COL
 from mpp_tpu_torch.problems import th
 mpp, soln = th.run_mass_and_heat(nx=6, device="cpu")
 assert mpp.soe.cumulative_newton_iterations > 0 and np.isfinite(soln).all()
+from mpp_tpu_torch.problems import thermal_mms, thermal_3media
+mpp, soln = thermal_mms.run_thermal_mms_problem(1, device="cpu")
+assert np.isfinite(soln).all()
+p3 = thermal_3media.ThreeMediaProblem(device="cpu")
+p3.set_initial_temperature(265.0, 270.0, 275.0)
+p3.set_top_fluxes(-10.0, 0.0, 0.0)
+assert all(np.isfinite(t).all() for t in p3.step(600.0))
 from mpp_tpu_torch.ops import hopper_kernels as hk
 import torch
 g = torch.Generator().manual_seed(0)

@@ -120,11 +120,97 @@ def test_entry_runs():
 
 
 def test_unported_plans_raise():
+    """"fused" builds; unknown keywords raise ValueError."""
     mpp, _ = entry.build_compiled_celia(8)
-    with pytest.raises(NotImplementedError):
-        tvc.compile_vsfm(mpp, linesearch_jac="fused")
+    assert tvc.compile_vsfm(mpp, linesearch_jac="fused")._ls_fused
     with pytest.raises(ValueError):
         tvc.compile_vsfm(mpp, linesearch_jac="other")
+    with pytest.raises(ValueError):
+        tvc.compile_vsfm(mpp, linear_solver="other")
+
+
+@pytest.mark.parametrize("linear_solver", ["petsc", "direct"])
+def test_linear_solver_keyword_matches_jax(linear_solver):
+    """compile_vsfm(mpp, linear_solver=...) takes both keywords, as JAX
+    does, and a tridiagonal problem runs Thomas for either: the celia1990
+    column (nz 16, 4 columns, f64, two steps) equal to JAX's within rtol
+    1e-9, identical iterations and reasons."""
+    from mpp_tpu.batched.vsfm_compiled import compile_vsfm as jcompile
+    nz, ncol = 16, 4
+    mpp_j, _ = graft._build_compiled_celia(nz)
+    mpp_t, _ = entry.build_compiled_celia(nz)
+    cj = jcompile(mpp_j, linear_solver=linear_solver)
+    ct = tvc.compile_vsfm(mpp_t, linear_solver=linear_solver)
+    assert ct.linear_solver == linear_solver and ct.is_tridiag
+    X, bc, ss = _celia_inputs(ncol, nz)
+    Xj, Xt = jnp.asarray(X), torch.as_tensor(X)
+    for _ in range(2):
+        Xj, it_j, ok_j, r_j = cj.step_batched(
+            Xj, (jnp.asarray(bc),), (jnp.asarray(ss),), 3600.0)
+        Xt, it_t, ok_t, r_t = ct.step_batched(
+            Xt, (torch.as_tensor(bc),), (torch.as_tensor(ss),), 3600.0)
+        assert int(it_j) == it_t
+        np.testing.assert_array_equal(np.asarray(r_j), r_t.numpy())
+        np.testing.assert_allclose(Xt.numpy(), np.asarray(Xj), rtol=1e-9)
+    assert bool(ok_t.all())
+
+
+def test_fused_linesearch_matches_jax_fused():
+    """linesearch_jac="fused" against JAX's fused mode and the port's
+    separate mode (tests/test_vsfm_compiled.py:171-197): celia1990 nz 16,
+    8 columns, three 3600 s steps; equal reasons, states within atol
+    1e-7."""
+    from mpp_tpu.batched.vsfm_compiled import compile_vsfm as jcompile
+    nz, ncol = 16, 8
+    mpp_j, _ = graft._build_compiled_celia(nz)
+    mpp_t, _ = entry.build_compiled_celia(nz)
+    X, bc, ss = _celia_inputs(ncol, nz)
+    res = {}
+    for pkg, mode in (("jax", "fused"), ("torch", "fused"),
+                      ("torch", "separate")):
+        if pkg == "jax":
+            comp = jcompile(mpp_j, linear_solver="direct",
+                            linesearch_jac=mode)
+            Xs, args = jnp.asarray(X), ((jnp.asarray(bc),),
+                                        (jnp.asarray(ss),))
+        else:
+            comp = tvc.compile_vsfm(mpp_t, linear_solver="direct",
+                                    linesearch_jac=mode)
+            Xs, args = torch.as_tensor(X), ((torch.as_tensor(bc),),
+                                            (torch.as_tensor(ss),))
+        for _ in range(3):
+            Xs, iters, ok, reason = comp.step_batched(Xs, *args, 3600.0)
+            assert bool(np.asarray(ok).all()), (pkg, mode)
+        res[(pkg, mode)] = (np.asarray(Xs), np.asarray(reason), int(iters))
+    ref = res[("jax", "fused")]
+    for key in (("torch", "fused"), ("torch", "separate")):
+        np.testing.assert_array_equal(res[key][1], ref[1])
+        assert res[key][2] == ref[2]
+        np.testing.assert_allclose(res[key][0], ref[0], rtol=0, atol=1e-7)
+
+
+def test_fused_straggler_compaction_matches_separate():
+    """The fused mode under straggler compaction (4096 f32 columns): the
+    backtracked columns' Jacobians are re-evaluated as a narrow gather
+    (at most ncol/8 of the batch), and the step equals the separate
+    mode's bit for bit."""
+    nz, ncol = 16, 4096
+    mpp, _ = entry.build_compiled_celia(nz)
+    X, bc, ss = _celia_inputs(ncol, nz, np.float32)
+    args = (torch.as_tensor(X), (torch.as_tensor(bc),),
+            (torch.as_tensor(ss),), 3600.0)
+    out, widths = {}, []
+    for mode in ("separate", "fused"):
+        comp = tvc.compile_vsfm(mpp, linesearch_jac=mode)
+        if mode == "fused":
+            real = comp._jac
+            comp._jac = lambda X, *a: widths.append(X.shape[0]) or real(X,
+                                                                        *a)
+        out[mode] = comp.step_batched(*args)
+    assert widths and max(widths) <= ncol // 8
+    (Xs, its, oks, rs), (Xf, itf, okf, rf) = out["separate"], out["fused"]
+    assert bool(okf.all()) and itf == its
+    assert torch.equal(Xf, Xs) and torch.equal(rf, rs)
 
 
 def test_serial_drop_in_matches_jax():
