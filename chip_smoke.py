@@ -75,7 +75,27 @@ line is printed):
       warm step and 20 timed steps; every column ok and finite, Thomas
       launched once a step, the Thomas kernel held against its plain
       version at that step's bands; and a 64-column f64 step on the card
-      equal to the CPU's within rtol 1e-9.
+      equal to the CPU's within rtol 1e-9;
+  (q) th_batched through the "petsc" plan (batched ILU(0) + GMRES(30)):
+      (h)'s configuration through compile_th(mpp), one warm step and
+      TH_PETSC_STEPS timed steps; (h)'s gates, every column's GMRES
+      converged at every Newton iteration, block_thomas2 launched 0 times,
+      the first step's state within TH_PLAN_BOUND of (h)'s direct one, and
+      a 64-column f64 step on the card equal to the CPU's (Newton
+      iterations, reasons, X within rtol 1e-9);
+  (r) vsfm_vchannel at the reference size (20 x 10 x 30 = 6000 cells,
+      ncol=1, f64, 3 steps of 8640 s) through "petsc" on the card and on
+      the CPU and "direct" (block-Thomas, b = 200) on the card: both plans
+      converge, petsc card vs CPU within rtol 1e-9, petsc vs direct within
+      VCH_PLAN_PA;
+  (s) the 2-D (20 x 20) and 3-D (20 x 20 x 20) thermal MMS through
+      compile_ksp("petsc") on the card and the CPU: GMRES converges, the
+      solutions within rtol 1e-9 and their errors against the
+      manufactured solution equal within 1e-9 relative;
+  (t) run_heat_transport_1d (nz = 100, 2 steps, CompiledThermalEnthalpy)
+      and run_vsfm_spac_campbell_problem(multi_goveqns=True) under "petsc"
+      and "direct" (the JAX package's rule picks block-Thomas there),
+      card against CPU within rtol 1e-9.
 
 Every kernel timing is read twice: ``ms``, CUDA events around back-to-back
 calls of the wrapper (host cost per call included), and ``device_ms``, the
@@ -127,6 +147,14 @@ ESC_NZ, ESC_DZ, ESC_P0, ESC_QINFL, ESC_DT, ESC_STEPS = 48, 0.05, 1e3, 8e-3, \
 LAT_G, LAT_WET_P = 1e-10, 9.0e4
 # (p): the thermal_batched cell
 THERM_NCOL, THERM_NX, THERM_DT, THERM_STEPS = 16384, 64, 1800.0, 20
+# (q): th_batched through "petsc"; TH_PLAN_BOUND is ten times the JAX
+# package's own petsc-vs-direct gap after one step of this cell at 64
+# columns on the CPU (tests/test_torch_th_petsc.py:jax_plan_gap)
+TH_PETSC_STEPS = 4
+TH_PLAN_BOUND = dict(P_Pa=4.07e-4, T_K=2.0e-7)
+# (r): vsfm_vchannel at the reference size; JAX's own test reads the two
+# plans 2.5e-5 Pa apart (tests/test_vsfm_compiled.py:45-47)
+VCH_NZ, VCH_DT, VCH_STEPS, VCH_PLAN_PA = 30, 8640.0, 3, 1e-3
 CHAIN_K = 30
 JACOBI_CHECK = dict(iters=200, omega=0.9, shape=(16384, 64), tol=1e-8)
 HARNESS_SHAPE = (131072, 256)
@@ -209,20 +237,25 @@ PENDING = []
 AGAIN = {}
 
 
-def later(fn, reps, *rows, key="device_ms"):
-    """Queue ``device_time(fn, reps)``; settle() writes its reading into
-    ``row[key]`` of every row of ``rows``."""
+def later(fn, reps, *rows, key="device_ms", count_key=None, repeats=False):
+    """Queue ``device_time(fn, reps, repeats=repeats)``; settle() writes its
+    reading into ``row[key]`` of every row of ``rows``, and with
+    ``count_key`` the device activities (kernels, copies, fills) of one
+    call into ``row[count_key]``."""
     for row in rows:
         row[key] = None
-    PENDING.append((fn, reps, rows, key))
+    PENDING.append((fn, reps, rows, key, count_key, repeats))
 
 
 def settle(torch):
     """Take the queued device-time readings."""
-    for fn, reps, rows, key in PENDING:
-        ms = device_time(torch, fn, reps)
+    for fn, reps, rows, key, count_key, repeats in PENDING:
+        ms, count = device_time(torch, fn, reps, with_count=True,
+                                repeats=repeats)
         for row in rows:
             row[key] = ms
+            if count_key:
+                row[count_key] = count
     PENDING.clear()
 
 
@@ -330,7 +363,7 @@ def time_cuda(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def device_time(torch, fn, reps, tries=5):
+def device_time(torch, fn, reps, tries=5, with_count=False, repeats=False):
     """Mean device milliseconds of one ``fn()``: the summed durations of the
     device activities (kernels, copies, fills) that torch.profiler (CUPTI)
     records over ``reps`` runs, after two warm-up runs, divided by
@@ -346,7 +379,12 @@ def device_time(torch, fn, reps, tries=5):
     A window of many kernels queued with no host synchronisation (the
     thermal step) lost its first three records in every try, so each
     window opens with spin kernels of a name of their own, waited for and
-    left out of the sums."""
+    left out of the sums.  ``repeats`` (a call that does the same work
+    every time, such as (q)'s TH steps from one state, tens of thousands
+    of activities a call): a window is also whole only when its record
+    counts equal those of the window before it, since lost records do
+    not repeat.
+    ``with_count``: return (ms, the device activities of one call)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -376,8 +414,13 @@ def device_time(torch, fn, reps, tries=5):
     for _ in range(tries):
         by_name = window()
         counts.append({k: len(t) for k, t in by_name.items()})
-        if by_name and all(len(t) % reps == 0 for t in by_name.values()):
-            return sum(sum(t) for t in by_name.values()) / reps / 1e3
+        whole = all(len(t) % reps == 0 for t in by_name.values()) and (
+            not repeats or len(counts) > 1 and counts[-1] == counts[-2])
+        if by_name and whole:
+            ms = sum(sum(t) for t in by_name.values()) / reps / 1e3
+            if with_count:
+                return ms, sum(map(len, by_name.values())) // reps
+            return ms
     fail(f"torch.profiler: no whole window of {reps} calls in {tries} "
          f"tries; records per activity: {counts}")
 
@@ -786,7 +829,7 @@ def th_step_once(torch, comp, X0_np, device, ncol):
 def run_th(torch, comp, X0_np, dtype, nsteps, device, ncol, **tols):
     """One warm step and ``nsteps`` timed steps of the TH cell.  Returns
     (X, ms per step, per-step summaries, set-up seconds, per-step max
-    per-column water-mass change [kg])."""
+    per-column water-mass change [kg], the state after the warm step)."""
     from mpp_tpu_torch.batched.vsfm_compiled import FMWH2O
     t_setup = time.perf_counter()
     X, bc, ss, dyn = th_inputs(torch, comp, X0_np, ncol, device, dtype)
@@ -800,11 +843,12 @@ def run_th(torch, comp, X0_np, dtype, nsteps, device, ncol, **tols):
     steps = []
     t0 = time.perf_counter()
     for _ in range(nsteps):
-        syncs = comp.host_syncs
+        syncs, cycles = comp.host_syncs, comp.gmres_cycles
         X, iters, ok, _ = comp.step_batched(X, bc, ss, TH_DT, dyn=dyn,
                                             **tols)
         steps.append(dict(newton_iters=iters, ok=ok,
-                          host_syncs=comp.host_syncs - syncs))
+                          host_syncs=comp.host_syncs - syncs,
+                          gmres_cycles=comp.gmres_cycles - cycles))
         states.append(X)
     if device != "cpu":
         torch.cuda.synchronize()
@@ -819,7 +863,7 @@ def run_th(torch, comp, X0_np, dtype, nsteps, device, ncol, **tols):
         for Xs in states]
     dm = [float(torch.max(torch.abs(b - a))) * FMWH2O
           for a, b in zip(store[:-1], store[1:])]
-    return X, ms, steps, setup_s, dm
+    return X, ms, steps, setup_s, dm, states[1]
 
 
 def run_alm(torch, alm, dtype, nsteps, device, ncol=NCOL):
@@ -1155,6 +1199,225 @@ def run_thermal(torch, hk, tridiag):
     return launches, row, busy
 
 
+def card_vs_cpu(label, got, ref, rtol=1e-9):
+    """Fail unless ``got`` (card) is within ``rtol`` of ``ref`` (CPU),
+    elementwise relative; returns the largest relative difference."""
+    got, ref = np.asarray(got), np.asarray(ref)
+    check(got.shape == ref.shape and np.isfinite(got).all(),
+          f"{label}: card result shape/finiteness")
+    rel = float(np.max(np.abs(got - ref) / np.abs(ref)))
+    check(rel <= rtol, f"{label}: card/CPU differ: max rel {rel:.3e} > "
+          f"{rtol:g}")
+    return rel
+
+
+def run_th_petsc(torch, hk, mpp, comp_direct, X0_np, X1_direct):
+    """Phase (q): (h)'s configuration through compile_th(mpp), the
+    default "petsc" plan.  Returns the two step-device rows (the petsc
+    step and (h)'s direct one, from the same state)."""
+    from mpp_tpu_torch.batched.th_compiled import compile_th
+    comp = compile_th(mpp)
+    check(comp.plan == "petsc", f"(q): plan {comp.plan}")
+    hk.reset_launches()
+    X, ms, steps, setup_s, dm, X1 = run_th(
+        torch, comp, X0_np, torch.float64, TH_PETSC_STEPS, "cuda", TH_NCOL)
+    launches = dict(hk.LAUNCHES)
+    per_step = TH_PETSC_STEPS + 1
+    ilu = comp._ilu
+    counts = dict(factors_per_step=ilu.factors / per_step,
+                  applies_per_step=ilu.applies / per_step)
+    check(launches["block_thomas2"] == 0,
+          f"(q): block_thomas2 launched {launches['block_thomas2']} times")
+    check(comp.gmres_cycles > 0, "(q): no GMRES cycle ran")
+    bad = comp.gmres_unconverged()
+    check(bad == 0, f"(q): {bad} (column, solve) GMRES runs unconverged")
+    nh = comp.nh
+    hetero = float(torch.max(torch.abs(X[0, nh:] - X[-1, nh:])))
+    check(hetero > 1e-3, f"(q): per-column forcing not live ({hetero:.3e})")
+    check(max(dm) < TH_MASS_KG, f"(q): water-mass change {max(dm):.3e} kg "
+          f"per step >= {TH_MASS_KG:g}")
+    d = (X1 - X1_direct).abs()
+    dP, dT = float(d[:, :nh].max()), float(d[:, nh:].max())
+    check(dP <= TH_PLAN_BOUND["P_Pa"] and dT <= TH_PLAN_BOUND["T_K"],
+          f"(q): petsc vs direct after one step: |dP| {dP:.3e} Pa, |dT| "
+          f"{dT:.3e} K, bound {TH_PLAN_BOUND}")
+    out = {dev: th_step_once(torch, comp, X0_np, dev, 64)
+           for dev in ("cuda", "cpu")}
+    (Xg, it_g, ok_g, r_g), (Xc, it_c, ok_c, r_c) = out["cuda"], out["cpu"]
+    check(bool(ok_g.all()) and bool(ok_c.all()), "(q): 64-column step")
+    check(it_g == it_c, f"(q): card/CPU Newton iterations {it_g} vs {it_c}")
+    check(bool((r_g.cpu() == r_c).all()), "(q): card/CPU reasons differ")
+    rel = card_vs_cpu("(q) X", Xg.cpu().numpy(), Xc.numpy())
+    iters = [s["newton_iters"] for s in steps]
+    cycles = [s["gmres_cycles"] for s in steps]
+    print("th_petsc " + json.dumps(dict(
+        cell="th_batched", plan="petsc", ncol=TH_NCOL, cells_per_col=nh,
+        dofs_per_col=comp.n, dt=TH_DT, setup_s=setup_s, ms_per_step=ms,
+        newton_iters_per_step=iters, gmres_cycles_per_step=cycles,
+        gmres_cycles_per_newton_iter=sum(cycles) / max(sum(iters), 1),
+        host_syncs_per_step=[s["host_syncs"] for s in steps],
+        ilu_levels=[comp._ilu.levels_fwd, comp._ilu.levels_bwd],
+        max_mass_change_kg_per_step=max(dm),
+        petsc_vs_direct_first_step=dict(max_abs_dP_Pa=dP, max_abs_dT_K=dT),
+        bound=TH_PLAN_BOUND, card_vs_cpu_f64_max_rel=rel,
+        launches=launches, **counts)))
+    # the step's parts at its first Newton iteration, each timed alone
+    # (CUDA events, host cost included): the Jacobian, the ILU(0) factor,
+    # one preconditioner apply, one ELL SpMV and the whole GMRES solve
+    Xs, bc, ss, dyn = th_inputs(torch, comp, X0_np, TH_NCOL, "cuda",
+                                torch.float64)
+    dt_col = torch.full((TH_NCOL, 1), TH_DT, dtype=torch.float64,
+                        device="cuda")
+    ap = comp._accum_prev(Xs, dt_col, dyn)
+    F = comp._residual(Xs, bc, ss, ap, dt_col, torch.zeros_like(Xs), dyn)
+    data = comp._jac(Xs, bc, ss, dt_col, dyn)
+    prep = ilu.prepare(ilu.factor(data))
+    split = dict(
+        jacobian_ms=time_cuda(torch, partial(comp._jac, Xs, bc, ss, dt_col,
+                                             dyn), 5),
+        factor_ms=time_cuda(torch, partial(ilu.factor, data), 5),
+        prepare_ms=time_cuda(torch, partial(ilu.prepare, prep.f), 5),
+        apply_ms=time_cuda(torch, partial(ilu.solve, prep, F), 5),
+        ell_spmv_ms=time_cuda(torch, partial(comp._ell, data, F), 5),
+        gmres_solve_ms=time_cuda(torch, partial(comp._csr_solve, data, F),
+                                 3))
+    print("th_petsc_split " + json.dumps(split))
+    # one step of each plan from the same state, timed alike: its mean ms
+    # over 3 calls (CUDA events), its device time and device activities
+    rows = []
+    for plan, c in (("petsc", comp), ("direct", comp_direct)):
+        fn = partial(c.step_batched, Xs, bc, ss, TH_DT, dyn=dyn)
+        row = dict(cell="th_batched", plan=plan, state="X0",
+                   ms_per_step=time_cuda(torch, fn, 3))
+        later(fn, 1, row, key="step_device_ms",
+              count_key="device_activities_per_step", repeats=True)
+        rows.append(row)
+    return rows
+
+
+def run_vchannel(torch):
+    """Phase (r): vsfm_vchannel at the reference size under "petsc" (card
+    and CPU) and "direct" (card)."""
+    from mpp_tpu_torch.constants import AuxVarKind, Var
+    from mpp_tpu_torch.problems import vsfm_vchannel as vch
+    P, info = {}, {}
+    for plan, device in (("petsc", "cuda"), ("direct", "cuda"),
+                         ("petsc", "cpu")):
+        t0 = time.perf_counter()
+        mpp = vch.run_vsfm_vchannel_problem(nz=VCH_NZ, nstep=0,
+                                            linear_solver=plan,
+                                            device=device)
+        comp = mpp.soe.step_dt.__self__
+        build_s = time.perf_counter() - t0
+        check(comp.plan == ("petsc" if plan == "petsc" else "block"),
+              f"(r): {plan} took the {comp.plan} plan")
+        sync(torch, device)
+        t0 = time.perf_counter()
+        reasons = []
+        for istep in range(1, VCH_STEPS + 1):
+            ok, reason = mpp.soe.step_dt(VCH_DT, istep)
+            check(ok, f"(r) {plan} {device}: step {istep} reason {reason}")
+            reasons.append(reason)
+        sync(torch, device)
+        ms = (time.perf_counter() - t0) / VCH_STEPS * 1e3
+        its = mpp.soe.cumulative_newton_iterations
+        P[plan, device] = mpp.get_data(AuxVarKind.INTERNAL, Var.PRESSURE)
+        info[f"{plan}_{device}"] = dict(
+            plan=comp.plan, block_size=comp.block_size, build_s=build_s,
+            ms_per_step=ms, newton_iters=its, reasons=reasons,
+            host_syncs=comp.host_syncs, gmres_cycles=comp.gmres_cycles,
+            gmres_cycles_per_newton_iter=comp.gmres_cycles / max(its, 1),
+            ilu_levels=(None if comp._ilu is None else
+                        [comp._ilu.levels_fwd, comp._ilu.levels_bwd]))
+        if plan == "petsc":
+            bad = comp.gmres_unconverged()
+            check(bad == 0, f"(r) {device}: {bad} GMRES runs unconverged")
+    check(info["petsc_cuda"]["block_size"] is None
+          and info["direct_cuda"]["block_size"] == 200,
+          f"(r): block size {info['direct_cuda']['block_size']}")
+    rel = card_vs_cpu("(r) petsc P", P["petsc", "cuda"], P["petsc", "cpu"])
+    gap = float(np.max(np.abs(P["petsc", "cuda"] - P["direct", "cuda"])))
+    check(gap <= VCH_PLAN_PA, f"(r): petsc vs direct {gap:.3e} Pa > "
+          f"{VCH_PLAN_PA:g}")
+    print("vchannel " + json.dumps(dict(
+        cells=int(P["petsc", "cuda"].size), dt=VCH_DT, steps=VCH_STEPS,
+        petsc_card_vs_cpu_max_rel=rel, petsc_vs_direct_max_abs_Pa=gap,
+        **info)))
+
+
+def run_thermal_mms_petsc(torch):
+    """Phase (s): the 2-D and 3-D thermal MMS through compile_ksp("petsc")
+    on the card and the CPU."""
+    from mpp_tpu_torch.problems import thermal_mms
+    for ptype in (2, 3):
+        out = {}
+        for device in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            mpp, soln = thermal_mms.run_thermal_mms_problem(ptype,
+                                                            device=device)
+            comp = mpp.soe.step_dt.__self__
+            check(comp._ilu is not None, f"(s) {ptype}-D: not the GMRES plan")
+            out[device] = (np.asarray(soln), time.perf_counter() - t0,
+                           mpp.soe.cumulative_linear_iterations,
+                           comp.host_syncs)
+        exact = thermal_mms.exact_solution(ptype)
+        rel = card_vs_cpu(f"(s) {ptype}-D T", out["cuda"][0], out["cpu"][0])
+        err = {d: float(np.max(np.abs(out[d][0] - exact))) for d in out}
+        derr = abs(err["cuda"] - err["cpu"]) / err["cpu"]
+        check(derr <= 1e-9, f"(s) {ptype}-D: error vs the manufactured "
+              f"solution {err['cuda']:.6e} (card) vs {err['cpu']:.6e} (CPU)")
+        print("thermal_mms_petsc " + json.dumps(dict(
+            dim=ptype, cells=int(exact.size), card_vs_cpu_max_rel=rel,
+            max_abs_err_vs_exact_K=err, err_card_vs_cpu_rel=derr,
+            gmres_cycles={d: out[d][2] for d in out},
+            host_syncs={d: out[d][3] for d in out},
+            build_and_step_s={d: out[d][1] for d in out})))
+
+
+def run_small_problems(torch):
+    """Phase (t): run_heat_transport_1d through CompiledThermalEnthalpy and
+    the multi-GE spac_campbell under both plans, card against CPU."""
+    from mpp_tpu_torch.constants import AuxVarKind, Var
+    from mpp_tpu_torch.problems import th, vsfm_spac_campbell as camp
+    res = {}
+    out = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        mpp, T = th.run_heat_transport_1d(nz=100, nstep=2, compiled=True,
+                                          device=device)
+        out[device] = (np.asarray(T), time.perf_counter() - t0,
+                       mpp.soe.cumulative_linear_iterations)
+    res["heat_transport_1d"] = dict(
+        card_vs_cpu_max_rel=card_vs_cpu("(t) heat_transport_1d T",
+                                        out["cuda"][0], out["cpu"][0]),
+        s={d: out[d][1] for d in out},
+        gmres_cycles={d: out[d][2] for d in out})
+    for plan in ("petsc", "direct"):
+        out = {}
+        for device in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            mpp = camp.run_vsfm_spac_campbell_problem(
+                multi_goveqns=True, linear_solver=plan, device=device)
+            comp = mpp.soe.step_dt.__self__
+            # "direct" takes the JAX package's rule: block-Thomas where a
+            # block size covers the pattern, else dense LU
+            check((comp.plan == "petsc") == (plan == "petsc"),
+                  f"(t) spac_campbell {plan}: the {comp.plan} plan")
+            out[device] = (mpp.get_data(AuxVarKind.INTERNAL, Var.PRESSURE),
+                           time.perf_counter() - t0,
+                           mpp.soe.cumulative_newton_iterations, comp.plan,
+                           comp.block_size)
+        check(out["cuda"][2] == out["cpu"][2], f"(t) spac_campbell {plan}: "
+              f"Newton iterations {out['cuda'][2]} vs {out['cpu'][2]}")
+        res[f"spac_campbell_multi_{plan}"] = dict(
+            card_vs_cpu_max_rel=card_vs_cpu(
+                f"(t) spac_campbell {plan} P", out["cuda"][0],
+                out["cpu"][0]),
+            s={d: out[d][1] for d in out}, newton_iters=out["cuda"][2],
+            plan=out["cuda"][3], block_size=out["cuda"][4])
+    print("small_problems " + json.dumps(res))
+
+
 def main():
     here = os.path.dirname(os.path.abspath(__file__))
     check(os.path.isdir(os.path.join(here, "mpp_tpu_torch")),
@@ -1236,16 +1499,17 @@ def main():
     from mpp_tpu_torch.problems import th
     from mpp_tpu_torch.batched.th_compiled import compile_th
     t0 = time.perf_counter()
-    mpp, _ = th.run_mass_and_heat(nx=TH_NH, device="cpu")
+    mpp, _ = th.run_mass_and_heat(nx=TH_NH, linear_solver="direct",
+                                  device="cpu")
     comp = compile_th(mpp, linear_solver="direct")
     X0_np = mpp.soe.soln
     problem_s = time.perf_counter() - t0
     th_launches = {}
     hk.reset_launches()
-    X64, ms64, steps64, setup64, dm64 = run_th(
+    X64, ms64, steps64, setup64, dm64, X1_direct = run_th(
         torch, comp, X0_np, torch.float64, TH_STEPS, "cuda", TH_NCOL)
     th_launches["f64"] = dict(hk.LAUNCHES)
-    X32, ms32, steps32, setup32, dm32 = run_th(
+    X32, ms32, steps32, setup32, dm32, _ = run_th(
         torch, comp, X0_np, torch.float32, TH_STEPS, "cuda", TH_NCOL,
         **TH_F32_TOLS)
     th_launches["total"] = dict(hk.LAUNCHES)
@@ -1318,6 +1582,19 @@ def main():
     by_path["thermal"], thermal_row, thermal_busy = run_thermal(torch, hk,
                                                                 tridiag)
     checks.append(thermal_row)
+
+    # (q)-(t): the PETSc-replica inner solve (batched ILU(0) + GMRES(30))
+    t0 = time.perf_counter()
+    th_busy = run_th_petsc(torch, hk, mpp, comp, X0_np, X1_direct)
+    t_q = time.perf_counter()
+    run_vchannel(torch)
+    t_r = time.perf_counter()
+    run_thermal_mms_petsc(torch)
+    t_s = time.perf_counter()
+    run_small_problems(torch)
+    t_t = time.perf_counter()
+    print("petsc_phases_s " + json.dumps(dict(
+        q=t_q - t0, r=t_r - t_q, s=t_s - t_r, t=t_t - t_s)))
     for name in ("thomas", "tridiag_spmv", "tridiag_spmv_mixed"):
         results[name]["launches_by_path"] = {
             path: counts.get(name, 0) for path, counts in by_path.items()}
@@ -1330,7 +1607,7 @@ def main():
     settle(torch)
     for r in checks:
         print("kernel_check " + json.dumps(r))
-    for r in (esc_busy, thermal_busy):
+    for r in (esc_busy, thermal_busy, *th_busy):
         r["device_busy"] = r["step_device_ms"] / r["ms_per_step"]
         print("step_device " + json.dumps(r))
     print("profiler_after " + json.dumps(dict(

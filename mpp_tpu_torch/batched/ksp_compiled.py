@@ -19,12 +19,13 @@ over ``ncol`` independent copies of the problem (one row of the
   - block-tridiagonal over level-major blocks (the 3-media thermal
     problem at one column): ``ops/block_structure.BlockTridiagTemplate``
     and the plain ``ops/block_thomas.block_thomas`` sweep;
-  - otherwise a dense ``torch.linalg.solve`` per column.
+  - otherwise, under ``linear_solver="petsc"``, the batched ILU(0) +
+    GMRES(30) replica of the reference's KSP (``batched/ilu_gmres.py``;
+    the 2-D and 3-D thermal MMS problems), else a dense
+    ``torch.linalg.solve`` per column.
 
-``linear_solver="petsc"`` is accepted wherever the JAX package takes
-Thomas before it reads the keyword (tridiagonal problems, where ILU(0) is
-the exact LU); its non-tridiagonal GMRES(30)+ILU(0) plan is not ported
-yet and raises (ROADMAP Slice D).  ``CompiledRadiation`` waits for
+Tridiagonal problems take Thomas under either keyword (ILU(0) of a
+tridiagonal matrix is its exact LU).  ``CompiledRadiation`` waits for
 Slice E.
 """
 from __future__ import annotations
@@ -32,6 +33,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from mpp_tpu_torch.batched.ilu_gmres import (BatchedILU0, make_ell_matvec,
+                                             petsc_gmres_batched)
 from mpp_tpu_torch.batched.vsfm_compiled import _rows
 from mpp_tpu_torch.constants import Cond
 from mpp_tpu_torch.device import device_of
@@ -54,8 +57,8 @@ class CompiledKSP:
 
     def __init__(self, mpp, linear_solver: str = "direct"):
         """``linear_solver``: "direct" (the default, the exact batched
-        solver) or "petsc" (the reference's GMRES(30)+ILU(0) at rtol 1e-5,
-        which is Thomas for a tridiagonal operator)."""
+        solver) or "petsc" (the reference's GMRES(30) + ILU(0) at PETSc's
+        default rtol, which is Thomas for a tridiagonal operator)."""
         if linear_solver not in ("petsc", "direct"):
             raise ValueError(f"linear_solver {linear_solver!r}: expected "
                              '"petsc" or "direct"')
@@ -70,6 +73,8 @@ class CompiledKSP:
         self.n = soe.n_total
         self.cnfac = soe.cnfac
         self.linear_solver = linear_solver
+        #: host reads of device predicates since construction
+        self.host_syncs = 0
 
         # exchange plan: for each GE, the bc slots that are FRM_OTR and the
         # partner GE's global cell index they gather from
@@ -116,7 +121,7 @@ class CompiledKSP:
         bw = int(np.abs(coo_r - coo_c).max(initial=0))
         self.is_tridiag = bw <= 1
         self.block_size = None
-        self._bt = None
+        self._bt = self._ilu = None
         if self.is_tridiag:
             # direct-diagonal assembly: each COO contribution scatters
             # straight into (dl, d, du)
@@ -125,10 +130,10 @@ class CompiledKSP:
             self._tri_rows = [coo_r[i] for i in self._tri_idx]
             return
         if self.linear_solver == "petsc":
-            raise NotImplementedError(
-                f"non-tridiagonal KSP problem (bandwidth {bw}) with "
-                'linear_solver="petsc": the batched GMRES(30)+ILU(0) plan is '
-                'not ported yet (ROADMAP Slice D); pass linear_solver="direct"')
+            t = self.template
+            self._ilu = BatchedILU0(t.indptr, t.indices)
+            self._ell = make_ell_matvec(t.indptr, t.indices)
+            return
         for b in range(bw, min(self.n // 2, 1024) + 1):
             # a candidate block size must both divide n AND give a true
             # block-tridiagonal cover: every entry within one block row of
@@ -145,6 +150,11 @@ class CompiledKSP:
             raise ValueError(
                 f"no banded structure found and n={self.n} too large for "
                 "batched dense LU")
+
+    def _sync(self, value):
+        """Read a device scalar on the host (one host synchronisation)."""
+        self.host_syncs += 1
+        return value.item()
 
     def _const(self, key, ref, build):
         """``build()`` (numpy indices) as a long tensor on ``ref``'s device,
@@ -227,13 +237,22 @@ class CompiledKSP:
         bc_values/ss_values tuples of [ncol, nbc_g]/[ncol, nss_g] per GE;
         ``dyn`` tuple of per-GE dynamic-state dicts with leading [ncol]
         axes.  Returns (T_new, ok[ncol], linear_iterations): ``ok`` is the
-        per-column finite-solution check of a direct solve."""
+        per-column KSP convergence (GMRES's residual test and a finite
+        solution on the "petsc" plan, a finite solution on a direct one);
+        the iterations are the GMRES cycles, 1 for a direct solve."""
         if dyn is None:
             dyn = tuple({} for _ in self.goveqns)
         vals, b = self._assemble(T, tuple(bc_values), tuple(ss_values), dt,
                                  tuple(dict(d) for d in dyn))
+        finite = lambda x: torch.all(torch.isfinite(x), dim=-1)
+        if self._ilu is not None:
+            data = self.template.assemble(vals)
+            x, cycles, conv = petsc_gmres_batched(
+                self._ell, data, b, ilu=self._ilu,
+                pc_data=self._ilu.factor(data), sync=self._sync)
+            return x, conv & finite(x), cycles
         x = self._solve(vals, b)
-        return x, torch.all(torch.isfinite(x), dim=-1), 1
+        return x, finite(x), 1
 
     def gather_inputs(self, ncol=1, device="cuda", dtype=torch.float64):
         """The staged BC/SS condition values of every GE as ``[ncol, nbc]``

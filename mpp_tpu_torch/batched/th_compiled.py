@@ -12,31 +12,36 @@ into a batched stepper over ``ncol`` independent columns, with X
   receives T, the energy GE P) as argument passing;
 * the Newton, BT line search, dt-cut ladder and straggler compaction of
   ``batched/vsfm_compiled.CompiledVSFM``, through its three plan hooks;
+* the default ``linear_solver="petsc"`` plan: the reference's inner
+  solve, the batched ILU(0) + GMRES(30) (``batched/ilu_gmres.py``) on the
+  template's [P-block; T-block] order, for golden-trajectory parity;
 * the "direct" plan: interleaving the unknowns per cell, [P_0, T_0, P_1,
   T_1, ...], turns the Jacobian into a block-tridiagonal system of 2x2
   blocks (every TH coupling is a nearest-neighbour two-point flux), solved
   exactly by the ``block_thomas2`` CUDA kernel (``ops/hopper_kernels.py``);
-  J Y for the initial slope is the ELL SpMV on the CSR data.
+  couplings beyond nearest neighbours take ``CompiledVSFM``'s CSR plans;
+* J Y for the initial slope is the ELL SpMV on the CSR data.
 
-The default ``linear_solver="petsc"`` (the reference's ILU(0)+GMRES(30),
-golden-trajectory parity) is not ported yet and raises (ROADMAP Slice D):
-pass ``linear_solver="direct"``.  ``CompiledThermalEnthalpy`` moves to
-Slice D as well.  f32 runs take the f32 parameter set of the JAX package
-(rtol 2e-4); production f32 callers pass ``rtol=2e-3, stol=1e-5`` to
-``step_batched``, above the f32 energy-residual evaluation floor
-(KNOWN_GAPS #13).
+f32 runs take the f32 parameter set of the JAX package (rtol 2e-4);
+production f32 callers pass ``rtol=2e-3, stol=1e-5`` to ``step_batched``,
+above the f32 energy-residual evaluation floor (KNOWN_GAPS #13).
+
+:class:`CompiledThermalEnthalpy` is the standalone enthalpy SoE's step:
+one linearised implicit-Euler update a step, solved by the batched ILU(0)
++ GMRES(30).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from mpp_tpu_torch.batched.ilu_gmres import make_ell_matvec
+from mpp_tpu_torch.batched.ilu_gmres import BatchedILU0, make_ell_matvec
 from mpp_tpu_torch.device import device_of
 from mpp_tpu_torch.batched.vsfm_compiled import (CompiledVSFM, SNESParams,
                                                  _rows)
 from mpp_tpu_torch.models.richards import _swhere
-from mpp_tpu_torch.models.thermal_enthalpy import richards_offdiag_t_values
+from mpp_tpu_torch.models.thermal_enthalpy import (linearised_update,
+                                                   richards_offdiag_t_values)
 from mpp_tpu_torch.ops import hopper_kernels as hk
 
 
@@ -45,7 +50,7 @@ class CompiledTH(CompiledVSFM):
 
     Serial drop-in (ncol=1)::
 
-        comp = compile_th(mpp, linear_solver="direct").install()
+        comp = compile_th(mpp).install()
         converged, reason = mpp.soe.step_dt(dt, istep)
 
     Batched: ``step_batched(X, bc_values, ss_values, dt, dyn=...)`` with
@@ -58,13 +63,11 @@ class CompiledTH(CompiledVSFM):
 
     def __init__(self, mpp, snes: SNESParams = None, max_cuts: int = 20,
                  linear_solver: str = "petsc"):
+        """``linear_solver``: "petsc" (the default) replicates the
+        reference's inner solve, batched ILU(0) + GMRES(30) at rtol 1e-5;
+        "direct" is the exact 2x2 block-Thomas solve."""
         if linear_solver not in ("petsc", "direct"):
             raise ValueError(linear_solver)
-        if linear_solver == "petsc":
-            raise NotImplementedError(
-                'linear_solver="petsc" (the batched ILU(0)+GMRES replica of '
-                "the reference's inner solve) is not ported yet (ROADMAP "
-                'Slice D); use linear_solver="direct"')
         self.linear_solver = linear_solver
         self.mpp = mpp
         soe = mpp.soe
@@ -96,23 +99,27 @@ class CompiledTH(CompiledVSFM):
         self._tc = {}
         self._plan_solver()
 
-    # ---- interleaved 2x2 block-tridiagonal plan ----------------------------
+    # ---- solver plans ------------------------------------------------------
     def _plan_solver(self):
-        """The CSR slot of each (band B, level i, row slot a, column slot b)
-        block entry, with a mask of the entries that exist (absent ones
-        gather slot 0 and are masked to zero).  The template orders the
-        unknowns [P-block; T-block] (the reference's DMComposite layout);
-        level = index % nh, slot = index // nh."""
+        """"petsc": the ILU(0) + GMRES plan on the template's [P-block;
+        T-block] order.  "direct": the interleaved 2x2 block-tridiagonal
+        plan, the CSR slot of each (band B, level i, row slot a, column
+        slot b) block entry with a mask of the entries that exist (absent
+        ones gather slot 0 and are masked to zero); level = index % nh,
+        slot = index // nh.  Couplings beyond nearest-neighbour cells take
+        the generic CSR plans (``CompiledVSFM._plan_csr``)."""
         t = self.template
-        self._ell = make_ell_matvec(t.indptr, t.indices)
+        self.is_tridiag = False
         nh = self.nh
         rows = t.row_ids().astype(np.int64)
         cols = t.indices.astype(np.int64)
+        bw = int(np.abs(rows - cols).max(initial=0))
         band = cols % nh - rows % nh
-        if np.abs(band).max(initial=0) > 1:
-            raise NotImplementedError(
-                "TH couplings beyond nearest-neighbour cells: the dense-LU "
-                "and ILU(0)+GMRES plans are not ported yet (ROADMAP Slice D)")
+        if self.linear_solver == "petsc" or np.abs(band).max(initial=0) > 1:
+            self._plan_csr(rows, cols, bw)
+            return
+        self.plan = "block2"
+        self._ell = make_ell_matvec(t.indptr, t.indices)
         slots = np.zeros((3, nh, 2, 2), np.int64)
         mask = np.zeros((3, nh, 2, 2), bool)
         s = np.arange(rows.size)
@@ -145,7 +152,9 @@ class CompiledTH(CompiledVSFM):
 
     def _solve(self, data, F):
         """Newton direction Y with J Y = F: gather the interleaved blocks
-        and run the block-Thomas kernel."""
+        and run the block-Thomas kernel ("direct"), else the CSR plan."""
+        if self.plan != "block2":
+            return self._csr_solve(data, F)
         ncol, nh = F.shape[0], self.nh
         slots = self._const("blk_slots", data, lambda: self._blk_slots)
         mask = self._const("blk_mask", data, lambda: self._blk_mask,
@@ -235,3 +244,80 @@ class CompiledTH(CompiledVSFM):
 def compile_th(mpp, **kw) -> CompiledTH:
     """Freeze a fully staged ``THMPP`` into a batched stepper."""
     return CompiledTH(mpp, **kw)
+
+
+class CompiledThermalEnthalpy:
+    """The standalone enthalpy SoE as a batched single-update stepper
+    (counterpart of ``mpp_tpu/batched/th_compiled.py:
+    CompiledThermalEnthalpy``).
+
+    The reference's SNES callbacks freeze the auxvars at soln_prev
+    (SystemOfEquationsThermalEnthalpyType.F90:352,285), so a StepDT is a
+    single inexact Newton update T <- T_prev - (ILU-GMRES)(J, F) with J
+    and F evaluated at T_prev: accum_prev, residual, Jacobian assembly,
+    the batched ILU(0) factor and the batched GMRES(30), batched over
+    columns."""
+
+    def __init__(self, mpp):
+        self.mpp = mpp
+        soe = mpp.soe
+        if soe.template is None:
+            soe.setup()
+        self.ge = soe.ge
+        self.ge.invalidate()
+        self.template = soe.template
+        self.n = soe.n
+        t = self.template
+        self._ilu = BatchedILU0(t.indptr, t.indices)
+        self._ell = make_ell_matvec(t.indptr, t.indices)
+        #: host reads of device predicates since construction
+        self.host_syncs = 0
+
+    def _sync(self, value):
+        self.host_syncs += 1
+        return value.item()
+
+    def step_batched(self, T_prev, P, bc_value, dt):
+        """T_prev / P ``[ncol, n]``, bc_value ``[ncol, nbc]``.  Returns
+        (T_new, gmres_cycles, converged[ncol])."""
+        T, cycles, conv, _ = linearised_update(
+            self.ge, self.template, self._ilu, self._ell, T_prev, P, dt,
+            bc_value=bc_value, sync=self._sync)
+        return T, cycles, conv
+
+    #: device of the serial drop-in step; :meth:`install` sets it
+    serial_device = "cuda"
+
+    def install(self, device="cuda"):
+        """Route the SoE's ``step_dt`` through this stepper (one f64
+        column on ``device``, the card unless ``device="cpu"``)."""
+        self.serial_device = device_of(device)
+        self.mpp.soe.step_dt = self.step_dt_serial
+        return self
+
+    def step_dt_serial(self, dt, nstep=1):
+        soe = self.mpp.soe
+        ge = self.ge
+        dev = device_of(self.serial_device)
+        t = lambda a: torch.as_tensor(np.asarray(a, np.float64),
+                                      device=dev)[None, :]
+        Tn, cycles, conv = self.step_batched(
+            t(soe.soln_prev), t(np.asarray(ge.pressure)[:self.n]),
+            t(ge.bc_value), dt)
+        soe.soln = Tn[0].cpu().numpy()
+        soe.soln_prev = soe.soln
+        soe.cumulative_newton_iterations += 1
+        soe.cumulative_linear_iterations += int(cycles)
+        converged = bool(conv[0])
+        reason = 2 if converged else -3
+        if soe.metrics is not None:
+            soe.metrics.record(step=nstep, dt=dt, converged=converged,
+                               reason=reason, newton_iterations=1,
+                               linear_iterations=int(cycles))
+        return converged, reason
+
+
+def compile_thermal_enthalpy(mpp, **kw) -> CompiledThermalEnthalpy:
+    """Freeze a fully staged ``ThermalEnthalpyMPP`` into a batched
+    single-update stepper."""
+    return CompiledThermalEnthalpy(mpp, **kw)

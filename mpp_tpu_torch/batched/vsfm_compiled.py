@@ -14,11 +14,17 @@ over ``ncol`` independent copies of the problem (one row of the
   form), ``_solve`` (the Newton direction) and ``_matvec`` (J Y, the line
   search's initial slope); ``linesearch_jac="fused"`` builds the Jacobian
   with the residual at the line search's full-step trial instead
-  (``_resjac``) and carries it into the next iteration.  This module has the tridiagonal plan: the
-  Jacobian assembled straight into its three bands with ``index_add_``,
-  the Thomas kernel and the stencil-SpMV kernel
-  (``ops/hopper_kernels.py``); ``batched/th_compiled.py`` has the 2x2
-  block-tridiagonal one;
+  (``_resjac``) and carries it into the next iteration.  The plans:
+  - tridiagonal problems (the vertical-column case): the Jacobian
+    assembled straight into its three bands with ``index_add_``, the
+    Thomas kernel and the stencil-SpMV kernel (``ops/hopper_kernels.py``),
+    under either ``linear_solver``;
+  - otherwise the Jacobian as CSR data and J x as the ELL SpMV;
+    "petsc" solves by the batched ILU(0) + GMRES(30) replica of the
+    reference's inner solve (``batched/ilu_gmres.py``), "direct" by
+    block-Thomas over level-major blocks (``ops/block_structure``,
+    ``ops/block_thomas``) or a batched dense LU;
+  ``batched/th_compiled.py`` adds the 2x2 block-tridiagonal one;
 * PETSc SNES NEWTONLS + SNESLineSearchBT (cubic) + SNESConvergedDefault,
   batched with per-column masks, straggler compaction, and the
   SOEBaseStepDT_SNES dt-cut ladder with per-column ladders
@@ -29,18 +35,21 @@ control flow here: each one reads a device value on the host.  Every such
 read goes through :meth:`CompiledVSFM._sync`, which counts it in
 ``host_syncs``.
 
-Not ported yet (raise ``NotImplementedError``; ROADMAP Slice D):
-block-Thomas, dense LU and the ILU(0)+GMRES "petsc" plan for
-non-tridiagonal VSFM problems.
+The serial SNES of ``VSFMSoE.step_dt`` is not ported (ROADMAP Queue 1);
+a facade problem steps through :meth:`CompiledVSFM.install`.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from mpp_tpu_torch.batched.ilu_gmres import (BatchedILU0, make_ell_matvec,
+                                             petsc_gmres_batched)
 from mpp_tpu_torch.constants import FMWH2O
 from mpp_tpu_torch.device import device_of
 from mpp_tpu_torch.ops import hopper_kernels as hk
+from mpp_tpu_torch.ops.block_structure import BlockTridiagTemplate
+from mpp_tpu_torch.ops.block_thomas import block_thomas
 from mpp_tpu_torch.ops.snes import (CONVERGED_FNORM_ABS,
                                     CONVERGED_FNORM_RELATIVE,
                                     CONVERGED_SNORM_RELATIVE,
@@ -82,10 +91,13 @@ class CompiledVSFM:
     def __init__(self, mpp, snes: SNESParams = None, max_cuts: int = 20,
                  linear_solver: str = "petsc",
                  linesearch_jac: str = "separate"):
-        """``linear_solver``: "petsc" (the default) or "direct"; a
-        tridiagonal problem runs Thomas for either (the exact LU, which is
-        what ILU(0) is for a tridiagonal matrix); the plans of
-        non-tridiagonal problems are not ported yet.
+        """``linear_solver``: "petsc" (the default) replicates the
+        reference's inner solve, batched ILU(0) + GMRES(30) at rtol 1e-5,
+        so golden trajectories are reproduced; "direct" is the exact
+        batched solver (block-Thomas or dense LU), within the Newton stop
+        criterion's determinacy band of the goldens.  A tridiagonal
+        problem runs Thomas for either (ILU(0) of a tridiagonal matrix is
+        its exact LU).
 
         ``linesearch_jac``: "separate" (the default) evaluates the Jacobian
         at the start of each Newton iteration; "fused" evaluates residual
@@ -139,18 +151,23 @@ class CompiledVSFM:
 
     # ---- solver plan -----------------------------------------------------
     def _plan_solver(self):
-        """The tridiagonal plan: each COO contribution (in the order the
-        concatenated jacobian_values emit them) maps statically to (band,
-        row), so assembly is three scatter-adds into (dl, d, du)."""
+        """Choose the linear solver from the discovered sparsity:
+
+        * bandwidth <= 1: the tridiagonal plan under either keyword (ILU(0)
+          of a tridiagonal matrix is its exact LU).  Each COO contribution
+          (in the order the concatenated jacobian_values emit them) maps
+          statically to (band, row), so assembly is three scatter-adds
+          into (dl, d, du); the Thomas and stencil-SpMV kernels solve and
+          multiply;
+        * otherwise the CSR plans of :meth:`_plan_csr`."""
         t = self.template
         rows, cols = t.row_ids(), t.indices
         bw = int(np.abs(rows.astype(np.int64) - cols).max(initial=0))
         self.is_tridiag = bw <= 1
         if not self.is_tridiag:
-            raise NotImplementedError(
-                f"non-tridiagonal VSFM problem (bandwidth {bw}): the "
-                "block-Thomas, dense-LU and ILU(0)+GMRES plans are not "
-                "ported yet (ROADMAP Queue 1 Slice D, Queue 2)")
+            self._plan_csr(rows, cols, bw)
+            return
+        self.plan = "thomas"
         rows_l, cols_l = [], []
         for g, off in zip(self.goveqns, self.offsets[:-1]):
             r, c = g.coo_coords(off, off)
@@ -164,6 +181,37 @@ class CompiledVSFM:
         band = coo_c - coo_r + 1        # 0 = dl, 1 = d, 2 = du
         self._tri_idx = [np.nonzero(band == b)[0] for b in (0, 1, 2)]
         self._tri_rows = [coo_r[i] for i in self._tri_idx]
+
+    def _plan_csr(self, rows, cols, bw):
+        """The plans on the assembled CSR data (``mpp_tpu/batched/
+        vsfm_compiled.py:168-212``): "petsc" is the batched ILU(0) +
+        GMRES at the ``SNESParams`` ksp_rtol / ksp_atol / ksp_restart;
+        "direct" takes the first block size b >= bandwidth that divides n
+        and gives a true block-tridiagonal cover (every entry within one
+        block row of the diagonal) and runs block-Thomas over n/b levels,
+        else a batched dense LU up to n = 4096.  J x is the ELL SpMV."""
+        t = self.template
+        self._ell = make_ell_matvec(t.indptr, t.indices)
+        self._ilu = self._bt = self.block_size = None
+        if self.linear_solver == "petsc":
+            self.plan = "petsc"
+            self._ilu = BatchedILU0(t.indptr, t.indices)
+            return
+        r64, c64 = rows.astype(np.int64), cols.astype(np.int64)
+        for b in range(bw, min(self.n // 2, 1024) + 1):
+            if self.n % b == 0 and (np.abs(r64 // b - c64 // b) <= 1).all():
+                self.block_size = b
+                break
+        if self.block_size is not None:
+            self.plan = "block"
+            self._bt = BlockTridiagTemplate(1, self.n // self.block_size,
+                                            self.block_size, rows, cols)
+        elif self.n > 4096:
+            raise ValueError(
+                f"no banded structure found and n={self.n} too large for "
+                "batched dense LU")
+        else:
+            self.plan = "dense"
 
     def _const(self, key, ref, build, dtype=torch.long):
         """``build()`` (numpy) as a ``dtype`` tensor on ``ref``'s device,
@@ -182,22 +230,69 @@ class CompiledVSFM:
         return value.item()
 
     # ---- the plan's hooks: _jac, _solve, _matvec -----------------------------
-    def _solve(self, bands, F):
-        """Newton direction Y with J Y = F (exact): the Thomas kernel."""
-        dl, d, du = bands
+    #: GMRES cycles and solves of the "petsc" plan since construction
+    gmres_cycles = 0
+    gmres_solves = 0
+    _gmres_failed = None
+
+    def gmres_unconverged(self):
+        """(column, solve) pairs whose GMRES did not converge since
+        construction (one host read)."""
+        v = self._gmres_failed
+        return 0 if v is None else int(self._sync(v))
+
+    def _csr_solve(self, data, F):
+        """J Y = F on the CSR data [ncol, nnz] by the CSR plan."""
+        if self.plan == "petsc":
+            sp = self.snes
+            x, cycles, conv = petsc_gmres_batched(
+                self._ell, data, F, ilu=self._ilu,
+                pc_data=self._ilu.factor(data), rtol=sp.ksp_rtol,
+                atol=sp.ksp_atol, restart=sp.ksp_restart, sync=self._sync)
+            self.gmres_cycles += cycles
+            self.gmres_solves += 1
+            bad = torch.sum(~conv)
+            self._gmres_failed = bad if self._gmres_failed is None \
+                else self._gmres_failed + bad
+            return x
+        if self.plan == "block":
+            ncol, b = F.shape[0], self.block_size
+            L, D, U = self._bt.assemble(data)
+            x = block_thomas(L, D, U, F.reshape(ncol, 1, self.n // b, b))
+            return x.reshape(ncol, self.n)
+        dense = self.template.to_dense(data)
+        return torch.linalg.solve(dense, F[..., None])[..., 0]
+
+    def _solve(self, A, F):
+        """Newton direction Y with J Y = F: the Thomas kernel on the bands
+        of a tridiagonal plan, else the CSR plan on ``A = (data,)``."""
+        if not self.is_tridiag:
+            return self._csr_solve(A[0], F)
+        dl, d, du = A
         return hk.thomas(dl, d, du, F.contiguous())
 
-    def _matvec(self, bands, x):
-        """J x for the BT initial slope: the stencil-SpMV kernel; f32 runs
-        store the bands in bf16 (tridiag_spmv_mixed), f64 runs keep full
-        precision."""
-        dl, d, du = bands
+    def _matvec(self, A, x):
+        """J x for the BT initial slope: the stencil-SpMV kernel on bands
+        (f32 runs store them in bf16, tridiag_spmv_mixed; f64 runs keep
+        full precision), the ELL SpMV on CSR data."""
+        if not self.is_tridiag:
+            return self._ell(A[0], x)
+        dl, d, du = A
         x = x.contiguous()
         if x.dtype == torch.float32:
             return hk.tridiag_spmv_mixed(dl.to(torch.bfloat16),
                                          d.to(torch.bfloat16),
                                          du.to(torch.bfloat16), x)
         return hk.tridiag_spmv(dl, d, du, x)
+
+    def _assemble_plan(self, v):
+        """COO contribution values [ncol, nvals] -> the plan's Jacobian:
+        the (dl, d, du) bands, or ``(data,)`` with the CSR data."""
+        if self.is_tridiag:
+            return self._tri_assemble(v)
+        slots = self._const("csr_slots", v, lambda: self.template.slots)
+        return (v.new_zeros((v.shape[0], self.template.nnz))
+                .index_add_(1, slots, v),)
 
     # ---- batched evaluation ------------------------------------------------
     def _stage_bc(self, k, bc, X):
@@ -236,14 +331,14 @@ class CompiledVSFM:
         return tuple(out)
 
     def _jac(self, X, bc_values, ss_values, dt, dyn):
-        """The Jacobian as the plan's solver takes it: here the (dl, d, du)
-        bands."""
+        """The Jacobian as the plan's solver takes it (the coupled-BC
+        gather first): the (dl, d, du) bands or ``(CSR data,)``."""
         vals = []
         for k, g, a, b in self._ges():
             vals.append(g.jacobian_values(
                 X[:, a:b], dt, bc_value=self._stage_bc(k, bc_values[k], X),
                 ss_value=ss_values[k], dyn=dyn[k]))
-        return self._tri_assemble(torch.cat(vals, dim=1))
+        return self._assemble_plan(torch.cat(vals, dim=1))
 
     def _resjac(self, X, bc_values, ss_values, accum_prevs, dt, src, dyn):
         """(F, the plan's Jacobian) from one constitutive evaluation per GE
@@ -257,7 +352,7 @@ class CompiledVSFM:
             Fs.append(F - src[:, a:b])
             vals.append(v)
         return (torch.cat(Fs, dim=1),
-                self._tri_assemble(torch.cat(vals, dim=1)))
+                self._assemble_plan(torch.cat(vals, dim=1)))
 
     def _accum_prev(self, X, dt, dyn):
         out = []

@@ -981,7 +981,8 @@ class RichardsGE:
 class VSFMSoE:
     """SOE_RE_ODE data: the GE list, offsets, the CSR template and the
     solution vectors (numpy, one column).  Its serial SNES stepper is not
-    ported: ``batched.vsfm_compiled`` steps the problem."""
+    ported (ROADMAP Slice F): ``batched.vsfm_compiled`` steps the problem
+    (``compile_vsfm(mpp).install()`` replaces ``step_dt``)."""
 
     def __init__(self):
         self.goveqns: List[RichardsGE] = []
@@ -1007,6 +1008,11 @@ class VSFMSoE:
         self.soln = np.zeros(n)
         self.soln_prev = np.zeros(n)
         self.soln_prev_clm = np.zeros(n)
+
+    def step_dt(self, dt, istep=1):
+        raise NotImplementedError(
+            "the serial VSFM SNES is not ported yet (ROADMAP Slice F); "
+            "install the compiled stepper first: compile_vsfm(mpp).install()")
 
     def _ensure_template(self):
         if self.template is not None:

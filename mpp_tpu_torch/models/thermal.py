@@ -24,10 +24,10 @@ again only when the host values change.  ``dyn`` promotes per-step state
 to explicit tensors (the compiled batched path,
 ``batched/ksp_compiled.py``).
 
-The serial ``ThermalSOE.step_dt`` takes ``solver="block"`` (the batched
-block-Thomas sweep over column chains); ``solver="ksp"``, the PETSc
-GMRES(30)+ILU(0) replica, is not ported yet (ROADMAP Slice D): the port's
-serial path is ``compile_ksp(mpp).install()``.
+The serial ``ThermalSOE.step_dt`` takes ``solver="ksp"`` (the default,
+the PETSc GMRES(30)+ILU(0) replica of ``ops/ilu.py``, cross-GE coupled
+systems included) or ``solver="block"`` (the batched block-Thomas sweep
+over column chains), on the card unless ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -45,6 +45,7 @@ from mpp_tpu_torch.dtypes.mesh import (Mesh, ConnectionSet,
                                        concat_connection_sets)
 from mpp_tpu_torch.dtypes.conditions import Condition
 from mpp_tpu_torch.dtypes.mpp_base import MPPBase
+from mpp_tpu_torch.ops.ilu import ILU0, petsc_gmres
 from mpp_tpu_torch.ops.sparse import csr_template, CSRTemplate
 
 
@@ -607,6 +608,7 @@ class ThermalSOE:
         self.cnfac = C.CNFAC
         self.template: Optional[CSRTemplate] = None
         self._block_tpl = None
+        self._ilu = None
         self.cumulative_linear_iterations = 0
         self.metrics = None
 
@@ -645,6 +647,7 @@ class ThermalSOE:
         self.setup()
         self.soln, self.soln_prev, self.soln_prev_clm = soln, prev, prev_clm
         self._block_tpl = None
+        self._ilu = None
 
     def exchange_auxvars(self, T):
         """Cross-GE BC staging (ThermalSOEGovEqnExchangeAuxVars,
@@ -690,17 +693,13 @@ class ThermalSOE:
         """KSP step (SOEBaseStepDT_KSP): assemble from soln_prev, solve,
         PostSolve copies soln -> soln_prev.
 
-        ``solver="block"`` scatters the COO values into per-column
-        tridiagonal blocks (``ops/block_structure.py``) and solves them with
-        the batched block-Thomas sweep, on ``device`` (the card unless
-        ``device="cpu"``).  ``solver="ksp"``, the reference's GMRES(30) +
-        ILU(0), is not ported yet (ROADMAP Slice D): install
-        ``compile_ksp(mpp)`` instead."""
-        if solver != "block":
-            raise NotImplementedError(
-                f"ThermalSOE.step_dt(solver={solver!r}): the GMRES(30)+"
-                "ILU(0) KSP is not ported yet (ROADMAP Slice D); use "
-                "solver='block' or compile_ksp(mpp).install()")
+        ``solver="ksp"`` is the golden-parity GMRES(30) + ILU(0) at rtol
+        1e-5 (``ops/ilu.py``); ``solver="block"`` scatters the COO values
+        into per-column tridiagonal blocks (``ops/block_structure.py``)
+        and solves them with the batched block-Thomas sweep.  Both run in
+        f64 on ``device`` (the card unless ``device="cpu"``)."""
+        if solver not in ("ksp", "block"):
+            raise ValueError(f"solver {solver!r}: expected 'ksp' or 'block'")
         dev = device_of(device)
         T = torch.as_tensor(np.asarray(self.soln_prev, np.float64),
                             device=dev)
@@ -713,6 +712,10 @@ class ThermalSOE:
             vals_list.append(v)
             b_list.append(b)
             cpl_list.append(cpl)
+        if solver == "ksp":
+            return self._step_ksp(dt, nstep, torch.cat(vals_list + cpl_list,
+                                                       dim=-1)[0],
+                                  torch.cat(b_list, dim=-1)[0])
         if any(int(c.shape[-1]) for c in cpl_list):
             raise NotImplementedError(
                 "block solver does not support cross-GE coupling yet")
@@ -739,6 +742,27 @@ class ThermalSOE:
             self.metrics.record(step=nstep, dt=dt, converged=True,
                                 solver="block", linear_iterations=1)
         return True
+
+    def _step_ksp(self, dt, nstep, vals, b):
+        """The PETSc-default KSP solve of the assembled system (GMRES(30)
+        + ILU(0), rtol 1e-5; the golden answers embed this iterate) and
+        PostSolve."""
+        tpl = self.template
+        data = tpl.assemble(vals)
+        if self._ilu is None:
+            self._ilu = ILU0(tpl.indptr, tpl.indices)
+        x, iters, converged = petsc_gmres(tpl.indptr, tpl.indices, data, b,
+                                          pc=self._ilu,
+                                          pc_data=self._ilu.factor(data))
+        self.soln = x.cpu().numpy()
+        self.cumulative_linear_iterations += iters
+        self.soln_prev = self.soln
+        for g, off in zip(self.goveqns, self.offsets[:-1]):
+            g.temperature = self.soln[off:off + g.mesh.ncells_local]
+        if self.metrics is not None:
+            self.metrics.record(step=nstep, dt=dt, converged=converged,
+                                solver="ksp", linear_iterations=iters)
+        return converged
 
     def get_soln(self) -> np.ndarray:
         return np.asarray(self.soln)

@@ -17,17 +17,20 @@ Counterpart of ``mpp_tpu/models/thermal_enthalpy.py``:
   equation's dF_mass/dT (GoveqnRichardsODEPressureType.F90:2333-2612);
 * the TH SoE's sparsity in template order [J11, J12, J21, J22] and the
   ``THMPP`` facade, with the enthalpy GE's default permeability 8.3913e-12
-  that MPPTHSetSoils never overrides (MultiPhysicsProbTH.F90:75-607).
+  that MPPTHSetSoils never overrides (MultiPhysicsProbTH.F90:75-607);
+* the standalone enthalpy SoE (``ThermalEnthalpySoE``, one linearised
+  update a step, ``linearised_update``: ILU(0) + GMRES(30) of
+  ``batched/ilu_gmres.py`` at one column, shared with
+  ``CompiledThermalEnthalpy``) and its
+  ``ThermalEnthalpyMPP`` facade.
 
 Set-up is numpy, as in the JAX package; the numeric methods are batched
 over ``[ncol, n]`` state like ``models/richards.py`` (device and dtype are
 the state's).
 
-Not ported yet (ROADMAP Slice D): the serial host SNES of
-``THSoE.step_dt`` (ILU(0)+GMRES), ``ThermalEnthalpySoE`` and
-``ThermalEnthalpyMPP``.  ``THSoE.step_dt`` raises until a compiled
-stepper is installed (``batched/th_compiled.compile_th(mpp,
-linear_solver="direct").install()``).
+Not ported yet (ROADMAP Slice F): the serial host SNES of
+``THSoE.step_dt``.  It raises until a compiled stepper is installed
+(``batched/th_compiled.compile_th(mpp).install()``).
 """
 from __future__ import annotations
 
@@ -38,9 +41,12 @@ import numpy as np
 import torch
 
 from mpp_tpu_torch import constants as C
-from mpp_tpu_torch.constants import (Cond, GEType, SOEType, AuxVarKind,
+from mpp_tpu_torch.constants import (Cond, GEType, SOEType, AuxVarKind, Var,
                                      PRESSURE_REF, GRAVITY_CONSTANT, FMWH2O)
+from mpp_tpu_torch.device import device_of
 from mpp_tpu_torch.dtypes.mpp_base import MPPBase
+from mpp_tpu_torch.batched.ilu_gmres import (BatchedILU0, gmres_cycles,
+                                             make_ell_matvec)
 from mpp_tpu_torch.models.richards import RichardsGE, darcy_flux, _swhere
 from mpp_tpu_torch.ops import eos, satfunc as sf
 from mpp_tpu_torch.ops.porosity import porosity
@@ -623,9 +629,92 @@ class THSoE:
 
     def step_dt(self, dt, nstep=1):
         raise NotImplementedError(
-            "the serial TH SNES (ILU(0)+GMRES) is not ported yet (ROADMAP "
-            "Slice D); install the compiled stepper first: "
-            "compile_th(mpp, linear_solver='direct').install()")
+            "the serial TH SNES is not ported yet (ROADMAP Slice F); "
+            "install the compiled stepper first: compile_th(mpp).install()")
+
+
+class ThermalEnthalpySoE:
+    """SOE_THERMAL_EBASED: the standalone enthalpy SoE.
+
+    The reference's residual and Jacobian callbacks re-stage the auxvars
+    from soln_prev on every SNES evaluation
+    (SystemOfEquationsThermalEnthalpyType.F90:352,285), so the Newton
+    solve is a single linearised implicit-Euler update
+    T <- T_prev - J(T_prev)^-1 F(T_prev) a StepDT, solved by the PETSc
+    default GMRES(30) + ILU(0) at rtol 1e-5.  The golden answers embed
+    this single inexact update; a direct solve lands ~2e-4 K away.
+    ``step_dt`` runs on ``device`` (the card unless ``"cpu"``)."""
+
+    #: device of ``step_dt``
+    device = "cuda"
+
+    def __init__(self):
+        self.ge: Optional[ThermalEnthalpyGE] = None
+        self.itype = int(SOEType.THERMAL_EBASED)
+        self.soln = None
+        self.soln_prev = None
+        self.template: Optional[CSRTemplate] = None
+        self._ilu = None
+        self.cumulative_newton_iterations = 0
+        self.cumulative_linear_iterations = 0
+        self.metrics = None
+
+    @property
+    def goveqns(self):
+        return [self.ge] if self.ge is not None else []
+
+    def setup(self):
+        n = self.ge.mesh.ncells_local
+        self.n = n
+        r, c = self.ge.coo_coords(0, 0)
+        self.template = csr_template(n, n, r, c)
+        self.soln = np.zeros(n)
+        self.soln_prev = np.zeros(n)
+
+    def step_dt(self, dt, nstep=1):
+        """One linearised update in f64 on ``self.device``; returns
+        (converged, reason)."""
+        ge = self.ge
+        dev = device_of(self.device)
+        t = lambda a: torch.as_tensor(np.asarray(a, np.float64),
+                                      device=dev)[None, :]
+        tpl = self.template
+        if self._ilu is None:
+            self._ilu = BatchedILU0(tpl.indptr, tpl.indices)
+            self._ell = make_ell_matvec(tpl.indptr, tpl.indices)
+        # the numpy engine's inner-iteration budget (maxiter 10000), in
+        # whole cycles of min(30, n)
+        T, _, _, its = linearised_update(
+            ge, tpl, self._ilu, self._ell, t(self.soln_prev),
+            t(np.asarray(ge.pressure)[:self.n]), dt,
+            maxcycles=-(-10000 // min(30, self.n)))
+        iters = int(its[0])
+        self.cumulative_linear_iterations += iters
+        self.soln = T[0].cpu().numpy()
+        self.soln_prev = self.soln
+        self.cumulative_newton_iterations += 1
+        if self.metrics is not None:
+            self.metrics.record(step=nstep, dt=dt, converged=True, reason=2,
+                                newton_iterations=1, linear_iterations=iters)
+        return True, 2
+
+
+def linearised_update(ge, template, ilu, matvec, T_prev, P, dt,
+                      bc_value=None, **gmres_kw):
+    """The standalone enthalpy SoE's StepDT over the rows of ``T_prev`` /
+    ``P`` [ncol, n]: accum_prev, the residual F and the Jacobian J at
+    T_prev, the ILU(0) factor of J and GMRES(30) on J dx = -F.  Returns
+    (T_prev + dx, GMRES cycles, converged[ncol], inner iterations[ncol]);
+    ``gmres_kw`` goes to :func:`gmres_cycles` (``sync``, ``maxcycles``)."""
+    acc = ge.accum_e(T_prev, P) / dt
+    accum_prev = _swhere(ge._active(), acc, torch.zeros_like(acc))
+    F = ge.residual_e(T_prev, P, dt, bc_value=bc_value,
+                      accum_prev=accum_prev)
+    data = template.assemble(
+        ge.jacobian_e_values(T_prev, P, dt, bc_value=bc_value))
+    dx, cycles, conv, its = gmres_cycles(matvec, data, -F, ilu=ilu,
+                                         pc_data=ilu.factor(data), **gmres_kw)
+    return T_prev + dx, cycles, conv, its
 
 
 class THMPP(MPPBase):
@@ -720,5 +809,84 @@ class THMPP(MPPBase):
     def set_initial_solution(self, P0, T0):
         X = np.concatenate([np.asarray(P0, np.float64),
                             np.asarray(T0, np.float64)])
+        self.soe.soln = X
+        self.soe.soln_prev = X.copy()
+
+
+class ThermalEnthalpyMPP(MPPBase):
+    """mpp_thermal_type facade (MPP_THERMAL_EBASED_SNES_CLM)."""
+
+    def __init__(self):
+        super().__init__()
+        self.soe = ThermalEnthalpySoE()
+
+    def _goveqns(self):
+        return self.soe.goveqns
+
+    def add_goveqn(self, ge_type, name, mesh_index=0):
+        assert ge_type == GEType.THERM_SOIL_EBASED
+        self.soe.ge = ThermalEnthalpyGE(name=name,
+                                        mesh=self.meshes[mesh_index])
+
+    def set_soils(self, filter_thermal, watsat, csol, tkdry, hksat, bsw,
+                  sucsat, residual_sat, satfunc_type, density_type,
+                  int_energy_type, grav=C.GRAV_CLM, denh2o=C.DENH2O):
+        """MPPThermalSetSoils (MultiPhysicsProbThermalEnthalpy.F90:75-328):
+        perm is NOT set (it stays at the 8.3913e-12 auxvar-init
+        default)."""
+        g = self.soe.ge
+        watsat = np.asarray(watsat)
+        ncol, nlev = watsat.shape
+        g.density_type = int(density_type)
+        g.set_int_energy_type(int_energy_type)
+        for c in range(ncol):
+            for j in range(nlev):
+                icell = c * nlev + j
+                alpha = 1.0 / (sucsat[c, j] * grav)
+                lam = 1.0 / bsw[c, j]
+                g.por_params.porosity_base[icell] = watsat[c, j]
+                if satfunc_type == "van_genuchten":
+                    g.sat_params.set_vg(icell, residual_sat[c, j], alpha, lam)
+                elif satfunc_type == "brooks_corey":
+                    g.sat_params.set_bc(icell, residual_sat[c, j], alpha, lam)
+                else:
+                    raise ValueError(satfunc_type)
+                g.therm_alpha[icell] = 0.45
+                g.therm_cond_wet[icell] = 1.3
+                g.therm_cond_dry[icell] = tkdry[c, j]
+                g.heat_cap_soil[icell] = csol[c, j]
+                g.den_soil[icell] = 2700.0
+        g._copy_params_to_bc_ss()
+        bc_ids = g._bc_concat()[0]
+        g.bc_therm_cond_wet = g.therm_cond_wet[bc_ids]
+        g.bc_therm_cond_dry = g.therm_cond_dry[bc_ids]
+        g.bc_therm_alpha = g.therm_alpha[bc_ids]
+        g.invalidate()
+
+    def set_data(self, auxvar_kind, var_type, soe_auxvar_id, data):
+        g = self.soe.ge
+        data = np.asarray(data, np.float64)
+        if auxvar_kind == AuxVarKind.INTERNAL and var_type == Var.PRESSURE:
+            P = np.array(g.pressure, np.float64)
+            P[:data.size] = data
+            g.pressure = P
+            return
+        if auxvar_kind == AuxVarKind.BC:
+            off = sum(c.num_connections
+                      for c in g.boundary_conditions[:soe_auxvar_id - 1])
+            m = g.boundary_conditions[soe_auxvar_id - 1].num_connections
+            vals = np.array(g.bc_value, np.float64)
+            vals[off:off + m] = data
+            g.bc_value = vals
+            return
+        raise NotImplementedError((auxvar_kind, var_type))
+
+    def get_data(self, var_type):
+        if var_type == Var.TEMPERATURE:
+            return np.asarray(self.soe.soln)
+        raise NotImplementedError(var_type)
+
+    def set_initial_temperature(self, T0):
+        X = np.array(T0, np.float64)
         self.soe.soln = X
         self.soe.soln_prev = X.copy()

@@ -38,6 +38,15 @@ class CSRTemplate:
         data = values.new_zeros(values.shape[:-1] + (self.nnz,))
         return data.index_add_(-1, slots, values)
 
+    def to_dense(self, data: torch.Tensor) -> torch.Tensor:
+        """CSR data ``[..., nnz]`` as dense matrices ``[..., n_rows,
+        n_cols]`` (the dense-LU plan)."""
+        flat = torch.as_tensor(self.row_ids().astype(np.int64) * self.n_cols
+                               + self.indices, device=data.device)
+        dense = data.new_zeros(data.shape[:-1] + (self.n_rows * self.n_cols,))
+        return dense.index_add_(-1, flat, data).view(
+            data.shape[:-1] + (self.n_rows, self.n_cols))
+
 
 def csr_template(n_rows: int, n_cols: int, coo_rows, coo_cols) -> CSRTemplate:
     """Build the static CSR sparsity from COO contribution coordinates

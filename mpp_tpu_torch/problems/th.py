@@ -1,8 +1,15 @@
-"""Coupled thermal-hydrology (TH) standalone problems.
+"""Thermal-enthalpy and coupled thermal-hydrology (TH) standalone problems.
 
-Counterpart of the TH drivers of ``mpp_tpu/problems/th.py``
+Counterpart of ``mpp_tpu/problems/th.py``
 (``src/driver/standalone/thermal-e/``):
 
+* ``heat_transport_1D_problem.F90`` — a 100-cell vertical soil column,
+  pure heat conduction through the standalone thermal-enthalpy MPP
+  (MPP_THERMAL_EBASED_SNES_CLM), 2 steps of dt=3600 s, Dirichlet T at top
+  (303.15 K) and bottom (293.15 K), constant density and constant-cp
+  enthalpy; and ``heat_transport_1D_with_advection.F90``, the same
+  equation along x with IFC67 and a staged pressure field that makes the
+  enthalpy flux carry a Darcy advective part;
 * ``mass_and_heat_model_problem.F90`` — an nx-cell horizontal column
   solved by the coupled TH MPP (MPP_TH_SNES_CLM): Richards mass + enthalpy
   energy, temperature Dirichlet BCs on the energy equation only (BC
@@ -14,11 +21,15 @@ Counterpart of the TH drivers of ``mpp_tpu/problems/th.py``
   reference's finite-difference scheme (pert=1e-6,
   th_mms_problem.F90:1269-1438).
 
-Both step through the compiled direct stepper
-(``batched/th_compiled.compile_th(mpp, linear_solver="direct")``) at
-ncol=1 in f64, on the card unless the caller passes ``device="cpu"``.
-``compiled=False``, the serial host SNES with ILU(0)+GMRES, is not ported
-yet (ROADMAP Slice D) and raises.
+The heat-transport problems step through ``ThermalEnthalpySoE.step_dt``
+(one linearised update, ILU(0) + GMRES(30) at one column) or,
+with ``compiled=True``, ``CompiledThermalEnthalpy``.  The TH problems
+step through the compiled stepper ``batched/th_compiled.compile_th(mpp,
+linear_solver=...)`` with the JAX package's plan, "petsc", by default.
+Every step runs at ncol=1 in f64, on the card unless the caller passes
+``device="cpu"``.  ``compiled=False`` on the TH problems, the serial host
+SNES, is not ported yet (ROADMAP Slice F) and raises, as does
+``pressure_ic_file`` (``io/petsc_vec``, Slice F).
 
 The energy BCs (condition values and the BC auxvar pressure) must be
 staged before any step: unstaged they are 0 K and 0 Pa and the first step
@@ -35,20 +46,158 @@ from mpp_tpu_torch import constants as C
 from mpp_tpu_torch.constants import (Cond, ConnKind, GEType, MPPType, MeshType,
                                      Var, AuxVarKind, Region, PRESSURE_REF,
                                      GRAVITY_CONSTANT, FMWH2O)
+from mpp_tpu_torch.device import device_of
 from mpp_tpu_torch.dtypes.mesh import structured_mesh, ConnectionSet
-from mpp_tpu_torch.models.thermal_enthalpy import THMPP
+from mpp_tpu_torch.models.thermal_enthalpy import THMPP, ThermalEnthalpyMPP
 from mpp_tpu_torch.ops import eos, satfunc as sf
 
 PI = 4.0 * np.arctan(1.0)
 
 
-def _compile_direct(mpp, compiled, device):
+def _compile_th(mpp, compiled, linear_solver, device):
     if not compiled:
         raise NotImplementedError(
-            "compiled=False, the serial TH SNES with ILU(0)+GMRES, is not "
-            "ported yet (ROADMAP Slice D)")
+            "compiled=False, the serial TH SNES, is not ported yet (ROADMAP "
+            "Slice F)")
     from mpp_tpu_torch.batched.th_compiled import compile_th
-    return compile_th(mpp, linear_solver="direct").install(device)
+    return compile_th(mpp, linear_solver=linear_solver).install(device)
+
+
+# ---------------------------------------------------------------------------
+# heat_transport_1D (standalone thermal-enthalpy MPP)
+# ---------------------------------------------------------------------------
+def _heat_transport_soils(mpp, n, nrow, nz, density_type, int_energy_type):
+    """set_material_properties (heat_transport_1D_problem.F90:280-363)."""
+    porosity, lam, alpha = 0.368, 0.5, 3.4257e-4
+    perm = 8.3913e-12
+    vish2o = 0.001002
+    hksat = perm / vish2o * (C.DENH2O * C.GRAV_CLM) / 0.001
+    shape = (nrow, nz)
+    mpp.set_soils(filter_thermal=np.ones(n, np.int64),
+                  watsat=np.full(shape, porosity),
+                  csol=np.full(shape, 837.0),
+                  tkdry=np.full(shape, 0.25),
+                  hksat=np.full(shape, hksat),
+                  bsw=np.full(shape, 1.0 / lam),
+                  sucsat=np.full(shape, 1.0 / (alpha * GRAVITY_CONSTANT)),
+                  residual_sat=np.full(shape, 0.2772),
+                  satfunc_type="van_genuchten",
+                  density_type=density_type,
+                  int_energy_type=int_energy_type)
+
+
+def _enthalpy_stepper(mpp, compiled, device):
+    device = device_of(device)
+    if compiled:
+        from mpp_tpu_torch.batched.th_compiled import (
+            compile_thermal_enthalpy)
+        compile_thermal_enthalpy(mpp).install(device)
+    else:
+        mpp.soe.device = device
+
+
+def run_heat_transport_1d(nz=100, dtime=3600.0, nstep=2, compiled=False,
+                          device="cuda"):
+    """heat_transport_1D_problem.F90:22-101; returns (mpp, T).
+    ``compiled=True`` steps through ``CompiledThermalEnthalpy`` in place
+    of ``ThermalEnthalpySoE.step_dt``; both run on ``device``."""
+    nx = ny = 1
+    mpp = ThermalEnthalpyMPP()
+    mpp.set_name("1D heat conduction")
+    mpp.set_id(MPPType.THERMAL_EBASED_SNES_CLM)
+    mpp.set_num_meshes(1)
+    mesh = structured_mesh("Soil mesh", 1.0, 1.0, 1.0, nx, ny, nz,
+                           ConnKind.IN_Z_DIR)
+    mesh.itype = int(MeshType.CLM_THERMAL_SOIL_COL)
+    mpp.add_mesh(mesh)
+    mpp.add_goveqn(GEType.THERM_SOIL_EBASED,
+                   "Heat transport based on enthalpy ODE")
+    mpp.add_condition_in_goveqn(
+        1, Cond.BC, "Constant temperature condition at top", "K",
+        Cond.DIRICHLET, region=Region.SOIL_TOP_CELLS)
+    mpp.add_condition_in_goveqn(
+        1, Cond.BC, "Constant temperature condition at bottom", "K",
+        Cond.DIRICHLET, region=Region.SOIL_BOTTOM_CELLS)
+    mpp.allocate_auxvars()
+    mpp.setup_problem()
+
+    n = nx * ny * nz
+    _heat_transport_soils(mpp, n, 1, nz, eos.DENSITY_CONSTANT,
+                          eos.INT_ENERGY_ENTHALPY_CONSTANT)
+    # ICs (:366-424): T=283.15, internal pressure 91325
+    mpp.set_initial_temperature(np.full(n, 283.15))
+    mpp.set_data(AuxVarKind.INTERNAL, Var.PRESSURE, -1, np.full(n, 91325.0))
+    _enthalpy_stepper(mpp, compiled, device)
+
+    for istep in range(1, nstep + 1):
+        # set_bondary_conditions (:427-466)
+        mpp.set_data(AuxVarKind.BC, Var.BC_SS_CONDITION, 1, [303.15])
+        mpp.set_data(AuxVarKind.BC, Var.BC_SS_CONDITION, 2, [293.15])
+        mpp.set_data(AuxVarKind.INTERNAL, Var.PRESSURE, -1,
+                     np.full(n, 91325.0))
+        converged, _reason = mpp.soe.step_dt(dtime, istep)
+        assert converged
+    return mpp, mpp.get_data(Var.TEMPERATURE)
+
+
+def run_heat_transport_1d_with_advection(nx=100, dtime=3600.0, nstep=1,
+                                         pressure_ic=None,
+                                         pressure_ic_file=None,
+                                         compiled=False, device="cuda"):
+    """heat_transport_1D_with_advection.F90:15-636: nx cells along x
+    (conn area dy*dz), IFC67 density and enthalpy, Dirichlet T at both x
+    faces (303.15 / 293.15 K) and the pressure field ``pressure_ic``
+    (default a uniform 91325 Pa, no advection) staged into the internal
+    auxvars.  ``pressure_ic_file`` (a PETSc binary Vec) needs
+    ``io/petsc_vec`` and raises (ROADMAP Slice F)."""
+    if pressure_ic_file is not None:
+        raise NotImplementedError(
+            "pressure_ic_file needs io/petsc_vec, not ported yet (ROADMAP "
+            "Slice F); pass pressure_ic")
+    ny = nz = 1
+    mpp = ThermalEnthalpyMPP()
+    mpp.set_name("1D heat conduction")
+    mpp.set_id(MPPType.THERMAL_EBASED_SNES_CLM)
+    mpp.set_num_meshes(1)
+    dx, dy, dz = 1.0 / nx, 1.0 / ny, 1.0 / nz
+    mesh = structured_mesh("Soil mesh", 1.0, 1.0, 1.0, nx, ny, nz,
+                           ConnKind.IN_X_DIR)
+    mesh.itype = int(MeshType.CLM_THERMAL_SOIL_COL)
+    # internal connections are CONN_VERTICAL in the reference (F90:284)
+    mesh.intrn_conn_sets[0].itype[:] = int(ConnKind.VERTICAL)
+    mpp.add_mesh(mesh)
+    mpp.add_goveqn(GEType.THERM_SOIL_EBASED,
+                   "Heat transport based on enthalpy ODE")
+    for cell, sign, name in ((0, 1.0, "top"), (nx - 1, -1.0, "bottom")):
+        mpp.add_condition_in_goveqn(
+            1, Cond.BC, f"Constant temperature condition at {name}", "K",
+            Cond.DIRICHLET,
+            conn_set=_x_face_bc_conn(nx, dx, dy, dz, cell, sign))
+    mpp.allocate_auxvars()
+    mpp.setup_problem()
+
+    n = nx * ny * nz
+    _heat_transport_soils(mpp, n, nx, nz, eos.DENSITY_IFC67,
+                          eos.INT_ENERGY_ENTHALPY_IFC67)
+    if pressure_ic is None:
+        pressure_ic = np.full(n, 91325.0)
+    pressure_ic = np.asarray(pressure_ic, np.float64)
+
+    mpp.set_initial_temperature(np.full(n, 283.15))
+    mpp.set_data(AuxVarKind.INTERNAL, Var.PRESSURE, -1, pressure_ic)
+    # the boundary faces' auxvar pressure staged to the adjacent cell's,
+    # so the faces carry no spurious Darcy outflow (as the JAX package)
+    ge = mpp.soe.ge
+    ge.bc_pressure = np.array([pressure_ic[0], pressure_ic[-1]])
+    _enthalpy_stepper(mpp, compiled, device)
+
+    for istep in range(1, nstep + 1):
+        mpp.set_data(AuxVarKind.BC, Var.BC_SS_CONDITION, 1, [303.15])
+        mpp.set_data(AuxVarKind.BC, Var.BC_SS_CONDITION, 2, [293.15])
+        mpp.set_data(AuxVarKind.INTERNAL, Var.PRESSURE, -1, pressure_ic)
+        converged, _reason = mpp.soe.step_dt(dtime, istep)
+        assert converged
+    return mpp, mpp.get_data(Var.TEMPERATURE)
 
 
 # ---------------------------------------------------------------------------
@@ -76,7 +225,7 @@ def _stage_mass_and_heat_bcs(mpp):
 
 
 def run_mass_and_heat(nx=100, nz=1, dtime=3600.0, nstep=1, compiled=True,
-                      device="cuda"):
+                      linear_solver="petsc", device="cuda"):
     """mass_and_heat_model_problem.F90:22-135; returns (mpp, the
     [P; T] solution).  Steps on the card unless ``device="cpu"``."""
     ny = 1
@@ -126,7 +275,7 @@ def run_mass_and_heat(nx=100, nz=1, dtime=3600.0, nstep=1, compiled=True,
 
     # ICs (:485-553): P=91325, T=283.15
     mpp.set_initial_solution(np.full(n, 91325.0), np.full(n, 283.15))
-    _compile_direct(mpp, compiled, device)
+    _compile_th(mpp, compiled, linear_solver, device)
 
     _stage_mass_and_heat_bcs(mpp)
     for istep in range(1, nstep + 1):
@@ -262,7 +411,7 @@ def _mms_sources(xc, mms, density_type, int_energy_type):
     return mass_src, heat_src
 
 
-def run_th_mms(nx=20, compiled=True, device="cuda"):
+def run_th_mms(nx=20, compiled=True, linear_solver="petsc", device="cuda"):
     """th_mms_problem.F90:89-141 (STEADY_STATE_SOIL_ONLY_1D): one
     dt=1 s step from the uniform initial state; returns (mpp, the [P; T]
     solution).  Steps on the card unless ``device="cpu"``."""
@@ -353,7 +502,7 @@ def run_th_mms(nx=20, compiled=True, device="cuda"):
     mpp.soe.ge_energy.bc_pressure = np.array(pres_bc, np.float64)
     mpp.soe.ge_mass.bc_temperature = np.array(temp_bc, np.float64)
 
-    _compile_direct(mpp, compiled, device)
+    _compile_th(mpp, compiled, linear_solver, device)
     converged, _reason = mpp.soe.step_dt(1.0, 1)
     assert converged
     return mpp, mpp.get_data(Var.PRESSURE)

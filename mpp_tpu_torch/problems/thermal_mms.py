@@ -12,8 +12,7 @@ Domain [0,1]^d, cnfac=0 (steady), one KSP solve a step, through the
 compiled batched KSP (``batched/ksp_compiled.compile_ksp(mpp,
 linear_solver="petsc")``) at ncol=1 in f64, on the card unless the
 caller passes ``device="cpu"``.  The 1-D problem is tridiagonal (Thomas);
-the 2-D and 3-D problems need the GMRES(30)+ILU(0) plan, which is not
-ported yet and raises (ROADMAP Slice D), as does the serial host GMRES.
+the 2-D and 3-D problems run the batched GMRES(30)+ILU(0) plan.
 ``output_regression`` needs ``io/regression`` (ROADMAP Slice F).
 
 Cell ordering quirk reproduced: soil properties are staged CLM-style
@@ -157,6 +156,29 @@ def _boundary_conns_and_values(dim, nx, ny, nz, dx, dy, dz, xc3, yc3, zc3):
     return cs, np.array(vals)
 
 
+def _dims(dim, nx, ny, nz):
+    defaults = {STEADY_STATE_1D: (20, 1, 1),
+                STEADY_STATE_2D: (20, 20, 1)}.get(dim, (20, 20, 20))
+    return tuple(d if v is None else v for v, d in zip((nx, ny, nz),
+                                                       defaults))
+
+
+def _centroids(nx, ny, nz):
+    """Cell-centroid coordinates [nz, ny, nx] of the unit-cube mesh."""
+    dx, dy, dz = 1.0 / nx, 1.0 / ny, 1.0 / nz
+    kk, jj, ii = np.meshgrid(np.arange(nz), np.arange(ny), np.arange(nx),
+                             indexing="ij")
+    return dx / 2 + ii * dx, dy / 2 + jj * dy, dz / 2 + kk * dz
+
+
+def exact_solution(problem_type=STEADY_STATE_1D, nx=None, ny=None, nz=None):
+    """The manufactured temperature at the cell centroids, in the mesh's
+    cell order (the problem's sizes default as in
+    :func:`run_thermal_mms_problem`)."""
+    nx, ny, nz = _dims(problem_type, nx, ny, nz)
+    return _temperature(problem_type, *_centroids(nx, ny, nz)).ravel()
+
+
 def run_thermal_mms_problem(problem_type=STEADY_STATE_1D, nstep=1,
                             nx=None, ny=None, nz=None, device="cuda"):
     """Build + solve; returns (mpp, solution array).  The steps run on
@@ -164,23 +186,10 @@ def run_thermal_mms_problem(problem_type=STEADY_STATE_1D, nstep=1,
     batched KSP."""
     device = device_of(device)
     dim = problem_type
-    if dim == STEADY_STATE_1D:
-        defaults = (20, 1, 1)
-    elif dim == STEADY_STATE_2D:
-        defaults = (20, 20, 1)
-    else:
-        defaults = (20, 20, 20)
-    nx = defaults[0] if nx is None else nx
-    ny = defaults[1] if ny is None else ny
-    nz = defaults[2] if nz is None else nz
+    nx, ny, nz = _dims(dim, nx, ny, nz)
     dx, dy, dz = 1.0 / nx, 1.0 / ny, 1.0 / nz
     n = nx * ny * nz
-
-    kk, jj, ii = np.meshgrid(np.arange(nz), np.arange(ny), np.arange(nx),
-                             indexing="ij")
-    xc3 = dx / 2 + ii * dx
-    yc3 = dy / 2 + jj * dy
-    zc3 = dz / 2 + kk * dz
+    xc3, yc3, zc3 = _centroids(nx, ny, nz)
 
     mpp = ThermalMPP()
     mpp.set_name("Thermal model for MMS")
@@ -235,7 +244,7 @@ def run_thermal_mms_problem(problem_type=STEADY_STATE_1D, nstep=1,
     from mpp_tpu_torch.batched.ksp_compiled import compile_ksp
     # "petsc" replicates the reference's GMRES(30)+ILU(0) rtol-1e-5
     # iterate, which the golden baselines embed: Thomas on the 1-D
-    # (tridiagonal) problem, Slice D on the others
+    # (tridiagonal) problem, ILU(0) + GMRES(30) on the others
     compile_ksp(mpp, linear_solver="petsc").install(device)
     mpp.soe.pre_step_dt()
     for _ in range(nstep):

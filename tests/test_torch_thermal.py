@@ -263,21 +263,22 @@ def test_block_solver_of_the_soe_matches_jax():
                                        device="cpu")
         np.testing.assert_allclose(mpp_t.soe.soln,
                                    np.asarray(mpp_j.soe.soln), rtol=RTOL)
-    with pytest.raises(NotImplementedError):
-        type(mpp_t.soe).step_dt(mpp_t.soe, 900.0, solver="ksp",
+    with pytest.raises(ValueError):
+        type(mpp_t.soe).step_dt(mpp_t.soe, 900.0, solver="gmres",
                                 device="cpu")
 
 
 def test_petsc_plan_accepted_only_where_it_is_thomas():
-    """"petsc" runs Thomas on the tridiagonal 1-D problem; the 2-D MMS
-    mesh needs GMRES(30)+ILU(0) and raises (Slice D); any other keyword
-    raises ValueError."""
+    """"petsc" runs Thomas on the tridiagonal 1-D problem and the batched
+    GMRES(30)+ILU(0) on the 2-D MMS mesh (tests/test_torch_th_petsc.py
+    holds it against JAX); any other keyword raises ValueError."""
     mpp, _ = ttm.run_thermal_mms_problem(1, nstep=0, device="cpu")
     assert compile_ksp(mpp, linear_solver="petsc").is_tridiag
     with pytest.raises(ValueError):
         compile_ksp(mpp, linear_solver="gmres")
-    with pytest.raises(NotImplementedError, match="Slice D"):
-        ttm.run_thermal_mms_problem(2, nx=4, ny=4, device="cpu")
+    mpp2, _ = ttm.run_thermal_mms_problem(2, nx=4, ny=4, device="cpu")
+    comp = mpp2.soe.step_dt.__self__
+    assert not comp.is_tridiag and comp._ilu is not None
 
 
 def test_entry_points_default_to_the_card():
