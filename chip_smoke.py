@@ -95,7 +95,34 @@ line is printed):
   (t) run_heat_transport_1d (nz = 100, 2 steps, CompiledThermalEnthalpy)
       and run_vsfm_spac_campbell_problem(multi_goveqns=True) under "petsc"
       and "direct" (the JAX package's rule picks block-Thomas there),
-      card against CPU within rtol 1e-9.
+      card against CPU within rtol 1e-9;
+  (u) the batched canopy pipeline (turbulence -> longwave -> LBL ->
+      photosynthesis -> MLC, 93 levels, no hand-written kernel on its
+      path: the launch counters read 0 over the phase):
+      (u1) f32 at ncair = 4096 (bench.py:968's largest scaling point),
+      default forcing, 1 warm and 4 timed staged substeps and one
+      12-substep fused hour: ms a substep, column-substeps/s, each stage's
+      CUDA-event ms, host syncs, psy Newton and Obukhov hybrid iterations,
+      build s, shortwave re-solve ms, and (with the other device readings)
+      the device activities and busy share of one substep (the fuller of
+      two profiler windows); gates: finite,
+      270 < T_air < 320 K, 0 <= q_air < 0.05, T_sun >= T_shd - 0.5 K on
+      leaf levels, every state field f32
+      (tests/test_canopy_pipeline.py:18-39);
+      (u2) f64 at ncair = 4096, 1 warm and 2 timed substeps: the same
+      gates and identical columns within 1e-12;
+      (u3) f64 at ncair = 8, 3 substeps on the card and on the CPU: T and q
+      within CANOPY_CARD_CPU, equal psy and hybrid iterations;
+      (u4) the diurnal loop, f32 at ncair = 256: run_diurnal over
+      CANOPY_DIURNAL_HOURS, 12 substeps an hour, the synthetic diurnal BCs
+      and an hourly checkpoint (bench.py:956-1009's diurnal_24h): wall s,
+      ms a substep with the hourly shortwave re-solve, the canopy-top T
+      range; the hour-12 top warmer than hour 4's, the last checkpoint
+      read back bit for bit;
+      (u5) run_shortwave_problem / run_longwave_problem with
+      use_compiled=True on the card and the CPU: equal GMRES cycles, the
+      fluxes within rtol 1e-9, the absorbed fluxes within CANOPY_IABS_REL
+      of the largest flux.
 
 Every kernel timing is read twice: ``ms``, CUDA events around back-to-back
 calls of the wrapper (host cost per call included), and ``device_ms``, the
@@ -110,6 +137,7 @@ read the same way: their device time over the step's host-clock time is
 the cell's device-busy share (the "step_device" lines).
 
 The launch counters are reset just before (d) and read just after (e),
+reset just before (u) and read just after it (all zero),
 reset just before (h) and read just after (i), reset just before (k)'s
 calls of the ops and read just after them, reset just before (l)'s
 harness run and read just after it, and reset just before each of
@@ -155,6 +183,20 @@ TH_PLAN_BOUND = dict(P_Pa=4.07e-4, T_K=2.0e-7)
 # (r): vsfm_vchannel at the reference size; JAX's own test reads the two
 # plans 2.5e-5 Pa apart (tests/test_vsfm_compiled.py:45-47)
 VCH_NZ, VCH_DT, VCH_STEPS, VCH_PLAN_PA = 30, 8640.0, 3, 1e-3
+# (u): the canopy cells; CANOPY_CARD_CPU bounds (u3)'s card-vs-CPU gap
+# after 3 f64 substeps at 8 columns: the CPU tests hold the port against
+# the JAX package at these (4e-11 K and 5e-13 measured there,
+# tests/test_torch_canopy_pipeline.py; card vs CPU read 2.6e-11 K and
+# 2.0e-13 on an H100 80GB HBM3), 1e4 times inside the JAX package's own
+# batched-vs-serial bounds (1e-5 K, 1e-8)
+CANOPY_NCAIR, CANOPY_DT = 4096, 300.0
+CANOPY_F32_SUBSTEPS, CANOPY_F64_SUBSTEPS, CANOPY_HOUR = 4, 2, 12
+CANOPY_CARD_CPU = dict(T_K=1e-9, q=1e-12)
+CANOPY_DIURNAL_NCAIR, CANOPY_DIURNAL_HOURS = 256, (1, 24)
+# (u5): the absorbed fluxes card vs CPU, of the largest flux: the CPU tests'
+# bound against the JAX package (1e-9 measured there,
+# tests/test_torch_canopy_radiation.py)
+CANOPY_IABS_REL = 1e-8
 CHAIN_K = 30
 JACOBI_CHECK = dict(iters=200, omega=0.9, shape=(16384, 64), tol=1e-8)
 HARNESS_SHAPE = (131072, 256)
@@ -237,21 +279,23 @@ PENDING = []
 AGAIN = {}
 
 
-def later(fn, reps, *rows, key="device_ms", count_key=None, repeats=False):
-    """Queue ``device_time(fn, reps, repeats=repeats)``; settle() writes its
+def later(fn, reps, *rows, key="device_ms", count_key=None, repeats=False,
+          windows=1):
+    """Queue ``device_time(fn, reps, repeats=repeats, windows=windows)``;
+    settle() writes its
     reading into ``row[key]`` of every row of ``rows``, and with
     ``count_key`` the device activities (kernels, copies, fills) of one
     call into ``row[count_key]``."""
     for row in rows:
         row[key] = None
-    PENDING.append((fn, reps, rows, key, count_key, repeats))
+    PENDING.append((fn, reps, rows, key, count_key, repeats, windows))
 
 
 def settle(torch):
     """Take the queued device-time readings."""
-    for fn, reps, rows, key, count_key, repeats in PENDING:
+    for fn, reps, rows, key, count_key, repeats, windows in PENDING:
         ms, count = device_time(torch, fn, reps, with_count=True,
-                                repeats=repeats)
+                                repeats=repeats, windows=windows)
         for row in rows:
             row[key] = ms
             if count_key:
@@ -363,7 +407,8 @@ def time_cuda(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def device_time(torch, fn, reps, tries=5, with_count=False, repeats=False):
+def device_time(torch, fn, reps, tries=5, with_count=False, repeats=False,
+                windows=1):
     """Mean device milliseconds of one ``fn()``: the summed durations of the
     device activities (kernels, copies, fills) that torch.profiler (CUPTI)
     records over ``reps`` runs, after two warm-up runs, divided by
@@ -383,7 +428,10 @@ def device_time(torch, fn, reps, tries=5, with_count=False, repeats=False):
     every time, such as (q)'s TH steps from one state, tens of thousands
     of activities a call): a window is also whole only when its record
     counts equal those of the window before it, since lost records do
-    not repeat.
+    not repeat.  ``windows`` (a call whose windows never agree twice in a
+    row, such as a canopy substep): read that many whole windows and keep
+    the one with the most records, since a lost record only shortens a
+    window.
     ``with_count``: return (ms, the device activities of one call)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -411,18 +459,24 @@ def device_time(torch, fn, reps, tries=5, with_count=False, repeats=False):
     for _ in range(2):
         fn()
     counts = []
+    kept = []
     for _ in range(tries):
         by_name = window()
         counts.append({k: len(t) for k, t in by_name.items()})
         whole = all(len(t) % reps == 0 for t in by_name.values()) and (
             not repeats or len(counts) > 1 and counts[-1] == counts[-2])
         if by_name and whole:
-            ms = sum(sum(t) for t in by_name.values()) / reps / 1e3
-            if with_count:
-                return ms, sum(map(len, by_name.values())) // reps
-            return ms
-    fail(f"torch.profiler: no whole window of {reps} calls in {tries} "
-         f"tries; records per activity: {counts}")
+            kept.append((sum(map(len, by_name.values())), by_name))
+            if len(kept) == windows:
+                break
+    if not kept:
+        fail(f"torch.profiler: no whole window of {reps} calls in {tries} "
+             f"tries; records per activity: {counts}")
+    n, by_name = max(kept, key=lambda k: k[0])
+    ms = sum(sum(t) for t in by_name.values()) / reps / 1e3
+    if with_count:
+        return ms, n // reps
+    return ms
 
 
 def misaligned(torch, a):
@@ -1418,6 +1472,202 @@ def run_small_problems(torch):
     print("small_problems " + json.dumps(res))
 
 
+def canopy_gates(torch, pipe, state, tag, dtype):
+    """(u)'s physical gates (tests/test_canopy_pipeline.py:18-39)."""
+    for name, a in zip(state._fields, state):
+        check(a.dtype == dtype, f"{tag}: {name} is {a.dtype}, not {dtype}")
+        check(bool(torch.isfinite(a).all()), f"{tag}: {name} not finite")
+    T, q = state.T_air, state.q_air
+    check(bool(((T > 270.0) & (T < 320.0)).all()),
+          f"{tag}: T_air outside (270, 320) K: {float(T.min())}, "
+          f"{float(T.max())}")
+    check(bool(((q >= 0.0) & (q < 0.05)).all()),
+          f"{tag}: q_air outside [0, 0.05)")
+    leaf = pipe.dpai_pos
+    check(bool((state.T_sun[:, leaf] >= state.T_shd[:, leaf] - 0.5).all()),
+          f"{tag}: a sunlit leaf colder than its shaded one by 0.5 K")
+
+
+def canopy_counts(pipe):
+    return (pipe.host_syncs, pipe.hybrid_iterations, pipe.psy_iterations)
+
+
+def run_canopy_timed(torch, cp, dtype, substeps, tag):
+    """(u1) / (u2): build the pipeline at CANOPY_NCAIR, one warm and
+    ``substeps`` timed staged substeps; returns (pipe, state, the row)."""
+    t0 = time.perf_counter()
+    pipe = cp.CanopyPipeline(CANOPY_NCAIR, dtype=dtype, device="cuda")
+    sync(torch)
+    build_s = time.perf_counter() - t0
+    fns = pipe.staged_substep_fns()
+    state = pipe.run_staged(fns, pipe.initial_state(), CANOPY_DT)
+    sync(torch)
+    c0 = canopy_counts(pipe)
+    t0 = time.perf_counter()
+    for _ in range(substeps):
+        state = pipe.run_staged(fns, state, CANOPY_DT)
+    sync(torch)
+    ms = (time.perf_counter() - t0) * 1e3 / substeps
+    c1 = canopy_counts(pipe)
+    canopy_gates(torch, pipe, state, tag, dtype)
+    per = [(b - a) / substeps for a, b in zip(c0, c1)]
+    return pipe, state, dict(
+        cell=tag, ncair=CANOPY_NCAIR, nlev=pipe.nlev, dtype=str(dtype),
+        build_s=build_s, substeps=substeps, ms_per_substep=ms,
+        column_substeps_per_s=CANOPY_NCAIR * 1e3 / ms,
+        host_syncs_per_substep=per[0],
+        hybrid_iterations_per_substep=per[1],
+        psy_newton_iterations_per_substep=per[2])
+
+
+def run_canopy(torch, hk):
+    """Phase (u): the batched canopy pipeline.  Returns the rows of its
+    device readings (queued, taken by settle())."""
+    from mpp_tpu_torch.batched import canopy_pipeline as cp
+    from mpp_tpu_torch.problems import canopy_radiation as cr
+    from mpp_tpu_torch.problems.ml_model import synthetic_diurnal_bc
+    hk.reset_launches()
+    t_u = time.perf_counter()
+
+    # (u1) f32 at full width: substeps, stages, the fused hour
+    pipe, state, row = run_canopy_timed(torch, cp, torch.float32,
+                                        CANOPY_F32_SUBSTEPS, "u1_f32")
+    fns = pipe.staged_substep_fns()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    f = pipe.default_forcing
+    ev[0].record()
+    pre = fns[0](state, f)
+    ev[1].record()
+    gs2 = fns[1](state, pre, f)
+    ev[2].record()
+    fns[2](state, pre, gs2, f, CANOPY_DT)
+    ev[3].record()
+    sync(torch)
+    row["stage_ms"] = dict(pre=ev[0].elapsed_time(ev[1]),
+                           psy=ev[1].elapsed_time(ev[2]),
+                           mlc=ev[2].elapsed_time(ev[3]))
+    times = []
+    for _ in range(3):
+        sync(torch)
+        t0 = time.perf_counter()
+        pipe.make_forcing()
+        sync(torch)
+        times.append((time.perf_counter() - t0) * 1e3)
+    row["shortwave_resolve_ms"] = times
+    hour = pipe.fused_hour_fn(nsubstep=CANOPY_HOUR, dt=CANOPY_DT)
+    sync(torch)
+    t0 = time.perf_counter()
+    s_hour = hour(state, f)
+    sync(torch)
+    row["fused_hour_s"] = time.perf_counter() - t0
+    row["fused_hour_ms_per_substep"] = row["fused_hour_s"] * 1e3 / \
+        CANOPY_HOUR
+    canopy_gates(torch, pipe, s_hour, "u1_f32 hour", torch.float32)
+    print("canopy " + json.dumps(row))
+    busy = dict(cell="canopy_pipeline", ncair=CANOPY_NCAIR, dtype="float32",
+                ms_per_step=row["ms_per_substep"])
+    # windows of one substep: two in a row did not agree on their record
+    # counts in five tries after the other phases' windows (~24,000
+    # activities a substep), so the fuller of two is kept
+    later(partial(pipe.run_staged, fns, state, CANOPY_DT), 1, busy,
+          key="step_device_ms", count_key="device_activities_per_step",
+          windows=2)
+
+    # (u2) f64 at full width, with batch consistency
+    pipe64, s64, row64 = run_canopy_timed(torch, cp, torch.float64,
+                                          CANOPY_F64_SUBSTEPS, "u2_f64")
+    spread = max(float((a - a[:1]).abs().max()) for a in s64)
+    check(spread <= 1e-12, f"(u2): identical columns differ by {spread:.3e}")
+    row64["column_spread"] = spread
+    print("canopy " + json.dumps(row64))
+    del pipe64, s64
+
+    # (u3) card against CPU, f64, 8 columns, 3 substeps
+    out = {}
+    for device in ("cuda", "cpu"):
+        p = cp.CanopyPipeline(8, device=device)
+        s = p.initial_state()
+        for _ in range(3):
+            s = p.substep(s, CANOPY_DT)
+        out[device] = (s, canopy_counts(p)[1:])
+    dT = max(float((a.cpu() - b).abs().max()) for a, b, name in zip(
+        out["cuda"][0], out["cpu"][0], cp.CanopyState._fields)
+        if name != "q_air")
+    dq = float((out["cuda"][0].q_air.cpu() - out["cpu"][0].q_air).abs().max())
+    check(out["cuda"][1] == out["cpu"][1],
+          f"(u3): hybrid / psy iterations {out['cuda'][1]} vs "
+          f"{out['cpu'][1]}")
+    check(dT <= CANOPY_CARD_CPU["T_K"] and dq <= CANOPY_CARD_CPU["q"],
+          f"(u3): card/CPU differ by {dT:.3e} K, q {dq:.3e}")
+    print("canopy_card_vs_cpu " + json.dumps(dict(
+        ncair=8, substeps=3, max_abs_T_K=dT, max_abs_q=dq,
+        hybrid_psy_iterations=out["cuda"][1], bounds=CANOPY_CARD_CPU)))
+
+    # (u4) the diurnal loop, f32
+    import tempfile
+    beg, end = CANOPY_DIURNAL_HOURS
+    dpipe = cp.CanopyPipeline(CANOPY_DIURNAL_NCAIR, dtype=torch.float32,
+                              device="cuda")
+    with tempfile.TemporaryDirectory() as d:
+        sync(torch)
+        t0 = time.perf_counter()
+        ds, traj = dpipe.run_diurnal(dpipe.initial_state(), beg, end,
+                                     CANOPY_HOUR, synthetic_diurnal_bc,
+                                     checkpoint_dir=d)
+        sync(torch)
+        wall = time.perf_counter() - t0
+        back = dpipe.restore(f"{d}/canopy_checkpoint.{end}.{CANOPY_HOUR}.bin")
+    canopy_gates(torch, dpipe, ds, "u4_diurnal", torch.float32)
+    check(all(torch.equal(a, b) for a, b in zip(ds, back)),
+          "(u4): the last checkpoint does not read back bit for bit")
+    top = {h: float(traj[h][0].mean()) for h in traj}
+    lo, hi = (4, 12) if beg <= 4 else (beg, 12)
+    check(bool((traj[hi][0] > traj[lo][0]).all()),
+          f"(u4): canopy top at hour {hi} ({top[hi]:.3f} K) not warmer "
+          f"than at hour {lo} ({top[lo]:.3f} K)")
+    nsub = (end - beg + 1) * CANOPY_HOUR
+    print("canopy_diurnal " + json.dumps(dict(
+        ncair=CANOPY_DIURNAL_NCAIR, hours=[beg, end], substeps=nsub,
+        wall_s=wall, ms_per_substep_with_shortwave=wall * 1e3 / nsub,
+        top_T_K_by_hour=top, top_T_range_K=[min(top.values()),
+                                            max(top.values())])))
+    del dpipe
+
+    # (u5) compiled radiation, card against CPU: the fluxes elementwise
+    # at rtol 1e-9; the absorbed fluxes (differences of fluxes) on the
+    # fluxes' scale at CANOPY_IABS_REL
+    res = {}
+    for name, absorbed in (("run_shortwave_problem",
+                            ("Iabs_leaf", "Iabs_soil")),
+                           ("run_longwave_problem", ("Iabs",))):
+        runs = {dev: getattr(cr, name)(use_compiled=True, device=dev)
+                for dev in ("cuda", "cpu")}
+        cyc = {dev: m.cumulative_linear_iterations for dev, m in runs.items()}
+        check(cyc["cuda"] == cyc["cpu"],
+              f"(u5) {name}: GMRES cycles {cyc}")
+        g, c = runs["cuda"].goveqns[0], runs["cpu"].goveqns[0]
+        rel = max(card_vs_cpu(f"(u5) {name} {fld}",
+                              getattr(g, fld).cpu().numpy(),
+                              getattr(c, fld).numpy())
+                  for fld in ("Iup", "Idn"))
+        scale = max(float(c.Iup.abs().max()), float(c.Idn.abs().max()))
+        rel_abs = max(float((getattr(g, fld).cpu() - getattr(c, fld))
+                            .abs().max()) / scale for fld in absorbed)
+        check(rel_abs <= CANOPY_IABS_REL,
+              f"(u5) {name}: absorbed fluxes differ by {rel_abs:.3e} of "
+              "the largest flux")
+        res[name] = dict(gmres_cycles=cyc["cuda"], flux_max_rel=rel,
+                         absorbed_of_flux_scale=rel_abs)
+    print("canopy_radiation " + json.dumps(res))
+
+    launches = dict(hk.LAUNCHES)
+    check(not any(launches.values()),
+          f"(u): the canopy path launched a hand-written kernel: {launches}")
+    print("launches_on_canopy_path " + json.dumps(dict(
+        launches=launches, phase_s=time.perf_counter() - t_u)))
+    return [busy]
+
+
 def main():
     here = os.path.dirname(os.path.abspath(__file__))
     check(os.path.isdir(os.path.join(here, "mpp_tpu_torch")),
@@ -1595,6 +1845,9 @@ def main():
     t_t = time.perf_counter()
     print("petsc_phases_s " + json.dumps(dict(
         q=t_q - t0, r=t_r - t_q, s=t_s - t_r, t=t_t - t_s)))
+
+    # (u): the batched canopy pipeline, counted (no kernel on its path)
+    canopy_busy = run_canopy(torch, hk)
     for name in ("thomas", "tridiag_spmv", "tridiag_spmv_mixed"):
         results[name]["launches_by_path"] = {
             path: counts.get(name, 0) for path, counts in by_path.items()}
@@ -1607,7 +1860,7 @@ def main():
     settle(torch)
     for r in checks:
         print("kernel_check " + json.dumps(r))
-    for r in (esc_busy, thermal_busy, *th_busy):
+    for r in (esc_busy, thermal_busy, *th_busy, *canopy_busy):
         r["device_busy"] = r["step_device_ms"] / r["ms_per_step"]
         print("step_device " + json.dumps(r))
     print("profiler_after " + json.dumps(dict(

@@ -25,8 +25,11 @@ over ``ncol`` independent copies of the problem (one row of the
     ``torch.linalg.solve`` per column.
 
 Tridiagonal problems take Thomas under either keyword (ILU(0) of a
-tridiagonal matrix is its exact LU).  ``CompiledRadiation`` waits for
-Slice E.
+tridiagonal matrix is its exact LU).
+
+``CompiledRadiation`` / ``compile_radiation`` freeze the single-GE canopy
+radiation facades (``LongwaveMPP`` / ``ShortwaveMPP``) into one assemble
+and one batched ILU(0) factor + GMRES(30) solve a step, on the GE's device.
 """
 from __future__ import annotations
 
@@ -39,8 +42,10 @@ from mpp_tpu_torch.batched.vsfm_compiled import _rows
 from mpp_tpu_torch.constants import Cond
 from mpp_tpu_torch.device import device_of
 from mpp_tpu_torch.ops import hopper_kernels as hk
+from mpp_tpu_torch.ops.sparse import csr_template
 
-__all__ = ["CompiledKSP", "compile_ksp"]
+__all__ = ["CompiledKSP", "compile_ksp", "CompiledRadiation",
+           "compile_radiation"]
 
 
 class CompiledKSP:
@@ -304,3 +309,67 @@ def compile_ksp(mpp, **kw) -> CompiledKSP:
     are inputs of every step; the other staged arrays are read at each
     step."""
     return CompiledKSP(mpp, **kw)
+
+
+class CompiledRadiation:
+    """Compiled single-GE canopy radiation KSP step (longwave /
+    shortwave facades, GoveqnLongwave/Shortwave KSP path).
+
+    The radiation GEs' ``matrix_values``/``rhs`` are vectorized over the
+    staged auxvars, so a step is one assembly, one batched ILU(0) factor
+    and the batched GMRES(30) replica of PETSc's KSP
+    (``batched/ilu_gmres.py``, PETSc's defaults rtol 1e-5 and restart 30)
+    at one column, on the GE's device: the same Krylov semantics as the
+    serial ``_solve_ksp``."""
+
+    def __init__(self, mpp):
+        self.mpp = mpp
+        ge = mpp.goveqns[0]
+        r, c = ge.coo_coords()
+        n = ge.mesh.ncells_local * ge.dof
+        self.template = csr_template(n, n, r, c)
+        self._ilu = BatchedILU0(self.template.indptr, self.template.indices)
+        self._matvec = make_ell_matvec(self.template.indptr,
+                                       self.template.indices)
+        #: host reads of device predicates since construction
+        self.host_syncs = 0
+
+    def _sync(self, value):
+        """Read a device scalar on the host (one host synchronisation)."""
+        self.host_syncs += 1
+        return value.item()
+
+    def solve(self, vals, b):
+        """Assemble ``vals`` (the GE's COO order) and solve for ``b``:
+        returns (x [n], GMRES cycles, converged)."""
+        data = self.template.assemble(vals)[None, :]
+        lu = self._ilu.factor(data)
+        x, cycles, conv = petsc_gmres_batched(
+            self._matvec, data, b[None, :], ilu=self._ilu, pc_data=lu,
+            sync=self._sync)
+        return x[0], cycles, conv[0]
+
+    def install(self):
+        self.mpp.step_dt = self.step_dt
+        return self
+
+    def step_dt(self, dt, istep=1, solver=None):
+        m = self.mpp
+        ge = m.goveqns[0]
+        x, cycles, conv = self.solve(ge.matrix_values(), ge.rhs())
+        converged = bool(conv)
+        m.cumulative_linear_iterations += int(cycles)
+        ge.save_soln(x)
+        if hasattr(ge, "post_solve"):
+            ge.post_solve()
+        if m.metrics is not None:
+            m.metrics.record(step=istep, dt=dt, converged=converged,
+                             solver="compiled",
+                             linear_iterations=int(cycles))
+        return converged, 0
+
+
+def compile_radiation(mpp) -> CompiledRadiation:
+    """Freeze a staged Longwave/Shortwave facade problem into a compiled
+    assemble + batched ILU(0) / GMRES(30) step."""
+    return CompiledRadiation(mpp)

@@ -67,12 +67,16 @@ class BlockTridiagTemplate:
         self.dest = (((band * ncol + col_r) * nlev + k_r) * dof * dof
                      + j_r * dof + j_c)
         self._flat_len = 3 * ncol * nlev * dof * dof
+        self._dest_on = {}       # device -> dest as a long tensor there
 
     def assemble(self, vals):
         """Scatter COO values ``[..., ncoo]`` (the template's rows/cols
         order) into (L, D, U) blocks ``[..., ncol, nlev, dof, dof]``."""
         batch = vals.shape[:-1]
-        dest = torch.as_tensor(self.dest, device=vals.device)
+        dest = self._dest_on.get(vals.device)
+        if dest is None:
+            dest = torch.as_tensor(self.dest, device=vals.device)
+            self._dest_on[vals.device] = dest
         flat = vals.new_zeros(batch + (self._flat_len,)) \
             .index_add_(-1, dest, vals)
         blocks = flat.view(batch + (3, self.ncol, self.nlev, self.dof,
