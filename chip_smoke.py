@@ -123,6 +123,32 @@ line is printed):
       use_compiled=True on the card and the CPU: equal GMRES cycles, the
       fluxes within rtol 1e-9, the absorbed fluxes within CANOPY_IABS_REL
       of the largest flux.
+  (v) the serial canopy stack (Slice E2; no hand-written kernel on its
+      path: the launch counters read 0 over the phase):
+      (v1) the coupled ml_model (run_ml_model_problem: an MLModel and its
+      run) at the reference size, one canopy column of 92 air levels +
+      soil, medlyn, hours ML_HOURS x 12 substeps of 300 s under the
+      synthetic diurnal BCs with checkpoints, on the card and on the CPU:
+      tests/test_ml_model.py:70-87's envelope at the middle hour, the
+      phase timers' five phases counted once an hour / once a substep,
+      equal psy Newton iterations, card vs CPU within ML_CARD_CPU at
+      every hour's end, and the card's last-but-one hourly checkpoint
+      restored and run through the last hour within ML_CARD_CPU of the
+      straight run; ms a substep (by hour), each phase's ms a call and
+      share, host syncs a substep;
+      (v2) run_mlc_problem at the reference namelists (ncair, ntree) =
+      (2, 1) and (2, 2), serial and use_compiled=True, card and CPU:
+      equal GMRES iterations card vs CPU, the states within rtol 1e-9,
+      compiled vs serial within 1e-10 (tests/test_batched_mlc.py:119),
+      and output_regression's files card vs CPU: the same sections and
+      cells, every printed number within rtol 1e-9;
+      (v3) CompiledMLC at ncair = MLC_WIDE_NCAIR (the diurnal cell's
+      width), f64: build s (problem, compile and the warm step), ms a
+      step over MLC_WIDE_STEPS steps, GMRES cycles, ILU factors and
+      applies and host syncs a step, one step split into the host
+      PreSolve + staging and the device assemble + solve (CUDA events),
+      and (with the other device readings) the busy share of one step;
+      gates: finite, 270 < T_air < 320 K, 0 <= q < 0.05.
 
 Every kernel timing is read twice: ``ms``, CUDA events around back-to-back
 calls of the wrapper (host cost per call included), and ``device_ms``, the
@@ -137,7 +163,8 @@ read the same way: their device time over the step's host-clock time is
 the cell's device-busy share (the "step_device" lines).
 
 The launch counters are reset just before (d) and read just after (e),
-reset just before (u) and read just after it (all zero),
+reset just before (u) and read just after it (all zero), the same for
+(v),
 reset just before (h) and read just after (i), reset just before (k)'s
 calls of the ops and read just after them, reset just before (l)'s
 harness run and read just after it, and reset just before each of
@@ -197,6 +224,16 @@ CANOPY_DIURNAL_NCAIR, CANOPY_DIURNAL_HOURS = 256, (1, 24)
 # bound against the JAX package (1e-9 measured there,
 # tests/test_torch_canopy_radiation.py)
 CANOPY_IABS_REL = 1e-8
+# (v): the ml_model cell (hours x substeps of 300 s, the reference's
+# 92 air levels + soil) and ML_CARD_CPU, the bound on its card-vs-CPU
+# gap: ~30 times the CPU port-vs-JAX gap over the same 3 hours
+# (3.2e-11 K, 3.8e-15 in q, 6.2e-12 relative in the accumulators; the
+# photosynthesis FD Jacobian is bit-sensitive, KNOWN_GAPS #6); the restored
+# run is held to it too.  MLC_WIDE_*: CompiledMLC at the diurnal cell's
+# width
+ML_HOURS, ML_NSUBSTEP, NZ_ML = (12, 14), 12, 93
+ML_CARD_CPU = dict(T_K=1e-9, q=1e-13, rel=1e-9)
+MLC_WIDE_NCAIR, MLC_WIDE_STEPS = 256, 5
 CHAIN_K = 30
 JACOBI_CHECK = dict(iters=200, omega=0.9, shape=(16384, 64), tol=1e-8)
 HARNESS_SHAPE = (131072, 256)
@@ -279,23 +316,21 @@ PENDING = []
 AGAIN = {}
 
 
-def later(fn, reps, *rows, key="device_ms", count_key=None, repeats=False,
-          windows=1):
-    """Queue ``device_time(fn, reps, repeats=repeats, windows=windows)``;
-    settle() writes its
+def later(fn, reps, *rows, key="device_ms", count_key=None, windows=1):
+    """Queue ``device_time(fn, reps, windows=windows)``; settle() writes its
     reading into ``row[key]`` of every row of ``rows``, and with
     ``count_key`` the device activities (kernels, copies, fills) of one
     call into ``row[count_key]``."""
     for row in rows:
         row[key] = None
-    PENDING.append((fn, reps, rows, key, count_key, repeats, windows))
+    PENDING.append((fn, reps, rows, key, count_key, windows))
 
 
 def settle(torch):
     """Take the queued device-time readings."""
-    for fn, reps, rows, key, count_key, repeats, windows in PENDING:
+    for fn, reps, rows, key, count_key, windows in PENDING:
         ms, count = device_time(torch, fn, reps, with_count=True,
-                                repeats=repeats, windows=windows)
+                                windows=windows)
         for row in rows:
             row[key] = ms
             if count_key:
@@ -407,8 +442,7 @@ def time_cuda(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def device_time(torch, fn, reps, tries=5, with_count=False, repeats=False,
-                windows=1):
+def device_time(torch, fn, reps, tries=5, with_count=False, windows=1):
     """Mean device milliseconds of one ``fn()``: the summed durations of the
     device activities (kernels, copies, fills) that torch.profiler (CUPTI)
     records over ``reps`` runs, after two warm-up runs, divided by
@@ -424,14 +458,11 @@ def device_time(torch, fn, reps, tries=5, with_count=False, repeats=False,
     A window of many kernels queued with no host synchronisation (the
     thermal step) lost its first three records in every try, so each
     window opens with spin kernels of a name of their own, waited for and
-    left out of the sums.  ``repeats`` (a call that does the same work
-    every time, such as (q)'s TH steps from one state, tens of thousands
-    of activities a call): a window is also whole only when its record
-    counts equal those of the window before it, since lost records do
-    not repeat.  ``windows`` (a call whose windows never agree twice in a
-    row, such as a canopy substep): read that many whole windows and keep
-    the one with the most records, since a lost record only shortens a
-    window.
+    left out of the sums.  ``windows`` (a call of tens of thousands of
+    activities, such as (q)'s TH step or a canopy substep, whose windows
+    seldom agree twice in a row on their record counts): read that many
+    whole windows and keep the one with the most records, since a lost
+    record only shortens a window.
     ``with_count``: return (ms, the device activities of one call)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -463,9 +494,7 @@ def device_time(torch, fn, reps, tries=5, with_count=False, repeats=False,
     for _ in range(tries):
         by_name = window()
         counts.append({k: len(t) for k, t in by_name.items()})
-        whole = all(len(t) % reps == 0 for t in by_name.values()) and (
-            not repeats or len(counts) > 1 and counts[-1] == counts[-2])
-        if by_name and whole:
+        if by_name and all(len(t) % reps == 0 for t in by_name.values()):
             kept.append((sum(map(len, by_name.values())), by_name))
             if len(kept) == windows:
                 break
@@ -1344,7 +1373,7 @@ def run_th_petsc(torch, hk, mpp, comp_direct, X0_np, X1_direct):
         row = dict(cell="th_batched", plan=plan, state="X0",
                    ms_per_step=time_cuda(torch, fn, 3))
         later(fn, 1, row, key="step_device_ms",
-              count_key="device_activities_per_step", repeats=True)
+              count_key="device_activities_per_step", windows=3)
         rows.append(row)
     return rows
 
@@ -1668,6 +1697,286 @@ def run_canopy(torch, hk):
     return [busy]
 
 
+def rel_close(label, got, ref, rtol):
+    """Fail unless |got - ref| <= rtol |ref| elementwise (a zero in ``ref``
+    must be a zero in ``got``); returns the largest relative difference
+    over the nonzero entries of ``ref``."""
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    check(got.shape == ref.shape and np.isfinite(got).all(),
+          f"{label}: shape/finiteness")
+    diff = np.abs(got - ref)
+    check(bool((diff <= rtol * np.abs(ref)).all()),
+          f"{label}: differ by more than rtol {rtol:g}: max |diff| "
+          f"{float(diff.max()):.3e}")
+    nz = ref != 0
+    return float((diff[nz] / np.abs(ref[nz])).max()) if nz.any() else 0.0
+
+
+def ml_model_state(m):
+    """The fields (v1) compares: the int_cond profiles and the substep
+    accumulators, host numpy copies."""
+    out = {k: np.array(getattr(m, k)) for k in (
+        "tleaf_sun", "tleaf_shd", "tair", "qair", "wind", "gs_sun",
+        "gs_shd", "gbh", "gbv")}
+    out.update({"accum_" + k: v.copy() for k, v in m.accum.items()})
+    return out
+
+
+def ml_model_gap(a, b):
+    """(v1)'s distance between two ml_model states: the largest |dT| [K]
+    over the leaf and air temperatures, |dq| over the air vapor, and the
+    largest difference of every other field relative to its largest
+    magnitude."""
+    dT = max(float(np.abs(a[k] - b[k]).max())
+             for k in ("tleaf_sun", "tleaf_shd", "tair"))
+    dq = float(np.abs(a["qair"] - b["qair"]).max())
+    rel = max(float(np.abs(a[k] - b[k]).max())
+              / max(float(np.abs(b[k]).max()), 1e-300)
+              for k in a if k not in ("tleaf_sun", "tleaf_shd", "tair",
+                                      "qair"))
+    return dict(T_K=dT, q=dq, rel=rel)
+
+
+def ml_model_envelope(s, nbot, tag):
+    """tests/test_ml_model.py:70-87's midday envelope."""
+    tfrz = 273.15
+    check(bool(np.all(s["gs_sun"] > 0.01)), f"{tag}: sunlit stomata shut")
+    check(bool(np.all(s["accum_anet_leaf_sun"] > 0.0)),
+          f"{tag}: sunlit net assimilation not positive")
+    check(bool(np.all(s["accum_tr_leaf_sun"] > 0.0)),
+          f"{tag}: sunlit transpiration not positive")
+    check(bool(np.all((s["tleaf_sun"] > tfrz + 5.0)
+                      & (s["tleaf_sun"] < tfrz + 45.0))),
+          f"{tag}: sunlit leaf temperature outside (278, 318) K")
+    check(bool(np.all((s["tair"] > tfrz) & (s["tair"] < tfrz + 45.0))),
+          f"{tag}: air temperature outside (273, 318) K")
+    check(bool(np.all((s["qair"] > 0.0) & (s["qair"] < 0.05))),
+          f"{tag}: air vapor outside (0, 0.05)")
+    check(s["accum_rn_leaf_sun"].mean() > s["accum_rn_leaf_shd"].mean()
+          and s["accum_gs_leaf_sun"].mean() > s["accum_gs_leaf_shd"].mean(),
+          f"{tag}: sunlit leaves absorb / conduct less than shaded ones")
+    check(bool(np.all((s["gbh"] > 0) & (s["gbh"] < 100))),
+          f"{tag}: boundary-layer conductance outside (0, 100)")
+    check(s["wind"][-1] > s["wind"][nbot] > 0.0,
+          f"{tag}: wind does not decay into the canopy")
+
+
+def run_ml_model(torch, tml, device, ckpt_dir):
+    """(v1)'s straight run: hours ML_HOURS x ML_NSUBSTEP substeps of
+    run_ml_model_problem (an MLModel and its run) with checkpoints; the
+    BC provider snapshots the state at each hour's end.  Returns (model,
+    {hour: state at its end}, {hour: wall s of the hour})."""
+    model = tml.MLModel(device=device)
+    beg, end = ML_HOURS
+    states, starts = {}, {}
+
+    def provider(istep, prev):
+        if istep - 1 in starts:
+            sync(torch, device)
+            states[istep - 1] = ml_model_state(model)
+        starts[istep] = time.perf_counter()
+        return tml.synthetic_diurnal_bc(istep, prev)
+
+    model.run(beg, end, ML_NSUBSTEP, bc_provider=provider,
+              checkpoint_data=True, checkpoint_dir=ckpt_dir)
+    sync(torch, device)
+    t_end = time.perf_counter()
+    states[end] = ml_model_state(model)
+    starts[end + 1] = t_end
+    walls = {h: starts[h + 1] - starts[h] for h in range(beg, end + 1)}
+    return model, states, walls
+
+
+def run_mlc(torch, hk):
+    """Phase (v): the serial MLC facade, CompiledMLC and the ml_model
+    orchestrator (Slice E2; no hand-written kernel on its path).  Returns
+    the rows of its device readings (queued, taken by settle())."""
+    import tempfile
+    from mpp_tpu_torch.io import regression as reg
+    from mpp_tpu_torch.problems import ml_model as tml
+    from mpp_tpu_torch.problems import mlc as tmlc
+    hk.reset_launches()
+    t_v = time.perf_counter()
+
+    # (v1) the coupled canopy model at the reference size, card and CPU
+    beg, end = ML_HOURS
+    mid = (beg + end) // 2
+    with tempfile.TemporaryDirectory() as d:
+        runs = {}
+        for device in ("cuda", "cpu"):
+            os.makedirs(f"{d}/{device}")
+            runs[device] = run_ml_model(torch, tml, device, f"{d}/{device}")
+        model, states, walls = runs["cuda"]
+        ml_model_envelope(states[mid], model.nbot, f"(v1) hour {mid}")
+        rep = model.timers.report()
+        counts = {k: v["count"] for k, v in rep.items()}
+        nhours = end - beg + 1
+        nsub = nhours * ML_NSUBSTEP
+        check(counts == {"SWV": nhours, "LWV": nsub, "LBL": nsub,
+                         "PHY": nsub, "MLC": nsub},
+              f"(v1): phase counts {counts}")
+        cpu_model, cpu_states, cpu_walls = runs["cpu"]
+        newton = {dev: r[0].psy.soe.cumulative_newton_iterations
+                  for dev, r in runs.items()}
+        check(newton["cuda"] == newton["cpu"],
+              f"(v1): psy Newton iterations {newton}")
+        gaps = {h: ml_model_gap(states[h], cpu_states[h]) for h in states}
+        for h, g in gaps.items():
+            check(all(g[k] <= ML_CARD_CPU[k] for k in g),
+                  f"(v1): card/CPU at hour {h}: {g} > {ML_CARD_CPU}")
+        # restore the card's hour-(end - 1) checkpoint and go on
+        bc = None
+        for h in range(beg, end):
+            bc = tml.synthetic_diurnal_bc(h, bc)
+        restored = tml.MLModel(device="cuda")
+        tag = f"{end - 1:03d}.{ML_NSUBSTEP}.bin"
+        restored.initialize_from_checkpoint(
+            f"{d}/cuda/mlc_checkpoint.{tag}",
+            f"{d}/cuda/photosynthesis_checkpoint.{tag}",
+            tml.synthetic_diurnal_bc(end, bc))
+        restored.run(end, end, ML_NSUBSTEP)
+        sync(torch)
+        restore_gap = ml_model_gap(ml_model_state(restored), states[end])
+        check(all(restore_gap[k] <= ML_CARD_CPU[k] for k in restore_gap),
+              f"(v1): restored hour {end} vs the straight run: "
+              f"{restore_gap} > {ML_CARD_CPU}")
+    syncs = model.host_syncs / nsub
+    steady = [h for h in walls if h > beg]
+    print("ml_model " + json.dumps(dict(
+        hours=[beg, end], nsubstep=ML_NSUBSTEP, dt=300.0, levels=NZ_ML,
+        nveg=tml.NVEG, levels_with_plant_area=model.nzl, scm="medlyn",
+        wall_s_by_hour=walls, ms_per_substep=sum(walls.values()) * 1e3
+        / nsub,
+        ms_per_substep_after_first_hour=sum(walls[h] for h in steady)
+        * 1e3 / (len(steady) * ML_NSUBSTEP),
+        phase_ms_per_call={k: v["mean_s"] * 1e3 for k, v in rep.items()},
+        phase_share={k: v["total_s"] / sum(x["total_s"]
+                                            for x in rep.values())
+                     for k, v in rep.items()},
+        phase_counts=counts, host_syncs_per_substep=syncs,
+        timer_syncs=model.timers.host_syncs,
+        psy_newton_iterations=newton["cuda"],
+        mlc_gmres_iterations=model.mlc.cumulative_linear_iterations,
+        cpu_ms_per_substep=sum(cpu_walls.values()) * 1e3 / nsub)))
+    print("ml_model_card_vs_cpu " + json.dumps(dict(
+        by_hour={h: gaps[h] for h in gaps}, bounds=ML_CARD_CPU,
+        restored_vs_straight=restore_gap)))
+    del runs, model, restored
+
+    # (v2) run_mlc_problem at the reference namelists, serial and
+    # compiled, card and CPU; the regression files card against CPU
+    res = {}
+    with tempfile.TemporaryDirectory() as d:
+        for nc, nt in ((2, 1), (2, 2)):
+            m = {(dev, comp): tmlc.run_mlc_problem(nc, nt, use_compiled=comp,
+                                                  device=dev)
+                 for dev in ("cuda", "cpu") for comp in (False, True)}
+            tag = f"(v2) {nc}x{nt}"
+            row = {}
+            for comp in (False, True):
+                its = [m[(dev, comp)].cumulative_linear_iterations
+                       for dev in ("cuda", "cpu")]
+                check(its[0] == its[1] > 0, f"{tag} compiled={comp}: GMRES "
+                      f"iterations card {its[0]} CPU {its[1]}")
+                row["compiled" if comp else "serial"] = dict(
+                    gmres_iterations=its[0], card_vs_cpu_rel=rel_close(
+                        f"{tag} compiled={comp}", m[("cuda", comp)].soln,
+                        m[("cpu", comp)].soln, 1e-9))
+            dcs = float(np.abs(m[("cuda", True)].soln
+                               - m[("cuda", False)].soln).max())
+            check(dcs <= 1e-10, f"{tag}: compiled vs serial {dcs:.3e} > "
+                  "1e-10")
+            row["compiled_vs_serial_abs"] = dcs
+            files = [tmlc.output_regression(m[(dev, False)],
+                                            f"{d}/mlc_{nc}x{nt}_{dev}", 6)
+                     for dev in ("cuda", "cpu")]
+            sec = [reg.parse_regression(open(f).read()) for f in files]
+            check(list(sec[0]) == list(sec[1]) and all(
+                list(sec[0][k]["values"]) == list(sec[1][k]["values"])
+                for k in sec[0]), f"{tag}: regression sections differ")
+            texts = [open(f).read() for f in files]
+            worst = 0.0
+            for k in sec[1]:
+                a = np.array(list(sec[0][k]["values"].values()))
+                b = np.array(list(sec[1][k]["values"].values()))
+                worst = max(worst, rel_close(f"{tag} [{k}]", a, b, 1e-9))
+            row["regression_identical_text"] = texts[0] == texts[1]
+            row["regression_max_rel"] = worst
+            res[f"{nc}x{nt}"] = row
+    print("mlc_problem " + json.dumps(res))
+
+    # (v3) CompiledMLC at the diurnal cell's width, f64
+    dt = 300.0
+    sync(torch)
+    t0 = time.perf_counter()
+    mpp = tmlc.run_mlc_problem(MLC_WIDE_NCAIR, 1, use_compiled=True,
+                               device="cuda")
+    sync(torch)
+    build_s = time.perf_counter() - t0
+    comp = mpp.soe.step_dt.__self__
+    c0 = (comp.gmres_cycles, comp._ilu.factors, comp._ilu.applies,
+          comp.host_syncs)
+    t0 = time.perf_counter()
+    for istep in range(MLC_WIDE_STEPS):
+        ok, _ = mpp.soe.step_dt(dt, istep + 2)
+        check(ok, f"(v3): step {istep + 2} GMRES did not converge")
+    sync(torch)
+    ms = (time.perf_counter() - t0) * 1e3 / MLC_WIDE_STEPS
+    c1 = (comp.gmres_cycles, comp._ilu.factors, comp._ilu.applies,
+          comp.host_syncs)
+    per = [(b - a) / MLC_WIDE_STEPS for a, b in zip(c0, c1)]
+    # one more step, split: host PreSolve + staging, device assemble +
+    # solve (CUDA events), download + host PostSolve
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    sync(torch)
+    t0 = time.perf_counter()
+    S, L = comp.stage(dt)
+    sync(torch)
+    t1 = time.perf_counter()
+    ev[0].record()
+    x, _, ok = comp.assemble_solve(S, L, dt)
+    ev[1].record()
+    sync(torch)
+    t2 = time.perf_counter()
+    mpp.soln_prev[:] = mpp.soln
+    mpp.soln[:] = x.cpu().numpy()
+    mpp.post_solve()
+    t3 = time.perf_counter()
+    T, q = mpp.at_T, mpp.av_q
+    check(ok, "(v3): GMRES did not converge")
+    check(np.isfinite(mpp.soln).all(), "(v3): state not finite")
+    check(bool(((T > 270.0) & (T < 320.0)).all()),
+          f"(v3): T_air outside (270, 320) K: {T.min()}, {T.max()}")
+    check(bool(((q >= 0.0) & (q < 0.05)).all()),
+          "(v3): q_air outside [0, 0.05)")
+    row = dict(ncair=MLC_WIDE_NCAIR, ntree=1, unknowns=mpp.n,
+               nnz=comp.template.nnz, ilu_levels=[comp._ilu.levels_fwd,
+                                                  comp._ilu.levels_bwd],
+               dtype="float64", build_s=build_s, steps=MLC_WIDE_STEPS,
+               ms_per_step=ms, gmres_cycles_per_step=per[0],
+               ilu_factors_per_step=per[1], ilu_applies_per_step=per[2],
+               host_syncs_per_step=per[3],
+               split_ms=dict(host_presolve_and_stage=(t1 - t0) * 1e3,
+                             device_assemble_solve_events=ev[0]
+                             .elapsed_time(ev[1]),
+                             assemble_solve_host=(t2 - t1) * 1e3,
+                             download_and_postsolve=(t3 - t2) * 1e3),
+               T_air_K=[float(T.min()), float(T.max())])
+    print("mlc_compiled " + json.dumps(row))
+    busy = dict(cell="mlc_compiled", ncair=MLC_WIDE_NCAIR, dtype="float64",
+                ms_per_step=ms)
+    later(partial(mpp.soe.step_dt, dt), 1, busy, key="step_device_ms",
+          count_key="device_activities_per_step", windows=2)
+
+    launches = dict(hk.LAUNCHES)
+    check(not any(launches.values()),
+          f"(v): the MLC / ml_model path launched a hand-written kernel: "
+          f"{launches}")
+    print("launches_on_mlc_path " + json.dumps(dict(
+        launches=launches, phase_s=time.perf_counter() - t_v)))
+    return [busy]
+
+
 def main():
     here = os.path.dirname(os.path.abspath(__file__))
     check(os.path.isdir(os.path.join(here, "mpp_tpu_torch")),
@@ -1848,6 +2157,10 @@ def main():
 
     # (u): the batched canopy pipeline, counted (no kernel on its path)
     canopy_busy = run_canopy(torch, hk)
+
+    # (v): the serial MLC, CompiledMLC and the ml_model orchestrator,
+    # counted (no kernel on their path)
+    mlc_busy = run_mlc(torch, hk)
     for name in ("thomas", "tridiag_spmv", "tridiag_spmv_mixed"):
         results[name]["launches_by_path"] = {
             path: counts.get(name, 0) for path, counts in by_path.items()}
@@ -1860,7 +2173,8 @@ def main():
     settle(torch)
     for r in checks:
         print("kernel_check " + json.dumps(r))
-    for r in (esc_busy, thermal_busy, *th_busy, *canopy_busy):
+    for r in (esc_busy, thermal_busy, *th_busy, *canopy_busy,
+              *mlc_busy):
         r["device_busy"] = r["step_device_ms"] / r["ms_per_step"]
         print("step_device " + json.dumps(r))
     print("profiler_after " + json.dumps(dict(

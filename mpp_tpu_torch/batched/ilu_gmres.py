@@ -36,6 +36,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+# PETSc's cap on GMRES cycles as the port's solves run them
+MAXCYCLES = 100
+
 
 def _ell_layout(indptr, indices, rows, which):
     """Padded per-row layout of the CSR slots of ``rows``: ``which(i)`` is
@@ -272,7 +275,7 @@ def _hypot(x1, x2):
 
 
 def gmres_cycles(matvec, data, b, ilu: BatchedILU0 = None, pc_data=None,
-                 rtol=1e-5, atol=1e-50, restart=30, maxcycles=100,
+                 rtol=1e-5, atol=1e-50, restart=30, maxcycles=MAXCYCLES,
                  sync=None):
     """:func:`petsc_gmres_batched` with the inner iterations of each
     column: returns (x, cycles, converged[ncol], iterations[ncol])."""
@@ -361,7 +364,7 @@ def gmres_cycles(matvec, data, b, ilu: BatchedILU0 = None, pc_data=None,
 
 def petsc_gmres_batched(matvec, data, b, ilu: BatchedILU0 = None,
                         pc_data=None, rtol=1e-5, atol=1e-50, restart=30,
-                        maxcycles=100, sync=None):
+                        maxcycles=MAXCYCLES, sync=None):
     """Batched GMRES(m) replicating PETSc's KSPGMRES defaults
     (``mpp_tpu/batched/ilu_gmres.py:petsc_gmres_batched``).
 

@@ -36,14 +36,14 @@ from mpp_tpu_torch.ops.ilu import ILU0, petsc_gmres
 from mpp_tpu_torch.ops.sparse import csr_template, CSRTemplate
 
 
-def _solve_ksp(template: CSRTemplate, coo_vals, b, ilu_cache):
+def _solve_ksp(template: CSRTemplate, coo_vals, b, ilu_cache, sync=None):
     data = template.assemble(coo_vals)
     if ilu_cache.get("ilu") is None:
         ilu_cache["ilu"] = ILU0(template.indptr, template.indices)
     ilu = ilu_cache["ilu"]
     lu = ilu.factor(data)
     x, iters, conv = petsc_gmres(template.indptr, template.indices, data,
-                                 b, pc=ilu, pc_data=lu)
+                                 b, pc=ilu, pc_data=lu, sync=sync)
     return x, iters, conv
 
 
@@ -391,7 +391,9 @@ class LongwaveGE(_RadiationGE):
 
 class _RadiationMPPBase(MPPBase):
     """Shared facade for the single-GE KSP canopy problems; the GE's
-    tensors live on ``device`` (the card unless ``device="cpu"``)."""
+    tensors live on ``device`` (the card unless ``device="cpu"``).
+    ``host_syncs`` counts the host reads of the serial KSP's GMRES
+    predicates."""
 
     GE_CLS = None
 
@@ -404,6 +406,12 @@ class _RadiationMPPBase(MPPBase):
         self.block_template = None
         self.cumulative_linear_iterations = 0
         self.metrics = None
+        self.host_syncs = 0
+
+    def _sync(self, value):
+        """Read a device predicate on the host (one counted sync)."""
+        self.host_syncs += 1
+        return bool(value.item())
 
     @property
     def soe(self):
@@ -448,7 +456,7 @@ class _RadiationMPPBase(MPPBase):
                 n = ge.mesh.ncells_local * ge.dof
                 self.template = csr_template(n, n, r, c)
             x, iters, conv = _solve_ksp(self.template, vals, b,
-                                        self._ilu_cache)
+                                        self._ilu_cache, sync=self._sync)
         self.cumulative_linear_iterations += iters
         ge.save_soln(x)
         if hasattr(ge, "post_solve"):

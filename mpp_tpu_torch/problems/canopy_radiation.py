@@ -11,7 +11,8 @@ All use the same canopy column mesh (soil cell at z=0, layers above,
 Dirichlet sky forcing at the top cell).  The problems run on ``device``
 (the card unless ``device="cpu"``); ``use_compiled`` steps through
 ``batched/ksp_compiled.compile_radiation``.  The ``output_regression_*``
-writers need ``io/regression`` (ROADMAP Slice F) and raise.
+writers read the GE's tensors back to the host and write the reference's
+regression files.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import torch
 from mpp_tpu_torch.constants import (Cond, ConnKind, MPPType, TFRZ,
                                      MeshType as MeshKind)
 from mpp_tpu_torch.device import device_of
+from mpp_tpu_torch.io.regression import RegressionWriter
 from mpp_tpu_torch.dtypes.mesh import Mesh, ConnectionSet
 from mpp_tpu_torch.models.radiation import ShortwaveMPP, LongwaveMPP
 from mpp_tpu_torch.models.lbl import LBLMPP
@@ -170,9 +172,14 @@ def run_shortwave_problem(ncair=1, ntree=1, use_compiled=False,
 
 
 def output_regression_shortwave(mpp, filename_base, num_cells):
-    raise NotImplementedError(
-        "output_regression_shortwave needs io/regression, not ported yet "
-        "(ROADMAP Slice F)")
+    ge = mpp.goveqns[0]
+    w = RegressionWriter(filename_base, num_cells)
+    w.write_data("shortwave_up_beam_vis", "general", ge.Iup[:, 0])
+    w.write_data("shortwave_up_beam_nir", "general", ge.Iup[:, 1])
+    w.write_data("shortwave_dn_diffuse_vis", "general", ge.Idn[:, 0])
+    w.write_data("shortwave_dn_diffuse_nir", "general", ge.Idn[:, 1])
+    w.close()
+    return w.filename
 
 
 def run_longwave_problem(ncair=1, ntree=1, use_compiled=False,
@@ -227,9 +234,13 @@ def run_longwave_problem(ncair=1, ntree=1, use_compiled=False,
 
 
 def output_regression_longwave(mpp, filename_base, num_cells):
-    raise NotImplementedError(
-        "output_regression_longwave needs io/regression, not ported yet "
-        "(ROADMAP Slice F)")
+    ge = mpp.goveqns[0]
+    w = RegressionWriter(filename_base, num_cells)
+    w.write_data("longwave_up", "general", ge.Iup)
+    w.write_data("longwave_dn", "general", ge.Idn)
+    w.write_data("longwave_abs", "general", ge.Iabs)
+    w.close()
+    return w.filename
 
 
 def run_leafbndlyr_problem(ncair=1, ntree=1, device="cuda"):
@@ -264,6 +275,10 @@ def run_leafbndlyr_problem(ncair=1, ntree=1, device="cuda"):
 
 
 def output_regression_leafbndlyr(mpp, filename_base, num_cells):
-    raise NotImplementedError(
-        "output_regression_leafbndlyr needs io/regression, not ported yet "
-        "(ROADMAP Slice F)")
+    ge = mpp.goveqns[0]
+    w = RegressionWriter(filename_base, num_cells)
+    w.write_data("gbh", "general", ge.gbh)
+    w.write_data("gbv", "general", ge.gbv)
+    w.write_data("gbc", "general", ge.gbc)
+    w.close()
+    return w.filename

@@ -1,4 +1,4 @@
-"""Standalone multi-layer canopy (MLC) problem: its constants and profiles.
+"""Standalone multi-layer canopy (MLC) problem.
 
 Counterpart of ``mpp_tpu/problems/mlc.py``, which reimplements the
 reference driver ``src/driver/standalone/mlc/``:
@@ -14,10 +14,11 @@ reference driver ``src/driver/standalone/mlc/``:
 
 Regression tests: ``regression_tests/mlc/{mlc, mlc-two-ncair-two-tree}``.
 
-The port carries the geometry, the parameter tables and
-:func:`get_dpai_fssh`, which the canopy pipeline reads.
-``run_mlc_problem`` and ``output_regression`` need the serial MLC facade
-``models/mlc.MLCMPP`` (ROADMAP Slice E2) and raise.
+``run_mlc_problem`` builds the problem on the serial facade
+``models/mlc.MLCMPP`` (host assembly, its KSP solve on ``device``, the
+card unless ``device="cpu"``) or, with ``use_compiled``, steps it through
+``batched/mlc_compiled.CompiledMLC``.  The canopy pipeline reads the
+geometry, the parameter tables and :func:`get_dpai_fssh`.
 """
 from __future__ import annotations
 
@@ -25,6 +26,8 @@ import math
 
 import numpy as np
 
+from mpp_tpu_torch.io.regression import RegressionWriter
+from mpp_tpu_torch.models.mlc import MLCMPP
 
 # Geometry (mlc_global_vars.F90:9-24)
 Z_CAIR = 46.0
@@ -165,13 +168,129 @@ def get_dpai_fssh():
 
 
 def run_mlc_problem(ncair: int = 1, ntree: int = 1,
-                    use_compiled: bool = False):
-    raise NotImplementedError(
-        "run_mlc_problem needs the serial MLC facade models/mlc.MLCMPP, not "
-        "ported yet (ROADMAP Slice E2)")
+                    use_compiled: bool = False, device="cuda") -> MLCMPP:
+    """Build and step the MLC problem (mlc_problem.F90:24-136) on
+    ``device``.
+
+    ``use_compiled`` routes step_dt through the compiled assemble+solve
+    on the device (batched/mlc_compiled.py) instead of the host-side
+    numpy assembly + device GMRES."""
+    mpp = MLCMPP(ncair=ncair, ntree=ntree, nz_cair=NZ_CAIR, z_cair=Z_CAIR,
+                 device=device)
+    nlev = mpp.nlev
+    ct = mpp.cturb
+
+    dpai, fssh = get_dpai_fssh()
+
+    # --- air temperature / vapor GE parameters
+    # (mlc_parameters.F90:42-105, 108-173): canopy-air cells k=1..nz_cair
+    for icair in range(ncair):
+        for k in range(1, NZ_CAIR + 1):       # Fortran k (1-based)
+            icell = icair * nlev + (k - 1)    # 0-based air cell
+            mpp.at_gbh[icell, :] = GBH
+            mpp.av_gbv[icell, :] = GBV
+            for pre_dpai, pre_fwet, pre_fdry, pre_gs, pre_fssh in (
+                (mpp.at_leaf_dpai, mpp.at_leaf_fwet, mpp.at_leaf_fdry,
+                 mpp.at_leaf_gs, mpp.at_leaf_fssh),
+                (mpp.av_leaf_dpai, mpp.av_leaf_fwet, mpp.av_leaf_fdry,
+                 mpp.av_leaf_gs, mpp.av_leaf_fssh)):
+                pre_dpai[icell, :] = dpai[k] / ntree
+                pre_fwet[icell, :] = FWET
+                pre_fdry[icell, :] = FDRY
+                for il in range(ntree):
+                    pre_gs[icell, il] = SUN_GS.get(k, 0.0)
+                    pre_gs[icell, ntree + il] = SHD_GS.get(k, 0.0)
+                    pre_fssh[icell, il] = fssh[k]
+                    pre_fssh[icell, ntree + il] = 1.0 - fssh[k]
+        soil = icair * nlev
+        mpp.at_is_soil[soil] = True
+        mpp.av_is_soil[soil] = True
+
+    # --- leaf GE parameters (mlc_parameters.F90:176-230, 246-299, 422-495)
+    for r, (gs_tab, rn_tab) in enumerate(((SUN_GS, SUN_RN),
+                                          (SHD_GS, SHD_RN))):
+        ge = mpp.leaf[r]
+        for icair in range(ncair):
+            for itree in range(ntree):
+                for k in range(1, NZ_CLEAF + 2):     # Fortran k=1..93
+                    icell = (icair * nlev * ntree + itree * nlev + (k - 1))
+                    ge["gbh"][icell] = GBH
+                    ge["gbv"][icell] = GBV
+                    ge["cp"][icell] = CP_LEAF
+                    ge["fwet"][icell] = FWET
+                    ge["fdry"][icell] = FDRY
+                    ge["dpai"][icell] = dpai[k] / ntree
+                    if r == 0:
+                        ge["fssh"][icell] = fssh[k]
+                    else:
+                        ge["fssh"][icell] = 1.0 - fssh[k]
+                    if 7 <= k <= 43:
+                        ge["gs"][icell] = gs_tab[k]
+                        ge["rn"][icell] = rn_tab[k]
+
+    # --- turbulence parameters (mlc_parameters.F90:498-548)
+    for p in range(ncair):
+        ct.pai[p] = PAI
+        ct.hc[p] = HC
+        ct.zref[p] = 46.0
+        ct.pref[p] = 98620.0
+        ct.uref[p] = 5.169
+        ct.tref[p] = 295.9349938964844
+        ct.rhref[p] = 53.871
+        ct.tcan[p] = ct.tref[p]
+        # qref is never initialized by the reference driver (fresh
+        # allocation => 0); the derived eref/qcan are therefore 0 too.
+        ct.qref[p] = 0.0
+        ct.compute_derived_atm_inputs(p)
+        ct.qcan[p] = ct.qref[p]
+
+    # --- soil-surface parameters (mlc_parameters.F90:551-585)
+    for p in range(ncair):
+        ct.soil_tk[p] = 1.261326601469150
+        ct.soil_dz[p] = 7.1006354171935350e-3
+        ct.soil_temperature[p] = 294.8492736816406
+        ct.soil_res[p] = 3361.509423807650
+        ct.soil_rhg[p] = 0.9984057411945876
+        ct.soil_rn[p] = 1.896127799819662
+
+    # --- initial conditions (mlc_problem.F90:243-330)
+    o = mpp.off
+    mpp.soln[o[0]:o[0] + mpp.Na] = ct.tref[0]
+    mpp.soln[o[1]:o[1] + mpp.Na] = ct.qref[0]
+    mpp.soln[o[2]:o[2] + mpp.Nl] = ct.tref[0]
+    mpp.soln[o[3]:o[3] + mpp.Nl] = ct.tref[0]
+    mpp.soln_prev[:] = mpp.soln
+
+    if use_compiled:
+        from mpp_tpu_torch.batched.mlc_compiled import compile_mlc
+        compile_mlc(mpp).install()
+    # One 5-minute step (mlc_problem.F90:76-81)
+    converged, iters = mpp.soe.step_dt(5.0 * 60.0)
+    if not converged:
+        raise RuntimeError("MLC KSP solve diverged")
+    return mpp
 
 
-def output_regression(mpp, filename_base: str, num_cells: int) -> str:
-    raise NotImplementedError(
-        "output_regression needs models/mlc.MLCMPP and io/regression, not "
-        "ported yet (ROADMAP Slice E2)")
+def output_regression(mpp: MLCMPP, filename_base: str,
+                      num_cells: int) -> str:
+    """Write the regression file (output_regression_mlc_problem,
+    mlc_problem.F90:333-395).  All four sections use a data array sized
+    ntree*(nz_cair+1)*ncair; the air sections fill only the first
+    (nz_cair+1)*ncair entries and keep trailing zeros — stats include
+    the zero padding, as in the reference."""
+    w = RegressionWriter(filename_base, num_cells)
+    ncells_all = mpp.ntree * mpp.nlev * mpp.ncair
+    ncells_air = mpp.nlev * mpp.ncair
+
+    data = np.zeros(ncells_all)
+    data[:ncells_air] = mpp.at_T
+    w.write_data("air_temperature", "temperature", data)
+
+    data = np.zeros(ncells_all)
+    data[:ncells_air] = mpp.av_q
+    w.write_data("air_vapor", "general", data)
+
+    w.write_data("sunlit_leaf_temperature", "temperature", mpp.leaf[0]["T"])
+    w.write_data("shaded_leaf_temperature", "temperature", mpp.leaf[1]["T"])
+    w.close()
+    return w.filename

@@ -6,7 +6,7 @@ column (nz_cair=92), one SNES solve of the per-leaf stomatal system with
 leaf temperature ramping 11C..34C up the canopy
 (photosynthesis_parameters.F90:58-132), pathway/stomatal model selected by
 namelist (photosynthesis_problem.F90:80-166).  ``output_regression``
-needs ``io/regression`` (ROADMAP Slice F) and raises.
+writes the reference's regression file (ci per dof per cell).
 """
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ import numpy as np
 
 from mpp_tpu_torch.constants import MPPType, TFRZ, MeshType as MeshKind
 from mpp_tpu_torch.device import device_of
+from mpp_tpu_torch.io.regression import RegressionWriter
 from mpp_tpu_torch.dtypes.mesh import Mesh
 from mpp_tpu_torch.models import photosynthesis as ph
 
@@ -168,6 +169,11 @@ def run_photosynthesis_problem(pathway="c4", scm="medlyn",
 
 
 def output_regression(mpp, filename_base, num_cells):
-    raise NotImplementedError(
-        "output_regression needs io/regression, not ported yet (ROADMAP "
-        "Slice F)")
+    """output_regression_photosynthesis_problem
+    (photosynthesis_problem.F90:250-299): ci per dof per cell."""
+    ge = mpp.soe.ge
+    ci = ge.avars.ci[:ge.mesh.ncells_local].reshape(-1)
+    w = RegressionWriter(filename_base, num_cells)
+    w.write_data("ci", "general", ci)
+    w.close()
+    return w.filename

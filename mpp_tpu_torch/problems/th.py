@@ -30,6 +30,8 @@ Every step runs at ncol=1 in f64, on the card unless the caller passes
 ``device="cpu"``.  ``compiled=False`` on the TH problems, the serial host
 SNES, is not ported yet (ROADMAP Slice F) and raises, as does
 ``pressure_ic_file`` (``io/petsc_vec``, Slice F).
+``output_regression_heat_transport_1d`` and ``output_regression_th``
+write the reference's regression files.
 
 The energy BCs (condition values and the BC auxvar pressure) must be
 staged before any step: unstaged they are 0 K and 0 Pa and the first step
@@ -47,6 +49,7 @@ from mpp_tpu_torch.constants import (Cond, ConnKind, GEType, MPPType, MeshType,
                                      Var, AuxVarKind, Region, PRESSURE_REF,
                                      GRAVITY_CONSTANT, FMWH2O)
 from mpp_tpu_torch.device import device_of
+from mpp_tpu_torch.io.regression import RegressionWriter
 from mpp_tpu_torch.dtypes.mesh import structured_mesh, ConnectionSet
 from mpp_tpu_torch.models.thermal_enthalpy import THMPP, ThermalEnthalpyMPP
 from mpp_tpu_torch.ops import eos, satfunc as sf
@@ -506,3 +509,20 @@ def run_th_mms(nx=20, compiled=True, linear_solver="petsc", device="cuda"):
     converged, _reason = mpp.soe.step_dt(1.0, 1)
     assert converged
     return mpp, mpp.get_data(Var.PRESSURE)
+
+
+def output_regression_heat_transport_1d(filename_base, num_cells, temp):
+    w = RegressionWriter(filename_base, num_cells)
+    w.write_data("temperature", "general", temp)
+    w.close()
+    return w.filename
+
+
+def output_regression_th(filename_base, num_cells, soln):
+    """liquid_pressure + temperature blocks (mass_and_heat/th_mms)."""
+    n = len(soln) // 2
+    w = RegressionWriter(filename_base, num_cells)
+    w.write_data("liquid_pressure", "pressure", soln[:n])
+    w.write_data("temperature", "temperature", soln[n:])
+    w.close()
+    return w.filename

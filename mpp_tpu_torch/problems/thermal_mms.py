@@ -13,7 +13,7 @@ compiled batched KSP (``batched/ksp_compiled.compile_ksp(mpp,
 linear_solver="petsc")``) at ncol=1 in f64, on the card unless the
 caller passes ``device="cpu"``.  The 1-D problem is tridiagonal (Thomas);
 the 2-D and 3-D problems run the batched GMRES(30)+ILU(0) plan.
-``output_regression`` needs ``io/regression`` (ROADMAP Slice F).
+``output_regression`` writes the reference's regression file.
 
 Cell ordering quirk reproduced: soil properties are staged CLM-style
 column-major (MultiPhysicsProbThermal.F90:154-185) while the structured
@@ -27,6 +27,7 @@ import numpy as np
 from mpp_tpu_torch.constants import (Cond, ConnKind, GEType, MPPType,
                                      MeshType, Var, AuxVarKind, IST_SOIL)
 from mpp_tpu_torch.device import device_of
+from mpp_tpu_torch.io.regression import RegressionWriter
 from mpp_tpu_torch.dtypes.mesh import (structured_mesh, ConnectionSet,
                                        compute_cell_ids)
 from mpp_tpu_torch.models.thermal import ThermalMPP
@@ -253,3 +254,10 @@ def run_thermal_mms_problem(problem_type=STEADY_STATE_1D, nstep=1,
         converged = mpp.soe.step_dt(1.0)
         assert converged, "thermal MMS KSP solve did not converge"
     return mpp, mpp.soe.get_soln()
+
+
+def output_regression(filename_base, num_cells, soln):
+    w = RegressionWriter(filename_base, num_cells)
+    w.write_data("temperature", "general", soln)
+    w.close()
+    return w.filename

@@ -26,6 +26,7 @@ from mpp_tpu_torch.constants import (Cond, ConnKind, GEType, MPPType, Region, Va
 from mpp_tpu_torch.dtypes.mesh import Mesh, ConnectionSet
 from mpp_tpu_torch.batched.vsfm_compiled import compile_vsfm
 from mpp_tpu_torch.device import device_of
+from mpp_tpu_torch.io.regression import RegressionWriter
 from mpp_tpu_torch.models.richards import VSFMMPP
 from mpp_tpu_torch.ops import satfunc as sf
 
@@ -160,3 +161,12 @@ def run_vsfm_spac_problem(nz=30, dtime=3600.0, nstep=1,
         assert converged, f"step {istep} diverged (reason {reason})"
     return mpp
 
+
+def output_regression(mpp, filename_base, num_cells):
+    w = RegressionWriter(filename_base, num_cells)
+    w.write_data("liquid_pressure", "pressure",
+                 mpp.get_data(AuxVarKind.INTERNAL, Var.PRESSURE))
+    w.write_data("liquid_saturation", "general",
+                 mpp.get_data(AuxVarKind.INTERNAL, Var.LIQ_SAT))
+    w.close()
+    return w.filename

@@ -33,6 +33,8 @@ from mpp_tpu_torch.batched.vsfm_compiled import compile_vsfm
 from mpp_tpu_torch.device import device_of
 from mpp_tpu_torch.models.richards import VSFMMPP
 from mpp_tpu_torch.ops import satfunc as sf
+# the VSFM writer (pressure + saturation) is shared with vsfm_spac
+from mpp_tpu_torch.problems.vsfm_spac import output_regression  # noqa: F401
 
 NZ_XYLEM = 2
 NZ_ROOT = 28

@@ -13,8 +13,8 @@ The steps run through the compiled batched stepper
 ncol=1 in f64, on the card unless the caller passes ``device="cpu"``:
 the port has no serial SNES (ROADMAP Slice F).  The mesh is 3-D, so
 "petsc" (the default) runs the batched ILU(0) + GMRES(30) and "direct"
-block-Thomas over the 200-cell levels.  ``output_regression`` needs
-``io/regression`` (ROADMAP Slice F).
+block-Thomas over the 200-cell levels.  ``output_regression`` writes
+the reference's regression file.
 """
 from __future__ import annotations
 
@@ -28,6 +28,8 @@ from mpp_tpu_torch.batched.vsfm_compiled import compile_vsfm
 from mpp_tpu_torch.device import device_of
 from mpp_tpu_torch.models.richards import VSFMMPP
 from mpp_tpu_torch.ops import eos
+# the VSFM writer (pressure + saturation) is shared with vsfm_spac
+from mpp_tpu_torch.problems.vsfm_spac import output_regression  # noqa: F401
 
 NX, NY = 20, 10
 DX, DY, DZ = 10.0, 10.0, 0.5
@@ -179,4 +181,3 @@ def run_vsfm_vchannel_problem(nz=30, dtime=8640.0, nstep=3,
         converged, reason = mpp.soe.step_dt(dtime, istep)
         assert converged, f"step {istep} diverged (reason {reason})"
     return mpp
-

@@ -10,8 +10,8 @@ package, f64 on the CPU.
 * The ml_model pieces the pipeline reads (vegetation structure, beam
   extinction, transmittances, BC records, meshes) and the PETSc binary Vec
   round trip, exactly: they are host copies.
-* The writers and drivers that later slices port raise
-  NotImplementedError naming them.
+* The writers and drivers that raised naming a later slice until it
+  landed (Slices E2 and F) run.
 """
 import dataclasses
 
@@ -116,21 +116,34 @@ def test_petsc_vec_round_trip_matches_jax(tmp_path):
     np.testing.assert_array_equal(tvec.read_vec(str(tmp_path / "j.bin")), v)
 
 
-@pytest.mark.parametrize("call,slice_", [
-    (lambda: tcr.output_regression_shortwave(None, "x", 1), "Slice F"),
-    (lambda: tcr.output_regression_longwave(None, "x", 1), "Slice F"),
-    (lambda: tcr.output_regression_leafbndlyr(None, "x", 1), "Slice F"),
-    (lambda: tps.output_regression(None, "x", 1), "Slice F"),
-    (lambda: tmlc.run_mlc_problem(), "Slice E2"),
-    (lambda: tmlc.output_regression(None, "x", 1), "Slice E2"),
-    (lambda: tml.run_ml_model_problem(), "Slice E2"),
-    (lambda: tml.MLModel(), "Slice E2")],
+@pytest.mark.parametrize("call", [
+    lambda d: tcr.output_regression_shortwave(
+        tcr.run_shortwave_problem(device="cpu"), d, 6),
+    lambda d: tcr.output_regression_longwave(
+        tcr.run_longwave_problem(device="cpu"), d, 6),
+    lambda d: tcr.output_regression_leafbndlyr(
+        tcr.run_leafbndlyr_problem(device="cpu"), d, 6),
+    lambda d: tps.output_regression(
+        tps.run_photosynthesis_problem("c3", "medlyn", device="cpu"), d, 6),
+    lambda d: tmlc.run_mlc_problem(device="cpu"),
+    lambda d: tmlc.output_regression(tmlc.run_mlc_problem(device="cpu"),
+                                     d, 6),
+    lambda d: tml.run_ml_model_problem(13, 13, nsubstep=1, device="cpu"),
+    lambda d: tml.MLModel(device="cpu")],
     ids=["sw_regression", "lw_regression", "lbl_regression",
          "psy_regression", "run_mlc", "mlc_regression", "run_ml_model",
          "ml_model"])
-def test_later_slices_raise(call, slice_):
-    with pytest.raises(NotImplementedError, match=slice_):
-        call()
+def test_former_later_slice_entry_points_run(call, tmp_path):
+    """The entry points that raised NotImplementedError naming a later
+    slice (the writers Slice F, the MLC and ml_model drivers Slice E2)
+    until that slice landed: each now runs on the CPU, and a writer writes
+    its file (tests/test_torch_regression.py holds the files to JAX's)."""
+    out = call(str(tmp_path / "out"))
+    if isinstance(out, str):
+        assert out.endswith(".regression") and open(out).read().startswith(
+            "[")
+    else:
+        assert out is not None
 
 
 def test_radiation_problems_default_to_the_card():

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: a fresh interpreter imports every module
-of mpp_tpu_torch and chip_smoke, runs one ALM step and one TH step on the
-CPU, and finds neither jax nor the JAX package ``mpp_tpu`` in sys.modules;
-no source line of the port or of chip_smoke.py imports either."""
+of mpp_tpu_torch and chip_smoke, runs one ALM step, one TH step, the MLC
+problem and one ml_model substep on the CPU, and finds neither jax nor the
+JAX package ``mpp_tpu`` in sys.modules; no source line of the port or of
+chip_smoke.py imports either."""
 import os
 import pathlib
 import re
@@ -37,6 +38,11 @@ p3 = thermal_3media.ThreeMediaProblem(device="cpu")
 p3.set_initial_temperature(265.0, 270.0, 275.0)
 p3.set_top_fluxes(-10.0, 0.0, 0.0)
 assert all(np.isfinite(t).all() for t in p3.step(600.0))
+from mpp_tpu_torch.problems import mlc, ml_model
+m = mlc.run_mlc_problem(2, 1, use_compiled=True, device="cpu")
+assert np.isfinite(m.soln).all()
+model = ml_model.run_ml_model_problem(13, 13, nsubstep=1, device="cpu")
+assert np.isfinite(model.tair).all()
 from mpp_tpu_torch.ops import hopper_kernels as hk
 import torch
 g = torch.Generator().manual_seed(0)
