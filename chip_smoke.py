@@ -148,7 +148,24 @@ line is printed):
       applies and host syncs a step, one step split into the host
       PreSolve + staging and the device assemble + solve (CUDA events),
       and (with the other device readings) the busy share of one step;
-      gates: finite, 270 < T_air < 320 K, 0 <= q < 0.05.
+      gates: finite, 270 < T_air < 320 K, 0 <= q < 0.05;
+  (w) the serial SNES (ops/snes.snes_solve under VSFMSoE.step_dt):
+      (w1) celia1990 at nz = 100, dt 3600 s, W1_CELIA's serial steps on
+      the card and on the CPU: at every step equal convergence, reasons,
+      Newton and linear iterations and the solution within SERIAL_RTOL;
+      ms a step on each, host syncs a step; then use_compiled=True for
+      24 steps on the card, its thomas and tridiag_spmv launches counted
+      under the path "vsfm_celia_compiled" and both held to their plain
+      forms at the [1, 100] f64 arguments the path gave them;
+      (w2) the eight other serial VSFM problems (W2_PROBLEMS) at their
+      reference sizes, card against CPU at the same gate (the CPU runs
+      in a worker process while the card runs), with ms a step and the
+      steps cut from the JAX defaults printed;
+      (w3) python -m mpp_tpu_torch.cli on a vsfm_mms namelist in its own
+      process on the card (started before (w2), read after it), its
+      regression file within SERIAL_RTOL of the CPU CLI's; the counters
+      read 0 over the serial runs, and the phase takes less than
+      SERIAL_BUDGET_S.
 
 Every kernel timing is read twice: ``ms``, CUDA events around back-to-back
 calls of the wrapper (host cost per call included), and ``device_ms``, the
@@ -164,7 +181,8 @@ the cell's device-busy share (the "step_device" lines).
 
 The launch counters are reset just before (d) and read just after (e),
 reset just before (u) and read just after it (all zero), the same for
-(v),
+(v) and for (w)'s serial runs (its compiled celia1990 run is counted
+apart),
 reset just before (h) and read just after (i), reset just before (k)'s
 calls of the ops and read just after them, reset just before (l)'s
 harness run and read just after it, and reset just before each of
@@ -178,10 +196,12 @@ there is one);
 the last line is {"ok": true, "device": {...}}.
 """
 import json
+import multiprocessing
 import os
 import re
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 from functools import partial
 
 import numpy as np
@@ -234,6 +254,30 @@ CANOPY_IABS_REL = 1e-8
 ML_HOURS, ML_NSUBSTEP, NZ_ML = (12, 14), 12, 93
 ML_CARD_CPU = dict(T_K=1e-9, q=1e-13, rel=1e-9)
 MLC_WIDE_NCAIR, MLC_WIDE_STEPS = 256, 5
+# (w): the serial SNES problems at their reference sizes; each entry:
+# module, runner, its arguments, the JAX default number of steps and the
+# steps run here (fewer where the phase budget forces it, printed as a
+# cut); card and CPU agree within SERIAL_RTOL at equal iterations and
+# reasons at every step; the whole phase stays under SERIAL_BUDGET_S
+SERIAL_RTOL = 1e-9
+SERIAL_BUDGET_S = 120.0
+# (w2)'s CPU halves: one worker process of 2 threads beside the card's
+# runs (two workers of 3 slowed the card's steps by 18 %)
+W2_CPU_WORKERS, W2_CPU_THREADS = 1, 2
+W1_CELIA = dict(nz=100, dt=3600.0, ref_steps=24, serial_steps=3,
+                compiled_steps=24)
+W2_PROBLEMS = {
+    "vsfm_sy1991": ("run_vsfm_sy1991_problem", {}, 24, 1),
+    "vsfm_wt_dynamics": ("run_vsfm_wt_dynamics_problem", {}, 24, 2),
+    "vsfm_mms": ("run_vsfm_mms_problem", {}, 1, None),
+    "vsfm_vchannel_operator_split": (
+        "run_vsfm_vchannel_operator_split_problem", {}, 3, 1),
+    "vsfm_manoli2014": ("run_vsfm_manoli2014_problem", {}, 3, 1),
+    "vsfm_spac_fetch2": ("run_vsfm_spac_fetch2_problem", {}, 1, None),
+    "vsfm_spac_on_hillslope": ("run_vsfm_spac_on_hillslope_problem", {},
+                               1, None),
+    "vsfm_spac_mms": ("run_vsfm_spac_mms_problem", {}, 1, None),
+}
 CHAIN_K = 30
 JACOBI_CHECK = dict(iters=200, omega=0.9, shape=(16384, 64), tol=1e-8)
 HARNESS_SHAPE = (131072, 256)
@@ -1202,6 +1246,7 @@ def run_thermal(torch, hk, tridiag):
     from mpp_tpu_torch.problems import thermal_mms
     t0 = time.perf_counter()
     mpp, _ = thermal_mms.run_thermal_mms_problem(1, nx=THERM_NX,
+                                                 use_compiled=True,
                                                  device="cpu")
     comp = compile_ksp(mpp, linear_solver="direct")
     problem_s = time.perf_counter() - t0
@@ -1388,6 +1433,7 @@ def run_vchannel(torch):
                          ("petsc", "cpu")):
         t0 = time.perf_counter()
         mpp = vch.run_vsfm_vchannel_problem(nz=VCH_NZ, nstep=0,
+                                            use_compiled=True,
                                             linear_solver=plan,
                                             device=device)
         comp = mpp.soe.step_dt.__self__
@@ -1436,8 +1482,8 @@ def run_thermal_mms_petsc(torch):
         out = {}
         for device in ("cuda", "cpu"):
             t0 = time.perf_counter()
-            mpp, soln = thermal_mms.run_thermal_mms_problem(ptype,
-                                                            device=device)
+            mpp, soln = thermal_mms.run_thermal_mms_problem(
+                ptype, use_compiled=True, device=device)
             comp = mpp.soe.step_dt.__self__
             check(comp._ilu is not None, f"(s) {ptype}-D: not the GMRES plan")
             out[device] = (np.asarray(soln), time.perf_counter() - t0,
@@ -1480,7 +1526,8 @@ def run_small_problems(torch):
         for device in ("cuda", "cpu"):
             t0 = time.perf_counter()
             mpp = camp.run_vsfm_spac_campbell_problem(
-                multi_goveqns=True, linear_solver=plan, device=device)
+                multi_goveqns=True, use_compiled=True, linear_solver=plan,
+                device=device)
             comp = mpp.soe.step_dt.__self__
             # "direct" takes the JAX package's rule: block-Thomas where a
             # block size covers the pattern, else dense LU
@@ -1977,6 +2024,246 @@ def run_mlc(torch, hk):
     return [busy]
 
 
+def serial_steps(torch, run, device):
+    """Run ``run(device)`` with every serial ``VSFMSoE.step_dt`` recorded:
+    returns (its result, [(converged, reason, Newton iterations, linear
+    iterations, host syncs, seconds, solution) per step])."""
+    from mpp_tpu_torch.models.richards import VSFMSoE
+    log = []
+    real = VSFMSoE.step_dt
+
+    def step_dt(self, dt, nstep=1):
+        n0, l0 = (self.cumulative_newton_iterations,
+                  self.cumulative_linear_iterations)
+        s0, t0 = self.host_syncs, time.perf_counter()
+        ok, reason = real(self, dt, nstep)
+        sync(torch, str(self.device))
+        log.append((bool(ok), int(reason),
+                    self.cumulative_newton_iterations - n0,
+                    self.cumulative_linear_iterations - l0,
+                    self.host_syncs - s0, time.perf_counter() - t0,
+                    np.array(self.soln, np.float64)))
+        return ok, reason
+
+    VSFMSoE.step_dt = step_dt
+    try:
+        out = run(device)
+    finally:
+        VSFMSoE.step_dt = real
+    return out, log
+
+
+def serial_cpu_log(name, runner, args, threads):
+    """The step log of a (w2) problem's serial run on the CPU, in a worker
+    process of its own (``threads`` intra-op threads)."""
+    import importlib
+    import torch
+    torch.set_num_threads(threads)
+    mod = importlib.import_module(f"mpp_tpu_torch.problems.{name}")
+    return serial_steps(torch, lambda dev: getattr(mod, runner)(
+        device=dev, **args), "cpu")[1]
+
+
+def serial_card_vs_cpu(torch, label, run, card, cpu_log=None):
+    """The serial SNES of ``run`` on the card and on the CPU (or the CPU's
+    step log ``cpu_log``, taken elsewhere): equal convergence, reasons and
+    iterations and the solution within SERIAL_RTOL at every step; returns
+    (the card's result, the row)."""
+    out, g = serial_steps(torch, run, "cuda")
+    c = cpu_log if cpu_log is not None else serial_steps(torch, run,
+                                                         "cpu")[1]
+    check(len(g) == len(c) > 0, f"{label}: {len(g)} card steps, {len(c)} "
+          f"CPU steps")
+    rel = 0.0
+    for k, (a, b) in enumerate(zip(g, c)):
+        check(all(x[0] for x in (a, b)), f"{label}: step {k} diverged")
+        check(a[:4] == b[:4], f"{label} step {k}: card (converged, reason,"
+              f" newton, linear) {a[:4]} vs CPU {b[:4]}")
+        rel = max(rel, card_vs_cpu(f"{label} step {k}", a[6], b[6],
+                                   SERIAL_RTOL))
+    nsteps = len(g)
+    row = dict(problem=label, steps=nsteps,
+               card_ms_per_step=sum(x[5] for x in g) * 1e3 / nsteps,
+               cpu_ms_per_step=sum(x[5] for x in c) * 1e3 / nsteps,
+               newton_per_step=[x[2] for x in g],
+               linear_per_step=[x[3] for x in g],
+               host_syncs_per_step=sum(x[4] for x in g) / nsteps,
+               reasons=sorted({x[1] for x in g}),
+               max_rel_card_vs_cpu=rel, card=card)
+    return out, row
+
+
+def run_serial(torch, hk, tridiag, card):
+    """Phase (w): the serial SNES (Slice F) on the card against the CPU,
+    the compiled option's kernels, the CLI.  Returns (the launches of
+    the compiled celia1990 path, the kernel_check rows held at its
+    shapes)."""
+    import subprocess
+    import tempfile
+    from mpp_tpu_torch import cli
+    from mpp_tpu_torch.io import regression as reg
+    from mpp_tpu_torch.problems import vsfm_celia1990 as celia
+    import importlib
+    t_w = time.perf_counter()
+    hk.reset_launches()
+
+    # (w1) celia1990 through the serial SNES, card and CPU
+    w1 = W1_CELIA
+    _, row = serial_card_vs_cpu(
+        torch, "vsfm_celia1990", lambda dev: celia.run_vsfm_celia1990_problem(
+            nz=w1["nz"], dtime=w1["dt"], nstep=w1["serial_steps"],
+            device=dev), card)
+    row.update(nz=w1["nz"], dt=w1["dt"], jax_default_steps=w1["ref_steps"],
+               cut=f"{w1['serial_steps']} of {w1['ref_steps']} steps")
+    print("serial_w1 " + json.dumps(row))
+    serial_launches = dict(hk.LAUNCHES)
+    check(not any(serial_launches.values()),
+          f"(w1): the serial SNES launched a kernel: {serial_launches}")
+
+    # (w1) use_compiled=True: thomas and tridiag_spmv at [1, nz] f64,
+    # counted, and held to their plain forms at the shapes they got
+    captured = {}
+    hk.reset_launches()
+    t0 = time.perf_counter()
+    mpp = celia.run_vsfm_celia1990_problem(nz=w1["nz"], dtime=w1["dt"],
+                                           nstep=0, use_compiled=True,
+                                           device="cuda")
+    comp = mpp.soe.step_dt.__self__
+    check(comp.is_tridiag, "(w1): celia1990 is not on the Thomas plan")
+    real_solve, real_matvec = comp._solve, comp._matvec
+
+    def solve(bands, F):
+        captured.setdefault(("thomas", "float64"),
+                            [a.clone() for a in bands]
+                            + [F.contiguous().clone()])
+        return real_solve(bands, F)
+
+    def matvec(bands, x):
+        captured.setdefault(("tridiag_spmv", "float64"),
+                            [a.clone() for a in bands]
+                            + [x.contiguous().clone()])
+        return real_matvec(bands, x)
+
+    comp._solve, comp._matvec = solve, matvec
+    from mpp_tpu_torch.constants import AuxVarKind, Var
+    try:
+        for istep in range(1, w1["compiled_steps"] + 1):
+            mpp.set_data(AuxVarKind.BC, Var.BC_SS_CONDITION, 1,
+                         np.full(1, 9.3991e4))
+            mpp.set_data(AuxVarKind.BC, Var.BC_SS_CONDITION, 2,
+                         np.full(1, 3.5355e3))
+            ok, reason = mpp.soe.step_dt(w1["dt"], istep)
+            check(ok, f"(w1) compiled step {istep}: reason {reason}")
+        sync(torch)
+    finally:
+        del comp._solve, comp._matvec
+    compiled_s = time.perf_counter() - t0
+    compiled = dict(hk.LAUNCHES)
+    check(compiled["thomas"] > 0 and compiled["tridiag_spmv"] > 0,
+          f"(w1): the compiled path did not launch thomas / tridiag_spmv: "
+          f"{compiled}")
+    P = mpp.get_data(AuxVarKind.INTERNAL, Var.PRESSURE)
+    check(np.isfinite(P).all() and 3.0e3 < P.min() and P.max() < 9.5e4,
+          f"(w1) compiled: pressure outside its BCs [{P.min()}, {P.max()}]")
+    rows = held_at_path(torch, hk, tridiag, captured, "vsfm_celia_compiled")
+    print("serial_w1_compiled " + json.dumps(dict(
+        steps=w1["compiled_steps"], nz=w1["nz"], wall_s=compiled_s,
+        ms_per_step=compiled_s * 1e3 / w1["compiled_steps"],
+        newton_iterations=mpp.soe.cumulative_newton_iterations,
+        launches=compiled, card=card)))
+
+    # (w3) starts first: the CLI on the card in its own process, on a
+    # vsfm_mms namelist, while (w2) runs here
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.TemporaryDirectory()
+    d = tmp.name
+    files = {}
+    for device in ("cuda", "cpu"):
+        os.makedirs(f"{d}/{device}")
+        with open(f"{d}/{device}/vsfm_mms.namelist", "w") as f:
+            f.write("&mpp_driver\n  problem_type = 'vsfm_mms'\n/\n"
+                    "&regression_test\n  write_regression_output = .true.\n"
+                    "  num_cells = 5\n/\n")
+        files[device] = f"{d}/{device}/vsfm_mms.regression"
+    t_cli = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "mpp_tpu_torch.cli", "-namelist",
+         f"{d}/cuda/vsfm_mms.namelist"], cwd=d,
+        env=dict(os.environ, PYTHONPATH=here), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        # (w2) the other eight VSFM problems, card and CPU: the CPU runs
+        # in a worker process of its own while the card runs here, so its
+        # ms per step are taken under that load
+        hk.reset_launches()
+        t2 = time.perf_counter()
+        ctx = multiprocessing.get_context("spawn")
+        with ProcessPoolExecutor(max_workers=W2_CPU_WORKERS,
+                                 mp_context=ctx) as pool:
+            jobs = {}
+            for name, (runner, kw, ref_steps, steps) in W2_PROBLEMS.items():
+                args = dict(kw, **({"nstep": steps} if steps else {}))
+                jobs[name] = (args, pool.submit(serial_cpu_log, name, runner,
+                                                args, W2_CPU_THREADS))
+            for name, (runner, kw, ref_steps, steps) in W2_PROBLEMS.items():
+                mod = importlib.import_module(
+                    f"mpp_tpu_torch.problems.{name}")
+                args, job = jobs[name]
+                t0 = time.perf_counter()
+                _, row = serial_card_vs_cpu(
+                    torch, name, lambda dev: getattr(mod, runner)(
+                        device=dev, **args), card, cpu_log=job.result())
+                row["cpu_ms_per_step_under_card_load"] = \
+                    row.pop("cpu_ms_per_step")
+                row.update(jax_default_steps=ref_steps,
+                           cut=(f"{steps} of {ref_steps} steps"
+                                if steps and steps < ref_steps else None),
+                           wall_s=time.perf_counter() - t0)
+                print("serial_w2 " + json.dumps(row))
+        t3 = time.perf_counter()
+        # (w3) the card's file against the CPU CLI's, in this process
+        out, err = proc.communicate(timeout=300)
+        cli_s = time.perf_counter() - t_cli
+        check(proc.returncode == 0, f"(w3): the CLI on the card exited "
+              f"{proc.returncode}: {err[-2000:]}")
+        check(cli.main(["-namelist", f"{d}/cpu/vsfm_mms.namelist",
+                        "-device", "cpu"]) == 0, "(w3): the CPU CLI failed")
+        sec = {dev: reg.parse_regression(open(f).read())
+               for dev, f in files.items()}
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        tmp.cleanup()
+    check(list(sec["cuda"]) == list(sec["cpu"]) and sec["cpu"],
+          "(w3): the regression files' sections differ")
+    rel = 0.0
+    for name, s_cpu in sec["cpu"].items():
+        s_card = sec["cuda"][name]
+        check(list(s_card["values"]) == list(s_cpu["values"]),
+              f"(w3) {name}: the sampled cells differ")
+        vc = np.array(list(s_card["values"].values()))
+        vr = np.array(list(s_cpu["values"].values()))
+        rel = max(rel, float(np.abs(vc - vr).max()
+                             / max(np.abs(vr).max(), 1e-300)))
+    check(rel <= SERIAL_RTOL, f"(w3): the card's regression file is "
+          f"{rel:.3e} from the CPU's > {SERIAL_RTOL:g}")
+    serial_launches = dict(hk.LAUNCHES)
+    check(not any(serial_launches.values()),
+          f"(w2)/(w3): the serial path launched a kernel: {serial_launches}")
+    phase_s = time.perf_counter() - t_w
+    print("serial_w3 " + json.dumps(dict(
+        problem="vsfm_mms", cli_process_s_beside_w2=cli_s,
+        max_rel_card_vs_cpu=rel, card=card)))
+    print("launches_on_serial_path " + json.dumps(dict(
+        serial=serial_launches, compiled_celia=compiled,
+        phase_s=dict(w1=t2 - t_w, w2=t3 - t2, w3=time.perf_counter() - t3,
+                     total=phase_s), card=card)))
+    check(phase_s < SERIAL_BUDGET_S, f"(w): {phase_s:.1f} s >= "
+          f"{SERIAL_BUDGET_S:g} s")
+    return compiled, rows
+
+
 def main():
     here = os.path.dirname(os.path.abspath(__file__))
     check(os.path.isdir(os.path.join(here, "mpp_tpu_torch")),
@@ -2058,8 +2345,8 @@ def main():
     from mpp_tpu_torch.problems import th
     from mpp_tpu_torch.batched.th_compiled import compile_th
     t0 = time.perf_counter()
-    mpp, _ = th.run_mass_and_heat(nx=TH_NH, linear_solver="direct",
-                                  device="cpu")
+    mpp, _ = th.run_mass_and_heat(nx=TH_NH, compiled=True,
+                                  linear_solver="direct", device="cpu")
     comp = compile_th(mpp, linear_solver="direct")
     X0_np = mpp.soe.soln
     problem_s = time.perf_counter() - t0
@@ -2161,6 +2448,12 @@ def main():
     # (v): the serial MLC, CompiledMLC and the ml_model orchestrator,
     # counted (no kernel on their path)
     mlc_busy = run_mlc(torch, hk)
+
+    # (w): the serial SNES card vs CPU (no kernel on its path), the
+    # compiled celia1990's kernels counted, the CLI
+    by_path["vsfm_celia_compiled"], rows = run_serial(torch, hk, tridiag,
+                                                      card)
+    checks += rows
     for name in ("thomas", "tridiag_spmv", "tridiag_spmv_mixed"):
         results[name]["launches_by_path"] = {
             path: counts.get(name, 0) for path, counts in by_path.items()}

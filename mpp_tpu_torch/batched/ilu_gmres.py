@@ -276,12 +276,18 @@ def _hypot(x1, x2):
 
 def gmres_cycles(matvec, data, b, ilu: BatchedILU0 = None, pc_data=None,
                  rtol=1e-5, atol=1e-50, restart=30, maxcycles=MAXCYCLES,
-                 sync=None):
+                 sync=None, full_restart=False, maxiter=None):
     """:func:`petsc_gmres_batched` with the inner iterations of each
-    column: returns (x, cycles, converged[ncol], iterations[ncol])."""
+    column: returns (x, cycles, converged[ncol], iterations[ncol]).
+
+    The Krylov dimension is min(restart, n), as the batched JAX engine
+    has it; ``full_restart`` takes ``restart`` itself, as the serial numpy
+    engine does (``mpp_tpu/ops/ilu.py:petsc_gmres``), whose Arnoldi runs on
+    past n steps on a small system.  ``maxiter`` caps the inner iterations
+    (the cycle stops at the cap), as the numpy engine counts them."""
     sync = sync or _host_sync
     ncol, n = b.shape
-    m = min(restart, n)
+    m = restart if full_restart else min(restart, n)
     dtype = b.dtype
     pc = None if ilu is None else (
         pc_data if isinstance(pc_data, ILUFactors) else ilu.prepare(pc_data))
@@ -297,7 +303,8 @@ def gmres_cycles(matvec, data, b, ilu: BatchedILU0 = None, pc_data=None,
     its = torch.zeros(ncol, dtype=torch.int64, device=b.device)
     ar = torch.arange(m + 1, device=b.device)
     k = 0
-    while k < maxcycles and sync(torch.any(~done)):
+    capped = False
+    while k < maxcycles and not capped and sync(torch.any(~done)):
         # the first cycle's residual is r0 itself (x is still zero)
         r = r0 if k == 0 else M(b - matvec(data, x))
         beta = _colnorm(r)
@@ -343,6 +350,11 @@ def gmres_cycles(matvec, data, b, ilu: BatchedILU0 = None, pc_data=None,
             conv = torch.abs(g[:, j + 1]) <= tol
             mj = torch.where(~found & conv, j + 1, mj)
             found = found | conv
+            # a column still running has taken k*m + j + 1 inner steps
+            if maxiter is not None and k * m + j + 1 >= maxiter:
+                mj = torch.where(found, mj, j + 1)
+                capped = True
+                break
             # columns done in an earlier cycle keep x whatever this one
             # computes for them, so they do not hold the loop
             if j + 1 < m and sync(torch.all(found | done)):

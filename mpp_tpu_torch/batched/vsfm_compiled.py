@@ -35,14 +35,17 @@ control flow here: each one reads a device value on the host.  Every such
 read goes through :meth:`CompiledVSFM._sync`, which counts it in
 ``host_syncs``.
 
-The serial SNES of ``VSFMSoE.step_dt`` is not ported (ROADMAP Queue 1);
-a facade problem steps through :meth:`CompiledVSFM.install`.
+A facade problem steps serially through ``VSFMSoE.step_dt`` (the serial
+SNES of ``ops/snes.py``) or, after :meth:`CompiledVSFM.install`, through
+this stepper at ncol=1.  With the NaN trap of ``config.py`` armed, each
+residual and each Newton direction is checked for non-finite values.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from mpp_tpu_torch.config import check_finite
 from mpp_tpu_torch.batched.ilu_gmres import (BatchedILU0, make_ell_matvec,
                                              petsc_gmres_batched)
 from mpp_tpu_torch.constants import FMWH2O
@@ -388,7 +391,9 @@ class CompiledVSFM:
             kbt = max(1, ncol_b // 8)
 
             def res(X):
-                return self._residual(X, bc, ss, accum_prev, dtl, src, dyn)
+                F = self._residual(X, bc, ss, accum_prev, dtl, src, dyn)
+                check_finite(f"{type(self).__name__} residual", F)
+                return F
 
             def jac_of(X, idx=None):
                 if idx is None:
@@ -438,6 +443,7 @@ class CompiledVSFM:
                 if fused:
                     G, A_try = self._resjac(Xw, bc, ss, accum_prev, dtl, src,
                                             dyn)
+                    check_finite(f"{type(self).__name__} residual", G)
                 else:
                     G, A_try = res(Xw), None
                 gnorm = _colnorm(G)
@@ -517,6 +523,7 @@ class CompiledVSFM:
                     # (SOEBaseStepDT_SNES -> SNESSolve)
                     A = jac_of(X)
                 Y = self._solve(A, F)
+                check_finite(f"{type(self).__name__} Newton direction", Y)
                 # BT initslope from the true Jacobian action
                 W = self._matvec(A, Y)
                 islope = torch.sum(F * W, dim=-1)
@@ -576,6 +583,7 @@ class CompiledVSFM:
             F0, A0 = self._resjac(X0, bc, ss, accum_prev, dt, src, dyn)
         else:
             F0, A0 = self._residual(X0, bc, ss, accum_prev, dt, src, dyn), None
+        check_finite(f"{type(self).__name__} residual", F0)
         fnorm0 = _colnorm(F0)
         ttol = fnorm0 * rtol
         nan0 = ~torch.isfinite(fnorm0)
@@ -772,3 +780,15 @@ def compile_vsfm(mpp, **kw) -> CompiledVSFM:
     8-step builder sequence, property staging and, for coupled problems,
     ``update_connections()``)."""
     return CompiledVSFM(mpp, **kw)
+
+
+def vsfm_stepper(mpp, use_compiled=False, device="cuda", **kw):
+    """The problem drivers' choice of stepper: the serial SNES of
+    ``VSFMSoE.step_dt`` on ``device`` (the card unless ``"cpu"``), or with
+    ``use_compiled`` this stepper at ncol=1 (``compile_vsfm(mpp,
+    **kw).install(device)``).  Returns the compiled stepper or None."""
+    device = device_of(device)
+    mpp.soe.device = device
+    if use_compiled:
+        return compile_vsfm(mpp, **kw).install(device)
+    return None

@@ -20,9 +20,10 @@ device and dtype of every evaluation are the state's; static constants
 are converted once per (device, dtype) and cached on the GE (setters clear
 the cache).
 
-Not ported: the TPU matmul-scatter lowering (``_use_matmul_scatter``,
-``_scatter_mats``; a TPU backend workaround) and the serial SNES stepper of
-``VSFMSoE`` (the port's stepper is ``batched/vsfm_compiled.py``).
+``VSFMSoE`` steps one column serially through ``ops/snes.snes_solve``
+on its device; ``batched/vsfm_compiled.py`` is the batched stepper.  Not
+ported: the TPU matmul-scatter lowering (``_use_matmul_scatter``,
+``_scatter_mats``; a TPU backend workaround).
 """
 from __future__ import annotations
 
@@ -40,8 +41,11 @@ from mpp_tpu_torch.dtypes.mesh import (Mesh, ConnectionSet,
                                        concat_connection_sets)
 from mpp_tpu_torch.dtypes.conditions import Condition
 from mpp_tpu_torch.dtypes.mpp_base import MPPBase
+from mpp_tpu_torch.config import check_finite
+from mpp_tpu_torch.device import device_of
 from mpp_tpu_torch.ops import eos, satfunc as sf
 from mpp_tpu_torch.ops.porosity import PorosityParams, porosity
+from mpp_tpu_torch.ops.snes import HostSyncs, LS_BT, LS_L2, snes_step_dt
 from mpp_tpu_torch.ops.sparse import csr_template, CSRTemplate
 
 
@@ -979,10 +983,20 @@ class RichardsGE:
 
 
 class VSFMSoE:
-    """SOE_RE_ODE data: the GE list, offsets, the CSR template and the
-    solution vectors (numpy, one column).  Its serial SNES stepper is not
-    ported (ROADMAP Slice F): ``batched.vsfm_compiled`` steps the problem
-    (``compile_vsfm(mpp).install()`` replaces ``step_dt``)."""
+    """SOE_RE_ODE: the VSFM system of equations (SNES), single- or
+    multi-GE: the GE list, offsets, the CSR template, the solution vectors
+    (host numpy, one column) and the serial SOEBaseStepDT_SNES stepper
+    with the dynamic line-search rotation and dt cutting
+    (SystemOfEquationsBaseType.F90:368-552).
+
+    ``step_dt`` evaluates the residual and the Jacobian on ``device`` (the
+    card unless ``"cpu"``) and runs ``ops/snes.snes_solve`` there; the
+    solution stays host numpy, so ``compile_vsfm(mpp).install()`` can
+    replace ``step_dt`` at any time.  ``host_syncs`` counts the serial
+    solver's device-to-host crossings."""
+
+    #: device of the serial ``step_dt``
+    device = "cuda"
 
     def __init__(self):
         self.goveqns: List[RichardsGE] = []
@@ -991,13 +1005,22 @@ class VSFMSoE:
         self.soln_prev = None
         self.soln_prev_clm = None
         self.template: Optional[CSRTemplate] = None
+        self.use_dynamic_linesearch = False
+        self.default_linesearch = LS_BT
         self.snes_stol = 1e-10
         self.cumulative_newton_iterations = 0
-        self.metrics = None
+        self.cumulative_linear_iterations = 0
+        self.metrics = None          # optional io.metrics.MetricsStream
+        self.syncs = HostSyncs()
+        self._stage = None
 
     @property
     def n_total(self):
         return sum(g.mesh.ncells_local for g in self.goveqns)
+
+    @property
+    def host_syncs(self):
+        return self.syncs.n
 
     def setup(self):
         self.offsets = np.cumsum([0] + [g.mesh.ncells_local
@@ -1009,10 +1032,122 @@ class VSFMSoE:
         self.soln_prev = np.zeros(n)
         self.soln_prev_clm = np.zeros(n)
 
-    def step_dt(self, dt, istep=1):
-        raise NotImplementedError(
-            "the serial VSFM SNES is not ported yet (ROADMAP Slice F); "
-            "install the compiled stepper first: compile_vsfm(mpp).install()")
+    # SNES callbacks ---------------------------------------------------------
+    def _stage_coupled_bcs(self, Xd):
+        """VSFMSOEGovEqnExchangeAuxVars (SystemOfEquationsVSFMType.F90:
+        1117-1168): the coupled GE's pressures in ``Xd`` [1, n] copied into
+        the coupled-BC value slots (on the device); returns each GE's
+        bc_value [1, nbc]."""
+        out = []
+        for g, bc, slots, src in zip(self.goveqns, self._stage["bc"],
+                                     self._stage["otr_slots"],
+                                     self._stage["otr_src"]):
+            if slots is not None:
+                bc = bc.index_copy(1, slots, Xd[:, src])
+            out.append(bc)
+        return out
+
+    def _eval(self, X, dt, want_F):
+        dev = self._stage["device"]
+        Xd = torch.as_tensor(X, dtype=torch.float64, device=dev)[None, :]
+        bcs = self._stage_coupled_bcs(Xd)
+        parts = []
+        for g, off, bc, ss, ap in zip(self.goveqns, self.offsets[:-1], bcs,
+                                      self._stage["ss"],
+                                      self._stage["accum_prev"]):
+            P = Xd[:, off:off + g.mesh.ncells_local]
+            if want_F:
+                parts.append(g.residual(P, dt, bc_value=bc, ss_value=ss,
+                                        accum_prev=ap))
+            else:
+                parts.append(g.jacobian_values(P, dt, bc_value=bc,
+                                               ss_value=ss))
+        return torch.cat(parts, dim=1)[0]
+
+    def _residual(self, X: np.ndarray, dt: float) -> np.ndarray:
+        """F(X) on the device, returned as host numpy (one host sync)."""
+        F = self.syncs.download(self._eval(X, dt, True))
+        check_finite("VSFMSoE residual", F)
+        return F
+
+    def _jacobian(self, X: np.ndarray, dt: float):
+        """The CSR Jacobian at X: (indptr, indices, data [nnz] on the
+        device)."""
+        self._ensure_template()
+        vals = self._eval(X, dt, False)
+        slots = self._stage["csr_slots"]
+        data = vals.new_zeros(self.template.nnz).index_add_(0, slots, vals)
+        return self.template.indptr, self.template.indices, data
+
+    def pre_step_dt(self):
+        """VSFMSoePreStepDT: rotate soln -> soln_prev_clm
+        (SystemOfEquationsVSFMType.F90:892-916)."""
+        self.soln_prev_clm = self.soln
+
+    def pre_solve(self, dt):
+        """VSFMSOEPreSolve: aux pressure from soln_prev; accum_prev.  Also
+        stages the GEs' BC / SS values and the static index maps on the
+        device for the SNES callbacks."""
+        self._ensure_template()
+        dev = device_of(self.device)
+        f64 = dict(dtype=torch.float64, device=dev)
+        st = {"device": dev, "bc": [], "ss": [], "accum_prev": [],
+              "otr_slots": [], "otr_src": [],
+              "csr_slots": torch.as_tensor(self.template.slots,
+                                           dtype=torch.long, device=dev)}
+        Xp = torch.as_tensor(np.asarray(self.soln_prev, np.float64),
+                             **f64)[None, :]
+        for g, off in zip(self.goveqns, self.offsets[:-1]):
+            n = g.mesh.ncells_local
+            g.pressure = np.asarray(self.soln_prev)[off:off + n]
+            acc = g.accum(Xp[:, off:off + n])
+            st["accum_prev"].append(_swhere(g._active()[:n], acc / dt,
+                                            torch.zeros_like(acc)))
+            st["bc"].append(torch.as_tensor(np.asarray(g.bc_value,
+                                                       np.float64),
+                                            **f64)[None, :])
+            st["ss"].append(torch.as_tensor(np.asarray(g.ss_value,
+                                                       np.float64),
+                                            **f64)[None, :])
+            slots, src = [], []
+            for cond, boff, other, cells in g.coupled_bc_slices():
+                slots.append(np.arange(boff, boff + cells.size))
+                src.append(self.offsets[other] + cells)
+            st["otr_slots"].append(
+                torch.as_tensor(np.concatenate(slots), device=dev)
+                if slots else None)
+            st["otr_src"].append(
+                torch.as_tensor(np.concatenate(src), device=dev)
+                if src else None)
+        self._stage = st
+
+    def post_solve(self, x):
+        """PostSolve: the converged iterate becomes soln and soln_prev,
+        each GE's pressure, and the coupled-BC slots of its bc_value."""
+        self.soln = np.array(x, np.float64)
+        self.soln_prev = self.soln
+        for g, off in zip(self.goveqns, self.offsets[:-1]):
+            g.pressure = self.soln[off:off + g.mesh.ncells_local]
+            sl = g.coupled_bc_slices()
+            if sl:
+                g.bc_value = np.array(g.bc_value, np.float64)
+                for cond, boff, other, cells in sl:
+                    g.bc_value[boff:boff + cells.size] = \
+                        self.soln[self.offsets[other] + cells]
+
+    def step_dt(self, dt: float, nstep: int = 1):
+        """SOEBaseStepDT_SNES semantics on ``device``; returns
+        (converged, reason)."""
+        if self.default_linesearch in (LS_BT, LS_L2):
+            ls_list = ([LS_BT, LS_L2] if self.default_linesearch == LS_BT
+                       else [LS_L2, LS_BT])
+        else:
+            ls_list = [self.default_linesearch, LS_L2, LS_BT]
+        return snes_step_dt(self, dt, nstep, self._residual,
+                            self._jacobian, ls_list)
+
+    def get_soln(self):
+        return np.asarray(self.soln)
 
     def _ensure_template(self):
         if self.template is not None:
@@ -1118,8 +1253,10 @@ class VSFMMPP(MPPBase):
         for g in ges:
             g.invalidate()
 
-    def setup_problem(self):
+    def setup_problem(self, dyn_linesearch=None):
         self.soe.setup()
+        if dyn_linesearch is not None:
+            self.soe.use_dynamic_linesearch = bool(dyn_linesearch)
 
     def set_soils(self, filter_vsfmc, watsat, hksat, bsw, sucsat,
                   residual_sat, satfunc_type, density_type, goveqn_id=1):

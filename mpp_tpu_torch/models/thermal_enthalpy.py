@@ -28,9 +28,9 @@ Set-up is numpy, as in the JAX package; the numeric methods are batched
 over ``[ncol, n]`` state like ``models/richards.py`` (device and dtype are
 the state's).
 
-Not ported yet (ROADMAP Slice F): the serial host SNES of
-``THSoE.step_dt``.  It raises until a compiled stepper is installed
-(``batched/th_compiled.compile_th(mpp).install()``).
+``THSoE.step_dt`` is the serial SNES (``ops/snes.py``) over the same GE
+code; ``batched/th_compiled.compile_th(mpp).install()`` replaces it with
+the batched stepper.
 """
 from __future__ import annotations
 
@@ -43,6 +43,7 @@ import torch
 from mpp_tpu_torch import constants as C
 from mpp_tpu_torch.constants import (Cond, GEType, SOEType, AuxVarKind, Var,
                                      PRESSURE_REF, GRAVITY_CONSTANT, FMWH2O)
+from mpp_tpu_torch.config import check_finite
 from mpp_tpu_torch.device import device_of
 from mpp_tpu_torch.dtypes.mpp_base import MPPBase
 from mpp_tpu_torch.batched.ilu_gmres import (BatchedILU0, gmres_cycles,
@@ -50,6 +51,7 @@ from mpp_tpu_torch.batched.ilu_gmres import (BatchedILU0, gmres_cycles,
 from mpp_tpu_torch.models.richards import RichardsGE, darcy_flux, _swhere
 from mpp_tpu_torch.ops import eos, satfunc as sf
 from mpp_tpu_torch.ops.porosity import porosity
+from mpp_tpu_torch.ops.snes import HostSyncs, LS_BT, LS_L2, snes_step_dt
 from mpp_tpu_torch.ops.sparse import csr_template, CSRTemplate
 
 
@@ -589,8 +591,14 @@ def richards_offdiag_t_values(ge: RichardsGE, P, T, dt):
 class THSoE:
     """SOE_TH: coupled Richards + thermal enthalpy, Newton on X = [P; T]
     (SystemOfEquationsTHType.F90:736-1003).  Holds the GEs, the CSR
-    template and the solution (numpy, one column); the stepper is
-    ``batched/th_compiled.CompiledTH``."""
+    template and the solution (host numpy, one column).  ``step_dt`` is
+    the serial SOEBaseStepDT_SNES over ``ops/snes.snes_solve``, with the
+    residual and the Jacobian on ``device`` (the card unless ``"cpu"``);
+    ``batched/th_compiled.CompiledTH`` is the batched stepper (its
+    ``install()`` replaces ``step_dt``)."""
+
+    #: device of the serial ``step_dt``
+    device = "cuda"
 
     def __init__(self):
         self.ge_mass: Optional[RichardsGE] = None
@@ -604,10 +612,16 @@ class THSoE:
         self.cumulative_newton_iterations = 0
         self.cumulative_linear_iterations = 0
         self.metrics = None
+        self.syncs = HostSyncs()
+        self._stage = None
 
     @property
     def goveqns(self):
         return [g for g in (self.ge_mass, self.ge_energy) if g is not None]
+
+    @property
+    def host_syncs(self):
+        return self.syncs.n
 
     def setup(self):
         """The 2x2 block sparsity in template order [J11, J12, J21, J22]."""
@@ -627,10 +641,82 @@ class THSoE:
         """(P, T) blocks of X [..., 2n]."""
         return X[..., :self.n], X[..., self.n:]
 
+    # SNES callbacks: the exchange (SOETHGovEqnExchangeAuxVars: the mass GE
+    # receives T, the energy GE P) is argument passing ----------------------
+    def _mass_dyn(self, T):
+        return {"temperature": T, "bc_temperature": self._stage["bc_temp"]}
+
+    def _x(self, X):
+        return torch.as_tensor(X, dtype=torch.float64,
+                               device=self._stage["device"])[None, :]
+
+    def _residual(self, X, dt):
+        st = self._stage
+        P, T = self._split(self._x(X))
+        F1 = self.ge_mass.residual(P, dt, bc_value=st["bc"][0],
+                                   ss_value=st["ss"][0],
+                                   accum_prev=st["accum_prev"][0],
+                                   dyn=self._mass_dyn(T))
+        F2 = self.ge_energy.residual_e(T, P, dt, bc_value=st["bc"][1],
+                                       ss_value=st["ss"][1],
+                                       accum_prev=st["accum_prev"][1],
+                                       bc_pressure=st["bc_pres"])
+        F = self.syncs.download(torch.cat([F1, F2], dim=1)[0])
+        check_finite("THSoE residual", F)
+        return F
+
+    def _jacobian(self, X, dt):
+        st = self._stage
+        P, T = self._split(self._x(X))
+        ge = self.ge_energy
+        v1 = self.ge_mass.jacobian_values(P, dt, bc_value=st["bc"][0],
+                                          ss_value=st["ss"][0],
+                                          dyn=self._mass_dyn(T))
+        v12 = richards_offdiag_t_values(self.ge_mass, P, T, dt)
+        v21 = ge.offdiag_p_values(T, P, dt, bc_value=st["bc"][1],
+                                  bc_pressure=st["bc_pres"])
+        v2 = ge.jacobian_e_values(T, P, dt, bc_value=st["bc"][1],
+                                  bc_pressure=st["bc_pres"])
+        vals = torch.cat([v1, v12, v21, v2], dim=1)[0]
+        data = vals.new_zeros(self.template.nnz).index_add_(
+            0, st["csr_slots"], vals)
+        return self.template.indptr, self.template.indices, data
+
+    def pre_solve(self, dt):
+        """SOETHPreSolve: auxvars from soln_prev; per-GE accum_prev.  Also
+        stages the BC / SS values and the cross-staged BC auxvars on the
+        device for the SNES callbacks."""
+        dev = device_of(self.device)
+        t = lambda a: torch.as_tensor(np.asarray(a, np.float64),
+                                      device=dev)[None, :]
+        gm, ge = self.ge_mass, self.ge_energy
+        self._stage = st = {
+            "device": dev,
+            "bc": [t(gm.bc_value), t(ge.bc_value)],
+            "ss": [t(gm.ss_value), t(ge.ss_value)],
+            "bc_temp": t(gm.bc_temperature),
+            "bc_pres": t(ge.bc_pressure),
+            "csr_slots": torch.as_tensor(self.template.slots,
+                                         dtype=torch.long, device=dev)}
+        P, T = self._split(t(self.soln_prev))
+        am = gm.accum(P, dyn=self._mass_dyn(T))
+        ae = ge.accum_e(T, P)
+        st["accum_prev"] = [
+            _swhere(gm._active(), am / dt, torch.zeros_like(am)),
+            _swhere(ge._active(), ae / dt, torch.zeros_like(ae))]
+
+    def post_solve(self, x):
+        """PostSolve: the converged iterate becomes soln and soln_prev."""
+        self.soln = np.array(x, np.float64)
+        self.soln_prev = self.soln
+        self.ge_mass.pressure = self.soln[:self.n]
+        self.ge_energy.temperature = self.soln[self.n:]
+
     def step_dt(self, dt, nstep=1):
-        raise NotImplementedError(
-            "the serial TH SNES is not ported yet (ROADMAP Slice F); "
-            "install the compiled stepper first: compile_th(mpp).install()")
+        """SOEBaseStepDT_SNES semantics (line-search rotation + dt cuts)
+        on ``device``; returns (converged, reason)."""
+        return snes_step_dt(self, dt, nstep, self._residual, self._jacobian,
+                            [LS_BT, LS_L2])
 
 
 class ThermalEnthalpySoE:
@@ -712,8 +798,10 @@ def linearised_update(ge, template, ilu, matvec, T_prev, P, dt,
                       accum_prev=accum_prev)
     data = template.assemble(
         ge.jacobian_e_values(T_prev, P, dt, bc_value=bc_value))
+    check_finite("enthalpy residual", F)
     dx, cycles, conv, its = gmres_cycles(matvec, data, -F, ilu=ilu,
                                          pc_data=ilu.factor(data), **gmres_kw)
+    check_finite("enthalpy update", dx)
     return T_prev + dx, cycles, conv, its
 
 

@@ -10,9 +10,9 @@ caller's device: a serial step on the card solves on the card.
 Gram-Schmidt, Givens rotations and convergence on the recurrence-estimated
 preconditioned residual, rnorm <= max(rtol * rnorm0, atol), from a zero
 initial guess.  It returns the total inner iterations, as the JAX
-function does.  Two differences of shape from the numpy engine: the
-Krylov dimension is min(restart, n) (a Krylov space holds at most n
-vectors), and ``maxiter`` is taken in whole cycles.
+function does, with the numpy engine's Krylov dimension (``restart``
+itself, also on a system smaller than it) and its inner-iteration cap
+``maxiter``, so that the counts of the serial solvers match JAX's.
 """
 from __future__ import annotations
 
@@ -85,11 +85,10 @@ def petsc_gmres(indptr, indices, data, b, pc: ILU0 = None, pc_data=None,
     Returns (x [n], inner iterations, converged)."""
     matvec = pc.matvec if pc is not None else make_ell_matvec(indptr,
                                                               indices)
-    m = min(restart, len(b))
     x, _, done, its = gmres_cycles(
         matvec, data[None, :], b[None, :],
         ilu=None if pc is None else pc.batched,
         pc_data=None if pc_data is None else pc_data[None, :],
-        rtol=rtol, atol=atol, restart=restart,
-        maxcycles=max(1, -(-maxiter // m)), sync=sync)
+        rtol=rtol, atol=atol, restart=restart, maxcycles=maxiter,
+        sync=sync, full_restart=True, maxiter=maxiter)
     return x[0], int(its[0]), bool(done[0])

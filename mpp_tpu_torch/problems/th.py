@@ -24,12 +24,11 @@ Counterpart of ``mpp_tpu/problems/th.py``
 The heat-transport problems step through ``ThermalEnthalpySoE.step_dt``
 (one linearised update, ILU(0) + GMRES(30) at one column) or,
 with ``compiled=True``, ``CompiledThermalEnthalpy``.  The TH problems
-step through the compiled stepper ``batched/th_compiled.compile_th(mpp,
-linear_solver=...)`` with the JAX package's plan, "petsc", by default.
-Every step runs at ncol=1 in f64, on the card unless the caller passes
-``device="cpu"``.  ``compiled=False`` on the TH problems, the serial host
-SNES, is not ported yet (ROADMAP Slice F) and raises, as does
-``pressure_ic_file`` (``io/petsc_vec``, Slice F).
+step through the serial SNES of ``THSoE.step_dt`` by default, as in the
+JAX package, or with ``compiled=True`` through the compiled stepper
+``batched/th_compiled.compile_th(mpp, linear_solver=...)`` ("petsc", the
+JAX package's plan, by default).  Every step runs at ncol=1 in f64, on
+the card unless the caller passes ``device="cpu"``.
 ``output_regression_heat_transport_1d`` and ``output_regression_th``
 write the reference's regression files.
 
@@ -49,6 +48,7 @@ from mpp_tpu_torch.constants import (Cond, ConnKind, GEType, MPPType, MeshType,
                                      Var, AuxVarKind, Region, PRESSURE_REF,
                                      GRAVITY_CONSTANT, FMWH2O)
 from mpp_tpu_torch.device import device_of
+from mpp_tpu_torch.io.petsc_vec import read_vec
 from mpp_tpu_torch.io.regression import RegressionWriter
 from mpp_tpu_torch.dtypes.mesh import structured_mesh, ConnectionSet
 from mpp_tpu_torch.models.thermal_enthalpy import THMPP, ThermalEnthalpyMPP
@@ -57,13 +57,14 @@ from mpp_tpu_torch.ops import eos, satfunc as sf
 PI = 4.0 * np.arctan(1.0)
 
 
-def _compile_th(mpp, compiled, linear_solver, device):
-    if not compiled:
-        raise NotImplementedError(
-            "compiled=False, the serial TH SNES, is not ported yet (ROADMAP "
-            "Slice F)")
-    from mpp_tpu_torch.batched.th_compiled import compile_th
-    return compile_th(mpp, linear_solver=linear_solver).install(device)
+def _th_stepper(mpp, compiled, linear_solver, device):
+    """The serial SNES of ``THSoE.step_dt`` on ``device``, or with
+    ``compiled`` the compiled stepper at ncol=1."""
+    device = device_of(device)
+    mpp.soe.device = device
+    if compiled:
+        from mpp_tpu_torch.batched.th_compiled import compile_th
+        compile_th(mpp, linear_solver=linear_solver).install(device)
 
 
 # ---------------------------------------------------------------------------
@@ -151,12 +152,10 @@ def run_heat_transport_1d_with_advection(nx=100, dtime=3600.0, nstep=1,
     (conn area dy*dz), IFC67 density and enthalpy, Dirichlet T at both x
     faces (303.15 / 293.15 K) and the pressure field ``pressure_ic``
     (default a uniform 91325 Pa, no advection) staged into the internal
-    auxvars.  ``pressure_ic_file`` (a PETSc binary Vec) needs
-    ``io/petsc_vec`` and raises (ROADMAP Slice F)."""
+    auxvars; ``pressure_ic_file`` reads it from a PETSc binary Vec, as the
+    reference reads ``pressure_ic.bin`` (F90:576-582)."""
     if pressure_ic_file is not None:
-        raise NotImplementedError(
-            "pressure_ic_file needs io/petsc_vec, not ported yet (ROADMAP "
-            "Slice F); pass pressure_ic")
+        pressure_ic = read_vec(pressure_ic_file)
     ny = nz = 1
     mpp = ThermalEnthalpyMPP()
     mpp.set_name("1D heat conduction")
@@ -227,10 +226,11 @@ def _stage_mass_and_heat_bcs(mpp):
     ge.bc_pressure = np.full_like(ge.bc_pressure, 91325.0)
 
 
-def run_mass_and_heat(nx=100, nz=1, dtime=3600.0, nstep=1, compiled=True,
+def run_mass_and_heat(nx=100, nz=1, dtime=3600.0, nstep=1, compiled=False,
                       linear_solver="petsc", device="cuda"):
     """mass_and_heat_model_problem.F90:22-135; returns (mpp, the
-    [P; T] solution).  Steps on the card unless ``device="cpu"``."""
+    [P; T] solution).  Steps on the card unless ``device="cpu"``;
+    ``linear_solver`` is the compiled stepper's plan."""
     ny = 1
     dx, dy, dz = 1.0 / nx, 1.0 / ny, 1.0 / nz
     n = nx * ny * nz
@@ -278,7 +278,7 @@ def run_mass_and_heat(nx=100, nz=1, dtime=3600.0, nstep=1, compiled=True,
 
     # ICs (:485-553): P=91325, T=283.15
     mpp.set_initial_solution(np.full(n, 91325.0), np.full(n, 283.15))
-    _compile_th(mpp, compiled, linear_solver, device)
+    _th_stepper(mpp, compiled, linear_solver, device)
 
     _stage_mass_and_heat_bcs(mpp)
     for istep in range(1, nstep + 1):
@@ -414,10 +414,11 @@ def _mms_sources(xc, mms, density_type, int_energy_type):
     return mass_src, heat_src
 
 
-def run_th_mms(nx=20, compiled=True, linear_solver="petsc", device="cuda"):
+def run_th_mms(nx=20, compiled=False, linear_solver="petsc", device="cuda"):
     """th_mms_problem.F90:89-141 (STEADY_STATE_SOIL_ONLY_1D): one
     dt=1 s step from the uniform initial state; returns (mpp, the [P; T]
-    solution).  Steps on the card unless ``device="cpu"``."""
+    solution).  Steps on the card unless ``device="cpu"``;
+    ``linear_solver`` is the compiled stepper's plan."""
     ny = nz = 1
     x_min, x_max = 0.0, 10.0
     dx = (x_max - x_min) / nx
@@ -505,7 +506,7 @@ def run_th_mms(nx=20, compiled=True, linear_solver="petsc", device="cuda"):
     mpp.soe.ge_energy.bc_pressure = np.array(pres_bc, np.float64)
     mpp.soe.ge_mass.bc_temperature = np.array(temp_bc, np.float64)
 
-    _compile_th(mpp, compiled, linear_solver, device)
+    _th_stepper(mpp, compiled, linear_solver, device)
     converged, _reason = mpp.soe.step_dt(1.0, 1)
     assert converged
     return mpp, mpp.get_data(Var.PRESSURE)

@@ -8,11 +8,13 @@ diffusion with spatially varying conductivity, Dirichlet boundary values
 from the analytic solution, and a volumetric heat source chosen so the
 analytic T is the exact PDE solution.
 
-Domain [0,1]^d, cnfac=0 (steady), one KSP solve a step, through the
-compiled batched KSP (``batched/ksp_compiled.compile_ksp(mpp,
-linear_solver="petsc")``) at ncol=1 in f64, on the card unless the
-caller passes ``device="cpu"``.  The 1-D problem is tridiagonal (Thomas);
-the 2-D and 3-D problems run the batched GMRES(30)+ILU(0) plan.
+Domain [0,1]^d, cnfac=0 (steady), one KSP solve a step, in f64 on the
+card unless the caller passes ``device="cpu"``: the serial GMRES(30) +
+ILU(0) of ``ThermalSOE.step_dt`` by default, as in the JAX package, or
+with ``use_compiled`` the compiled batched KSP
+(``batched/ksp_compiled.compile_ksp(mpp, linear_solver="petsc")``) at
+ncol=1, whose 1-D problem is tridiagonal (Thomas) and whose 2-D and 3-D
+problems run the batched GMRES(30)+ILU(0) plan.
 ``output_regression`` writes the reference's regression file.
 
 Cell ordering quirk reproduced: soil properties are staged CLM-style
@@ -21,6 +23,8 @@ mesh is natural-ordered, which permutes the conductivity field in the 3-D
 case — the reference's golden baselines bake this in.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 
@@ -181,10 +185,11 @@ def exact_solution(problem_type=STEADY_STATE_1D, nx=None, ny=None, nz=None):
 
 
 def run_thermal_mms_problem(problem_type=STEADY_STATE_1D, nstep=1,
-                            nx=None, ny=None, nz=None, device="cuda"):
+                            nx=None, ny=None, nz=None, use_compiled=False,
+                            device="cuda"):
     """Build + solve; returns (mpp, solution array).  The steps run on
-    ``device`` (the card unless ``device="cpu"``) through the compiled
-    batched KSP."""
+    ``device`` (the card unless ``device="cpu"``) through the serial KSP
+    or, with ``use_compiled``, the compiled batched KSP."""
     device = device_of(device)
     dim = problem_type
     nx, ny, nz = _dims(dim, nx, ny, nz)
@@ -242,16 +247,20 @@ def run_thermal_mms_problem(problem_type=STEADY_STATE_1D, nstep=1,
 
     src = _heat_source(dim, xc3, yc3, zc3, dx, dy, dz).ravel()
 
-    from mpp_tpu_torch.batched.ksp_compiled import compile_ksp
-    # "petsc" replicates the reference's GMRES(30)+ILU(0) rtol-1e-5
-    # iterate, which the golden baselines embed: Thomas on the 1-D
-    # (tridiagonal) problem, ILU(0) + GMRES(30) on the others
-    compile_ksp(mpp, linear_solver="petsc").install(device)
+    if use_compiled:
+        from mpp_tpu_torch.batched.ksp_compiled import compile_ksp
+        # "petsc" replicates the reference's GMRES(30)+ILU(0) rtol-1e-5
+        # iterate, which the golden baselines embed: Thomas on the 1-D
+        # (tridiagonal) problem, ILU(0) + GMRES(30) on the others
+        step = compile_ksp(mpp, linear_solver="petsc").install(device) \
+            .step_dt
+    else:
+        step = functools.partial(mpp.soe.step_dt, device=device)
     mpp.soe.pre_step_dt()
     for _ in range(nstep):
         mpp.set_r_data(AuxVarKind.SS, Var.BC_SS_CONDITION, 1, src)
         mpp.set_r_data(AuxVarKind.BC, Var.BC_SS_CONDITION, 1, bc_vals)
-        converged = mpp.soe.step_dt(1.0)
+        converged = step(1.0)
         assert converged, "thermal MMS KSP solve did not converge"
     return mpp, mpp.soe.get_soln()
 

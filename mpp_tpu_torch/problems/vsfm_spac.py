@@ -10,11 +10,12 @@ sink on the bottom cell.  All fluxes use the conductance model
 (CONDUCTANCE_FLUX_TYPE), Brooks-Corey saturation, constant density,
 zero porosity (steady storage).
 
-The steps run through the compiled batched stepper at ncol=1 in f64, on
-the card unless the caller passes ``device="cpu"`` (the port has no
-serial SNES; ROADMAP Slice F).  The hub couples to every root, so the
-Jacobian is not tridiagonal: "petsc" (the default) runs the batched
-ILU(0) + GMRES(30), "direct" a dense LU.
+The steps run in f64 through the serial SNES of ``VSFMSoE.step_dt`` or,
+with ``use_compiled``, the compiled batched stepper at ncol=1, on the
+card unless the caller passes ``device="cpu"``.  The hub couples to every
+root, so the Jacobian is not tridiagonal: the compiled stepper's "petsc"
+plan (the default) runs the batched ILU(0) + GMRES(30), "direct" a dense
+LU.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ from mpp_tpu_torch import constants as C
 from mpp_tpu_torch.constants import (Cond, ConnKind, GEType, MPPType, Region, Var,
                                AuxVarKind, FluxType, MeshType as MeshKind)
 from mpp_tpu_torch.dtypes.mesh import Mesh, ConnectionSet
-from mpp_tpu_torch.batched.vsfm_compiled import compile_vsfm
+from mpp_tpu_torch.batched.vsfm_compiled import vsfm_stepper
 from mpp_tpu_torch.device import device_of
 from mpp_tpu_torch.io.regression import RegressionWriter
 from mpp_tpu_torch.models.richards import VSFMMPP
@@ -61,9 +62,10 @@ def _build_mesh(nz):
     return mesh
 
 
-def run_vsfm_spac_problem(nz=30, dtime=3600.0, nstep=1,
+def run_vsfm_spac_problem(nz=30, dtime=3600.0, nstep=1, use_compiled=False,
                           linear_solver="petsc", device="cuda"):
-    """vsfm_spac_problem.F90; returns the mpp."""
+    """vsfm_spac_problem.F90; returns the mpp.  ``linear_solver`` is the
+    compiled stepper's plan."""
     device = device_of(device)
     mpp = VSFMMPP()
     mpp.set_name("Variably-Saturated-Flow-Model")
@@ -155,7 +157,7 @@ def run_vsfm_spac_problem(nz=30, dtime=3600.0, nstep=1,
     mpp.set_data(AuxVarKind.SS, Var.BC_SS_CONDITION, 1,
                  np.full(1, 7.1875e-10 * 1e3))
 
-    compile_vsfm(mpp, linear_solver=linear_solver).install(device)
+    vsfm_stepper(mpp, use_compiled, device, linear_solver=linear_solver)
     for istep in range(1, nstep + 1):
         converged, reason = mpp.soe.step_dt(dtime, istep)
         assert converged, f"step {istep} diverged (reason {reason})"

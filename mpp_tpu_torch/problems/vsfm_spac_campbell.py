@@ -15,12 +15,12 @@ Two formulations produce the same physics:
 * three coupled Richards equations (xylem/root/soil) wired by coupling
   boundary conditions (``multi_goveqns=True``; F90:737-758, 761-925)
 
-The steps run through the compiled batched stepper at ncol=1 in f64, on
-the card unless the caller passes ``device="cpu"`` (the port has no
-serial SNES; ROADMAP Slice F): "petsc" (the default) is the batched
-ILU(0) + GMRES(30), "direct" a dense LU.  The multi-GE form stages the
-partner GEs' pressures into the COND_DIRICHLET_FRM_OTR_GOVEQ slots by a
-gather.
+The steps run in f64 through the serial SNES of ``VSFMSoE.step_dt`` or,
+with ``use_compiled``, the compiled batched stepper at ncol=1, on the
+card unless the caller passes ``device="cpu"``: the compiled "petsc" plan
+(the default) is the batched ILU(0) + GMRES(30), "direct" a dense LU.
+The multi-GE form stages the partner GEs' pressures into the
+COND_DIRICHLET_FRM_OTR_GOVEQ slots by a gather.
 """
 from __future__ import annotations
 
@@ -29,7 +29,7 @@ import numpy as np
 from mpp_tpu_torch.constants import (Cond, ConnKind, GEType, MPPType, Region, Var,
                                AuxVarKind, FluxType, MeshType as MeshKind)
 from mpp_tpu_torch.dtypes.mesh import Mesh, ConnectionSet
-from mpp_tpu_torch.batched.vsfm_compiled import compile_vsfm
+from mpp_tpu_torch.batched.vsfm_compiled import vsfm_stepper
 from mpp_tpu_torch.device import device_of
 from mpp_tpu_torch.models.richards import VSFMMPP
 from mpp_tpu_torch.ops import satfunc as sf
@@ -98,13 +98,13 @@ def _bc_relperm_params(n):
 
 
 def run_vsfm_spac_campbell_problem(dtime=3600.0, nstep=24,
-                                   multi_goveqns=False,
+                                   multi_goveqns=False, use_compiled=False,
                                    linear_solver="petsc", device="cuda"):
     """vsfm_spac_campbell_problem.F90, single-GE or ``multi_goveqns``;
-    returns the mpp."""
+    returns the mpp.  ``linear_solver`` is the compiled stepper's plan."""
     device = device_of(device)
     run = _run_multi_goveqns if multi_goveqns else _run_single_goveqn
-    return run(dtime, nstep, linear_solver, device)
+    return run(dtime, nstep, use_compiled, linear_solver, device)
 
 
 # ---------------------------------------------------------------------------
@@ -159,7 +159,7 @@ def _material_arrays(nz, is_soil):
     return por, sat_res, lam, alpha, satfunc_type, perm
 
 
-def _run_single_goveqn(dtime, nstep, linear_solver, device):
+def _run_single_goveqn(dtime, nstep, use_compiled, linear_solver, device):
     mpp = VSFMMPP()
     mpp.set_name("Variably-Saturated-Flow-Model")
     mpp.set_id(MPPType.VSFM_SNES_CLM)
@@ -210,7 +210,7 @@ def _run_single_goveqn(dtime, nstep, linear_solver, device):
 
     mpp.restart(np.full(n, _press_ic()))
 
-    compile_vsfm(mpp, linear_solver=linear_solver).install(device)
+    vsfm_stepper(mpp, use_compiled, device, linear_solver=linear_solver)
     time = 0.0
     for istep in range(1, nstep + 1):
         mpp.set_data(AuxVarKind.SS, Var.BC_SS_CONDITION, 1,
@@ -252,7 +252,7 @@ def _coupling_conn_set(id_dn):
                          unit_vec=uv)
 
 
-def _run_multi_goveqns(dtime, nstep, linear_solver, device):
+def _run_multi_goveqns(dtime, nstep, use_compiled, linear_solver, device):
     dz = 1.0 / NZ_SOIL
     mpp = VSFMMPP()
     mpp.set_name("Variably-Saturated-Flow-Model")
@@ -372,7 +372,7 @@ def _run_multi_goveqns(dtime, nstep, linear_solver, device):
     mpp.restart(np.full(n_all, _press_ic()))
     mpp.update_connections()
 
-    compile_vsfm(mpp, linear_solver=linear_solver).install(device)
+    vsfm_stepper(mpp, use_compiled, device, linear_solver=linear_solver)
     time = 0.0
     for istep in range(1, nstep + 1):
         mpp.set_data(AuxVarKind.SS, Var.BC_SS_CONDITION, 1,

@@ -8,12 +8,12 @@ boundary conditions by default (pure redistribution from a water-table
 initial condition), 3 steps of dt=8640 s.  The optional seepage-BC
 variant adds a COND_SEEPAGE_BC on the top face.
 
-The steps run through the compiled batched stepper
+The steps run in f64 through the serial SNES of ``VSFMSoE.step_dt`` or,
+with ``use_compiled``, the compiled batched stepper
 (``batched/vsfm_compiled.compile_vsfm(mpp, linear_solver=...)``) at
-ncol=1 in f64, on the card unless the caller passes ``device="cpu"``:
-the port has no serial SNES (ROADMAP Slice F).  The mesh is 3-D, so
-"petsc" (the default) runs the batched ILU(0) + GMRES(30) and "direct"
-block-Thomas over the 200-cell levels.  ``output_regression`` writes
+ncol=1, on the card unless the caller passes ``device="cpu"``.  The mesh
+is 3-D, so the compiled "petsc" plan (the default) runs the batched
+ILU(0) + GMRES(30) and "direct" block-Thomas over the 200-cell levels.  ``output_regression`` writes
 the reference's regression file.
 """
 from __future__ import annotations
@@ -24,7 +24,7 @@ from mpp_tpu_torch import constants as C
 from mpp_tpu_torch.constants import (Cond, ConnKind, GEType, MPPType, Var,
                                AuxVarKind, MeshType as MeshKind)
 from mpp_tpu_torch.dtypes.mesh import Mesh, ConnectionSet, compute_cell_ids
-from mpp_tpu_torch.batched.vsfm_compiled import compile_vsfm
+from mpp_tpu_torch.batched.vsfm_compiled import vsfm_stepper
 from mpp_tpu_torch.device import device_of
 from mpp_tpu_torch.models.richards import VSFMMPP
 from mpp_tpu_torch.ops import eos
@@ -121,9 +121,11 @@ def _build_mesh(nz):
 
 def run_vsfm_vchannel_problem(nz=30, dtime=8640.0, nstep=3,
                               with_seepage_bc=False, ic_offset=2.0,
-                              linear_solver="petsc", device="cuda"):
+                              use_compiled=False, linear_solver="petsc",
+                              device="cuda"):
     """vsfm_vchannel_problem.F90: 20 x 10 x nz cells, ``nstep`` steps of
-    ``dtime``; returns the mpp (its SoE holds the state)."""
+    ``dtime``; returns the mpp (its SoE holds the state).
+    ``linear_solver`` is the compiled stepper's plan."""
     device = device_of(device)
     n = NX * NY * nz
     mpp = VSFMMPP()
@@ -173,7 +175,7 @@ def run_vsfm_vchannel_problem(nz=30, dtime=8640.0, nstep=3,
             icell += 1
     mpp.restart(press_ic)
 
-    compile_vsfm(mpp, linear_solver=linear_solver).install(device)
+    vsfm_stepper(mpp, use_compiled, device, linear_solver=linear_solver)
     for istep in range(1, nstep + 1):
         if with_seepage_bc:
             mpp.set_data(AuxVarKind.BC, Var.BC_SS_CONDITION, 1,

@@ -61,13 +61,18 @@ def test_compiled_enthalpy_batched_columns():
     np.testing.assert_allclose(Tn_t.numpy(), np.asarray(Tn_j), rtol=1e-10)
 
 
-def test_heat_transport_with_advection_matches_jax():
+def test_heat_transport_with_advection_matches_jax(tmp_path):
+    """The staged pressure field, passed as an array and read from a PETSc
+    binary Vec (``pressure_ic_file``), against JAX's run with the array."""
     nx = 20
     p_ic = 91325.0 + 2e3 * np.sin(np.linspace(0.0, 3.0, nx))
     mj, Tj = jth.run_heat_transport_1d_with_advection(nx=nx, pressure_ic=p_ic)
     mt, Tt = tth.run_heat_transport_1d_with_advection(nx=nx, pressure_ic=p_ic,
                                                       device="cpu")
     np.testing.assert_allclose(Tt, np.asarray(Tj), rtol=1e-10)
-    with pytest.raises(NotImplementedError, match="Slice F"):
-        tth.run_heat_transport_1d_with_advection(
-            nx=4, pressure_ic_file="pressure_ic.bin", device="cpu")
+    from mpp_tpu_torch.io.petsc_vec import write_vec
+    path = str(tmp_path / "pressure_ic.bin")
+    write_vec(path, p_ic)
+    _, Tf = tth.run_heat_transport_1d_with_advection(
+        nx=nx, pressure_ic_file=path, device="cpu")
+    np.testing.assert_allclose(Tf, np.asarray(Tj), rtol=1e-10)

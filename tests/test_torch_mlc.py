@@ -154,7 +154,7 @@ def test_metrics_stream_records_port_soes(tmp_path):
     mlc.soe.metrics = stream
     conv, iters = mlc.step_dt(DT, nstep=2)
     assert conv and iters > 0
-    mpp, _ = ttm.run_thermal_mms_problem(1, device="cpu")
+    mpp, _ = ttm.run_thermal_mms_problem(1, use_compiled=True, device="cpu")
     mpp.soe.metrics = stream
     assert mpp.soe.step_dt(1.0)
     stream.close()

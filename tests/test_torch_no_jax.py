@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: a fresh interpreter imports every module
-of mpp_tpu_torch and chip_smoke, runs one ALM step, one TH step, the MLC
-problem and one ml_model substep on the CPU, and finds neither jax nor the
+of mpp_tpu_torch and chip_smoke, runs one ALM step, one TH step, one
+serial celia1990 step, the MLC problem and one ml_model substep on the
+CPU, and finds neither jax nor the
 JAX package ``mpp_tpu`` in sys.modules; no source line of the port or of
 chip_smoke.py imports either."""
 import os
@@ -38,6 +39,9 @@ p3 = thermal_3media.ThreeMediaProblem(device="cpu")
 p3.set_initial_temperature(265.0, 270.0, 275.0)
 p3.set_top_fluxes(-10.0, 0.0, 0.0)
 assert all(np.isfinite(t).all() for t in p3.step(600.0))
+from mpp_tpu_torch.problems import vsfm_celia1990
+m = vsfm_celia1990.run_vsfm_celia1990_problem(nz=10, nstep=1, device="cpu")
+assert m.soe.cumulative_newton_iterations > 0   # the serial SNES
 from mpp_tpu_torch.problems import mlc, ml_model
 m = mlc.run_mlc_problem(2, 1, use_compiled=True, device="cpu")
 assert np.isfinite(m.soln).all()

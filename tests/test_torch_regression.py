@@ -90,7 +90,8 @@ def _ps_run(run):
 WRITERS = {
     "thermal_mms": _soln_pair(
         lambda: jtm.run_thermal_mms_problem(1, use_compiled=True),
-        lambda device: ttm.run_thermal_mms_problem(1, device=device),
+        lambda device: ttm.run_thermal_mms_problem(1, use_compiled=True,
+                                                   device=device),
         jtm.output_regression, ttm.output_regression, lambda r: r[1]),
     "vsfm_spac": _vsfm(VSFM["spac"], jspac.output_regression,
                        tspac.output_regression),

@@ -51,10 +51,12 @@ def problems():
     one)."""
     return {"mass_and_heat": (jth.run_mass_and_heat(nx=12)[0],
                               tth.run_mass_and_heat(
-                                  nx=12, linear_solver="direct",
+                                  nx=12, compiled=True,
+                                  linear_solver="direct",
                                   device="cpu")[0]),
             "th_mms": (jth.run_th_mms(nx=20)[0],
-                       tth.run_th_mms(nx=20, linear_solver="direct",
+                       tth.run_th_mms(nx=20, compiled=True,
+                                      linear_solver="direct",
                                       device="cpu")[0])}
 
 
@@ -64,7 +66,7 @@ def mh20():
     (the drivers' own step through each package's default plan: JAX's
     serial SNES with ILU(0) + GMRES, the port's compiled "petsc")."""
     mj = jth.run_mass_and_heat(nx=20)[0]
-    mt = tth.run_mass_and_heat(nx=20, device="cpu")[0]
+    mt = tth.run_mass_and_heat(nx=20, compiled=True, device="cpu")[0]
     return (mj, jcompile_th(mj, linear_solver="direct"),
             mt, compile_th(mt, linear_solver="direct"))
 
@@ -336,31 +338,37 @@ def test_f32_step_converges(mh20):
     assert float(dX[:, :n].max()) < 20.0 and float(dX[:, n:].max()) < 0.05
 
 
-def test_unported_paths_raise():
-    """What still raises is the serial TH SNES (compiled=False and
-    THSoE.step_dt, ROADMAP Slice F) and pressure_ic_file; the default
-    "petsc" plan builds."""
+def test_unported_paths_raise(tmp_path):
+    """The serial TH SNES (``compiled=False``, the default, and
+    ``THSoE.step_dt``) and ``pressure_ic_file`` are ported; what still
+    raises is an unknown plan (ValueError) and the TH-SPAC problem of
+    Slice F2 (``th_manoli2014``), which names its slice."""
     mt, _ = tth.run_mass_and_heat(nx=6, nstep=0, device="cpu")
     assert compile_th(mt).plan == "petsc"   # the default plan
     with pytest.raises(ValueError):
         compile_th(mt, linear_solver="other")
-    with pytest.raises(NotImplementedError, match="Slice F"):
-        tth.run_mass_and_heat(nx=6, compiled=False,
-                              device="cpu")
-    with pytest.raises(NotImplementedError, match="Slice F"):
-        tth.run_th_mms(nx=6, compiled=False, device="cpu")
     from mpp_tpu_torch.models.thermal_enthalpy import THSoE
-    with pytest.raises(NotImplementedError, match="Slice F"):
-        THSoE.step_dt(mt.soe, DT)           # the serial SNES
-    with pytest.raises(NotImplementedError, match="Slice F"):
-        tth.run_heat_transport_1d_with_advection(
-            nx=4, pressure_ic_file="pressure_ic.bin", device="cpu")
+    assert type(mt.soe).step_dt is THSoE.step_dt   # serial by default
+    ok, reason = mt.soe.step_dt(DT)
+    assert ok and reason > 0 and mt.soe.host_syncs > 0
+    assert tth.run_th_mms(nx=6, compiled=False, device="cpu")[0] \
+        .soe.cumulative_newton_iterations > 0
+    from mpp_tpu_torch.io.petsc_vec import write_vec
+    write_vec(str(tmp_path / "pressure_ic.bin"), np.full(4, 91325.0))
+    _, T = tth.run_heat_transport_1d_with_advection(
+        nx=4, pressure_ic_file=str(tmp_path / "pressure_ic.bin"),
+        device="cpu")
+    assert np.isfinite(T).all()
+    from mpp_tpu_torch.cli import _dispatch
+    with pytest.raises(NotImplementedError, match="Slice F2"):
+        _dispatch("th_manoli2014", {}, "cpu")
 
 
 def test_unstepped_problem_is_staged():
     """A problem returned with nstep=0 has its energy BCs staged and
     steps through the installed compiled stepper."""
-    mt, _ = tth.run_mass_and_heat(nx=6, nstep=0, device="cpu")
+    mt, _ = tth.run_mass_and_heat(nx=6, nstep=0, compiled=True,
+                                  device="cpu")
     ge = mt.soe.ge_energy
     np.testing.assert_array_equal(ge.bc_value, [303.15, 293.15])
     np.testing.assert_array_equal(ge.bc_pressure, [91325.0, 91325.0])

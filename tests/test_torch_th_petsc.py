@@ -69,7 +69,7 @@ def test_th_mms_petsc_matches_jax_serial():
     """run_th_mms's default plan is JAX's ("petsc"); its one step lands on
     JAX's serial SNES + ILU(0)/GMRES iterate."""
     mj, Pj = jth.run_th_mms(nx=20)
-    mt, Pt = tth.run_th_mms(nx=20, device="cpu")
+    mt, Pt = tth.run_th_mms(nx=20, compiled=True, device="cpu")
     assert mt.soe.step_dt.__self__.plan == "petsc"
     np.testing.assert_allclose(mt.soe.soln, np.asarray(mj.soe.soln),
                                rtol=1e-9)
@@ -82,13 +82,15 @@ def test_entry_points_default_to_the_card():
         pytest.skip("a card is present")
     from mpp_tpu_torch.models.richards import VSFMSoE
     from mpp_tpu_torch.problems import vsfm_spac
-    assert ThermalEnthalpySoE.device == "cuda"
+    assert ThermalEnthalpySoE.device == VSFMSoE.device == "cuda"
     with pytest.raises(RuntimeError, match="cuda"):
         tth.run_heat_transport_1d(nz=4)
     with pytest.raises(RuntimeError, match="cuda"):
         vsfm_spac.run_vsfm_spac_problem()
-    with pytest.raises(NotImplementedError, match="Slice F"):
-        VSFMSoE().step_dt(3600.0)
+    mpp = vsfm_spac.run_vsfm_spac_problem(nstep=0, device="cpu")
+    mpp.soe.device = "cuda"                 # the serial SNES on the card
+    with pytest.raises(RuntimeError, match="cuda"):
+        mpp.soe.step_dt(3600.0)
 
 
 def jax_plan_gap(ncol=64, nh=64):

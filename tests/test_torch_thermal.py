@@ -143,7 +143,8 @@ def mms1d():
     """The 1-D MMS problem in both packages (20 cells, one step each)."""
     from mpp_tpu.problems import thermal_mms as jtm
     mpp_j, soln_j = jtm.run_thermal_mms_problem(1, use_compiled=True)
-    mpp_t, soln_t = ttm.run_thermal_mms_problem(1, device="cpu")
+    mpp_t, soln_t = ttm.run_thermal_mms_problem(1, use_compiled=True,
+                                                device="cpu")
     return mpp_j, soln_j, mpp_t, soln_t
 
 
@@ -228,7 +229,7 @@ def test_staged_arrays_copied_once_and_again_after_rewrite():
         cs.dist_up[:] *= 1.25
         cs.dist_dn[:] *= 1.25
 
-    mpp, _ = ttm.run_thermal_mms_problem(1, device="cpu")
+    mpp, _ = ttm.run_thermal_mms_problem(1, use_compiled=True, device="cpu")
     comp = compile_ksp(mpp)
     g = comp.goveqns[0]
     T0 = 280.0 + 10.0 * np.random.default_rng(2).random((3, comp.n))
@@ -241,7 +242,8 @@ def test_staged_arrays_copied_once_and_again_after_rewrite():
     got = step(comp, T0)
     assert g._tc[("dz", "cpu", torch.float64)][1] is not \
         copies[("dz", "cpu", torch.float64)]
-    fresh, _ = ttm.run_thermal_mms_problem(1, device="cpu")
+    fresh, _ = ttm.run_thermal_mms_problem(1, use_compiled=True,
+                                           device="cpu")
     rewrite(fresh)
     fresh.soe.goveqns[0]._tc.clear()        # every array copied anew
     assert torch.equal(got, step(compile_ksp(fresh), T0))
@@ -276,7 +278,8 @@ def test_petsc_plan_accepted_only_where_it_is_thomas():
     assert compile_ksp(mpp, linear_solver="petsc").is_tridiag
     with pytest.raises(ValueError):
         compile_ksp(mpp, linear_solver="gmres")
-    mpp2, _ = ttm.run_thermal_mms_problem(2, nx=4, ny=4, device="cpu")
+    mpp2, _ = ttm.run_thermal_mms_problem(2, nx=4, ny=4, use_compiled=True,
+                                          device="cpu")
     comp = mpp2.soe.step_dt.__self__
     assert not comp.is_tridiag and comp._ilu is not None
 
@@ -503,7 +506,8 @@ def test_compiled_thomas_plan_card_matches_cpu():
     CPU's step within rtol 1e-9."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
-    mpp, _ = ttm.run_thermal_mms_problem(1, nx=64, device="cpu")
+    mpp, _ = ttm.run_thermal_mms_problem(1, nx=64, use_compiled=True,
+                                         device="cpu")
     comp = compile_ksp(mpp, linear_solver="direct")
     rng = np.random.default_rng(0)
     ncol = 64

@@ -33,7 +33,8 @@ def test_thermal_mms_petsc_matches_jax(ptype, dims):
     """The 2-D and 3-D MMS through compile_ksp("petsc") (the 3-D case
     with the column-major staging quirk) against JAX's compiled KSP."""
     mj, sj = jtm.run_thermal_mms_problem(ptype, use_compiled=True, **dims)
-    mt, st = ttm.run_thermal_mms_problem(ptype, device="cpu", **dims)
+    mt, st = ttm.run_thermal_mms_problem(ptype, use_compiled=True,
+                                         device="cpu", **dims)
     comp = mt.soe.step_dt.__self__
     assert not comp.is_tridiag and comp._ilu is not None
     np.testing.assert_allclose(st, np.asarray(sj), rtol=1e-10)

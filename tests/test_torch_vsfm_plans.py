@@ -62,7 +62,8 @@ def run_pair(problem, plan, **stepper_kw):
     jrun, trun, kw, dt, nstep, make_stage = problem
     mj = jrun(nstep=0, **kw)
     cj = jcompile(mj, linear_solver=plan, **stepper_kw).install()
-    mt = trun(nstep=0, linear_solver=plan, device="cpu", **kw)
+    mt = trun(nstep=0, use_compiled=True, linear_solver=plan, device="cpu",
+              **kw)
     ct = mt.soe.step_dt.__self__
     if stepper_kw:
         ct = compile_vsfm(mt, linear_solver=plan, **stepper_kw).install("cpu")
@@ -115,7 +116,8 @@ def test_dense_and_block_plans_solve_the_jacobian():
     Jacobian (dense numpy solve of CSRTemplate.to_dense)."""
     for name in ("vchannel_nz2", "spac"):
         _, trun, kw, *_ = PROBLEMS[name]
-        mt = trun(nstep=0, linear_solver="direct", device="cpu", **kw)
+        mt = trun(nstep=0, use_compiled=True, linear_solver="direct",
+                  device="cpu", **kw)
         ct = mt.soe.step_dt.__self__
         bc, ss = ct.gather_inputs(2, "cpu")
         X = torch.as_tensor(np.asarray(mt.soe.soln))[None].repeat(2, 1)
