@@ -165,7 +165,40 @@ line is printed):
       process on the card (started before (w2), read after it), its
       regression file within SERIAL_RTOL of the CPU CLI's; the counters
       read 0 over the serial runs, and the phase takes less than
-      SERIAL_BUDGET_S.
+      SERIAL_BUDGET_S;
+  (x) Slices F2 and G, within X_BUDGET_S:
+      (x1) th_manoli2014 (the 6-GE TH-SPAC network, 500 unknowns, 12
+      colors) for 3 steps of 8640 s on the card and, in a worker process
+      meanwhile, on the CPU: at every step converged with equal reasons,
+      Newton and GMRES iterations, the solution within SERIAL_RTOL; mass
+      and energy conserved to 1e-12, 0 < max |T - 283.15| < 0.01 K; the
+      colored Jacobian against torch.func.jacfwd on the card within 1e-12
+      of max |J| and zero outside its pattern; at scale 10 (5000
+      unknowns; its step is cut for the budget) one Newton iteration's
+      linear solve (colored Jacobian, ILU(0), GMRES at rtol 1e-12) on the
+      card and in the worker: converged, equal GMRES iterations, the
+      direction within SERIAL_RTOL of its largest entry, true residual
+      under 1e-9 of |F|; ms
+      and host syncs a step, ms of the scale-10 solve;
+      (x2) the UGDM lateral ALM step (X2_UGDM: 16384 columns, nz 30, f64,
+      the wet half at 1.0e5 Pa, no forcing and no seepage, one warm and 2
+      timed steps): every column
+      converges, audit < 1e-5 kg, |sum qflx_lateral| < 1e-10 sum |.|,
+      total water to 1e-6, the step's lateral source equal to
+      lateral_darcy_source_global on the natural-order arrays within
+      1e-12; thomas and tridiag_spmv counted under "alm_ugdm" and held to
+      their plain forms at the arguments the step gave them;
+      (x3) the same steps through a ColumnGroup of one rank under NCCL
+      (a FileStore, a 120 s timeout; no fallback), counted under
+      "alm_ugdm_nccl", equal to (x2) within rtol 1e-12; the group is
+      destroyed at the end;
+      (x4) inputs_from_mpp on the staged MLC problem at (2, 2) and at 256
+      columns (its first step compiled): the block solve card vs CPU
+      within 1e-9 of max |x| and a relative residual under 1e-9 in the
+      serial MPP's own system (at (2, 2) also the dense solve, rtol 1e-9,
+      and the serial GMRES step within its stopping tolerance); cg (SPD),
+      bicgstab and gmres (SPD and nonsymmetric) at n = 256: equal
+      iterations card vs CPU, solutions within 1e-10; no kernel launched.
 
 Every kernel timing is read twice: ``ms``, CUDA events around back-to-back
 calls of the wrapper (host cost per call included), and ``device_ms``, the
@@ -177,7 +210,9 @@ times and every ``ms``); the "profiler_after" line then times the f64 ALM
 steps and the (c) kernels' eager calls again, after the windows, beside
 their readings from before them.  One more step of (m) and 10 of (p) are
 read the same way: their device time over the step's host-clock time is
-the cell's device-busy share (the "step_device" lines).
+the cell's device-busy share (the "step_device" lines).  A device reading
+that no whole profiler window gives is null, not measured, with a
+"device_time_short" line (see device_time); no gate reads one.
 
 The launch counters are reset just before (d) and read just after (e),
 reset just before (u) and read just after it (all zero), the same for
@@ -186,8 +221,9 @@ apart),
 reset just before (h) and read just after (i), reset just before (k)'s
 calls of the ops and read just after them, reset just before (l)'s
 harness run and read just after it, and reset just before each of
-(m)-(p) and read just after it: every kernel of each path must have
-launched on it.  The line before the last is the card's name and power
+(m)-(p) and read just after it, and reset just before (x2)'s and (x3)'s
+timed steps and read just after them: every kernel of each path must
+have launched on it.  The line before the last is the card's name and power
 limit, the one before it a JSON object with one entry per kernel (its
 launches on its path, error against its plain version, kernel (eager and
 device) and plain times, the least time the card could take for the same
@@ -195,6 +231,7 @@ work and the time of one library call computing the same function, where
 there is one);
 the last line is {"ok": true, "device": {...}}.
 """
+import contextlib
 import json
 import multiprocessing
 import os
@@ -278,6 +315,23 @@ W2_PROBLEMS = {
                                1, None),
     "vsfm_spac_mms": ("run_vsfm_spac_mms_problem", {}, 1, None),
 }
+# (x): Slices F2 and G. (x1) th_manoli2014 at its reference size (3 steps
+# of 8640 s at scale 1, card and CPU) and at scale 10 the linear solve of
+# one Newton iteration (the step, ~85 s on the card with the one-column
+# ILU(0)'s eager level loops, is cut for X_BUDGET_S); (x2) the
+# UGDM lateral ALM step on a 128 x 128 grid of columns (edges of 10 m,
+# tests/test_alm.py:280 at full width) with (d)'s soils, nz 30, the wet
+# half at 1.0e5 Pa (at that test's 1.06e5 Pa, over the reference pressure,
+# the batched dt ladder cuts the second step's substep to dt / 2^15 and
+# never grows it back, in both packages: ~2^15 Newton solves, ROADMAP
+# Queue 3, tests/test_torch_alm_dt_ladder.py); (x3) the same through an NCCL ColumnGroup of one
+# rank; (x4) the MLC bridge at these (ncair, ntree, compiled first step)
+# and the Krylov solvers at n = X4_KRYLOV_N; the phase within X_BUDGET_S
+X1_TH_SPAC = dict(dt=8640.0, steps=3, big_scale=10)
+X2_UGDM = dict(nx=128, ny=128, edge=10.0, wet=1.0e5, dt=1800.0, steps=2)
+X4_MLC_CASES = ((2, 2, False), (256, 1, True))
+X4_KRYLOV_N = 256
+X_BUDGET_S = 120.0
 CHAIN_K = 30
 JACOBI_CHECK = dict(iters=200, omega=0.9, shape=(16384, 64), tol=1e-8)
 HARNESS_SHAPE = (131072, 256)
@@ -486,7 +540,7 @@ def time_cuda(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def device_time(torch, fn, reps, tries=5, with_count=False, windows=1):
+def device_time(torch, fn, reps, tries=6, with_count=False, windows=1):
     """Mean device milliseconds of one ``fn()``: the summed durations of the
     device activities (kernels, copies, fills) that torch.profiler (CUPTI)
     records over ``reps`` runs, after two warm-up runs, divided by
@@ -494,57 +548,71 @@ def device_time(torch, fn, reps, tries=5, with_count=False, windows=1):
     itself) is not in it.
 
     A window counts only when it is whole: every activity's record count a
-    positive multiple of ``reps``.  The trace sometimes comes back a record
-    or more short, most often in the first window after a long stretch of
-    untraced work (tracing host activities too and opening and closing the
-    window 1 ms away from the calls make it rarer), so a short window is
-    taken again, up to ``tries`` times; the run fails if none is whole.
-    A window of many kernels queued with no host synchronisation (the
-    thermal step) lost its first three records in every try, so each
-    window opens with spin kernels of a name of their own, waited for and
-    left out of the sums.  ``windows`` (a call of tens of thousands of
+    positive multiple of ``reps``.  The trace sometimes comes back records
+    short: a window of many kernels queued with no host synchronisation
+    (the thermal step) lost its first three records in every try, and late
+    in a long run a window of ten SpMV calls lost four in five tries in a
+    row.  So the calls sit between two pads of spin kernels (a name of
+    their own, left out of the sums), each pad waited for and kept a gap
+    away from the calls on the host's clock, and a short window is taken
+    again with pads four times longer and a gap twice as wide, up to
+    ``tries`` times.  ``windows`` (a call of tens of thousands of
     activities, such as (q)'s TH step or a canopy substep, whose windows
     seldom agree twice in a row on their record counts): read that many
     whole windows and keep the one with the most records, since a lost
     record only shortens a window.
+    Returns None, and prints a "device_time_short" line with the record
+    counts of every try, when no window is whole: the reading is then not
+    measured, never taken from a short window.
     ``with_count``: return (ms, the device activities of one call)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    def window():
+    def pad(n, gap):
+        for _ in range(n):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        time.sleep(gap)
+
+    def window(n_pad, gap):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(4):
-                torch.cuda._sleep(1000)
-            torch.cuda.synchronize()
-            time.sleep(1e-3)
+            pad(n_pad, gap)
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-            time.sleep(1e-3)
-        by_name = {}
+            time.sleep(gap)
+            pad(n_pad, gap)
+        by_name, spins = {}, 0
         for e in prof.events():
-            if e.device_type == DeviceType.CUDA \
-                    and "spin_kernel" not in e.name:
+            if e.device_type != DeviceType.CUDA:
+                continue
+            if "spin_kernel" in e.name:
+                spins += 1
+            else:
                 by_name.setdefault(e.name, []).append(
                     e.time_range.elapsed_us())
-        return by_name
+        return by_name, spins
 
     for _ in range(2):
         fn()
-    counts = []
+    tried = []
     kept = []
-    for _ in range(tries):
-        by_name = window()
-        counts.append({k: len(t) for k, t in by_name.items()})
+    for i in range(tries):
+        n_pad = 4 ** (i + 1)
+        by_name, spins = window(n_pad, 1e-3 * 2 ** i)
+        tried.append(dict(pad=n_pad, spins=spins,
+                          records={k: len(t) for k, t in by_name.items()}))
         if by_name and all(len(t) % reps == 0 for t in by_name.values()):
             kept.append((sum(map(len, by_name.values())), by_name))
             if len(kept) == windows:
                 break
+    if len(tried) > len(kept):
+        print("device_time_short " + json.dumps(dict(
+            reps=reps, whole=len(kept), tries=tried)))
     if not kept:
-        fail(f"torch.profiler: no whole window of {reps} calls in {tries} "
-             f"tries; records per activity: {counts}")
+        return (None, None) if with_count else None
     n, by_name = max(kept, key=lambda k: k[0])
     ms = sum(sum(t) for t in by_name.values()) / reps / 1e3
     if with_count:
@@ -1063,6 +1131,37 @@ def held_at_path(torch, hk, tridiag, captured, path):
     return rows
 
 
+@contextlib.contextmanager
+def captured_args(torch, comp, captured):
+    """Record in ``captured`` the first arguments the stepper ``comp``
+    hands each kernel in each dtype, through its solve and J.Y hooks:
+    {(name, dtype name): bands + [right-hand side]}, the mixed SpMV's
+    bands as the bf16 it reads."""
+    real_solve, real_matvec = comp._solve, comp._matvec
+
+    def solve(bands, F):
+        key = ("thomas", str(F.dtype).split(".")[-1])
+        if key not in captured:
+            captured[key] = [a.clone() for a in bands] + [F.contiguous()
+                                                          .clone()]
+        return real_solve(bands, F)
+
+    def matvec(bands, x):
+        f32 = x.dtype == torch.float32
+        key = ("tridiag_spmv_mixed" if f32 else "tridiag_spmv",
+               str(x.dtype).split(".")[-1])
+        if key not in captured:
+            b = [a.to(torch.bfloat16) if f32 else a.clone() for a in bands]
+            captured[key] = b + [x.contiguous().clone()]
+        return real_matvec(bands, x)
+
+    comp._solve, comp._matvec = solve, matvec
+    try:
+        yield
+    finally:
+        del comp._solve, comp._matvec
+
+
 def run_escalation(torch, hk, tridiag, alm):
     """Phase (m): the f32 ALM step with the per-column f64 escalation.
     Returns (the launches of the phase, the step's device-busy row, its
@@ -1089,44 +1188,24 @@ def run_escalation(torch, hk, tridiag, alm):
                               for k in counted})
         return out
 
-    # the first arguments each kernel gets in each dtype, through the
-    # stepper's solve and J*Y hooks (the escalation uses the same stepper)
+    # the first arguments each kernel gets in each dtype (the escalation
+    # uses the same stepper)
     captured = {}
-    comp = prob.comp
-
-    def solve(bands, F):
-        key = ("thomas", str(F.dtype).split(".")[-1])
-        if key not in captured:
-            captured[key] = [a.clone() for a in bands] + [F.contiguous()
-                                                          .clone()]
-        return real_solve(bands, F)
-
-    def matvec(bands, x):
-        f32 = x.dtype == torch.float32
-        key = ("tridiag_spmv_mixed" if f32 else "tridiag_spmv",
-               str(x.dtype).split(".")[-1])
-        if key not in captured:
-            b = [a.to(torch.bfloat16) if f32 else a.clone() for a in bands]
-            captured[key] = b + [x.contiguous().clone()]
-        return real_matvec(bands, x)
-
-    real_solve, real_matvec = comp._solve, comp._matvec
-    comp._solve, comp._matvec = solve, matvec
     alm._escalate_f64 = escalate
     try:
-        hk.reset_launches()
-        outs = [alm.alm_vsfm_solve(prob, ESC_DT, qflx_infl=q)]
-        sync(torch)
-        setup_s = time.perf_counter() - t_setup
-        t0 = time.perf_counter()
-        for _ in range(ESC_STEPS):
-            outs.append(alm.alm_vsfm_solve(prob, ESC_DT, qflx_infl=q))
-        sync(torch)
-        ms = (time.perf_counter() - t0) / ESC_STEPS * 1e3
-        launches = dict(hk.LAUNCHES)
+        with captured_args(torch, prob.comp, captured):
+            hk.reset_launches()
+            outs = [alm.alm_vsfm_solve(prob, ESC_DT, qflx_infl=q)]
+            sync(torch)
+            setup_s = time.perf_counter() - t_setup
+            t0 = time.perf_counter()
+            for _ in range(ESC_STEPS):
+                outs.append(alm.alm_vsfm_solve(prob, ESC_DT, qflx_infl=q))
+            sync(torch)
+            ms = (time.perf_counter() - t0) / ESC_STEPS * 1e3
+            launches = dict(hk.LAUNCHES)
     finally:
         alm._escalate_f64 = real
-        del comp._solve, comp._matvec
     check(outs[0]["escalated_cols"] > 0, "(m): the first step escalated no "
           "column")
     for o in outs:
@@ -2130,23 +2209,8 @@ def run_serial(torch, hk, tridiag, card):
                                            device="cuda")
     comp = mpp.soe.step_dt.__self__
     check(comp.is_tridiag, "(w1): celia1990 is not on the Thomas plan")
-    real_solve, real_matvec = comp._solve, comp._matvec
-
-    def solve(bands, F):
-        captured.setdefault(("thomas", "float64"),
-                            [a.clone() for a in bands]
-                            + [F.contiguous().clone()])
-        return real_solve(bands, F)
-
-    def matvec(bands, x):
-        captured.setdefault(("tridiag_spmv", "float64"),
-                            [a.clone() for a in bands]
-                            + [x.contiguous().clone()])
-        return real_matvec(bands, x)
-
-    comp._solve, comp._matvec = solve, matvec
     from mpp_tpu_torch.constants import AuxVarKind, Var
-    try:
+    with captured_args(torch, comp, captured):
         for istep in range(1, w1["compiled_steps"] + 1):
             mpp.set_data(AuxVarKind.BC, Var.BC_SS_CONDITION, 1,
                          np.full(1, 9.3991e4))
@@ -2155,8 +2219,6 @@ def run_serial(torch, hk, tridiag, card):
             ok, reason = mpp.soe.step_dt(w1["dt"], istep)
             check(ok, f"(w1) compiled step {istep}: reason {reason}")
         sync(torch)
-    finally:
-        del comp._solve, comp._matvec
     compiled_s = time.perf_counter() - t0
     compiled = dict(hk.LAUNCHES)
     check(compiled["thomas"] > 0 and compiled["tridiag_spmv"] > 0,
@@ -2264,6 +2326,403 @@ def run_serial(torch, hk, tridiag, card):
     return compiled, rows
 
 
+def th_spac_steps(torch, mpp, nsteps, dt):
+    """``nsteps`` steps of a THSpacMPP: [(converged, reason, Newton
+    iterations, GMRES iterations, host syncs, seconds, solution)]."""
+    soe = mpp.soe
+    log = []
+    for istep in range(1, nsteps + 1):
+        n0, l0, s0 = (soe.cumulative_newton_iterations,
+                      soe.cumulative_linear_iterations, soe.host_syncs)
+        t0 = time.perf_counter()
+        ok, reason = soe.step_dt(dt, istep)
+        sync(torch, str(soe.device))
+        log.append((bool(ok), int(reason),
+                    soe.cumulative_newton_iterations - n0,
+                    soe.cumulative_linear_iterations - l0,
+                    soe.host_syncs - s0, time.perf_counter() - t0,
+                    np.array(soe.soln, np.float64)))
+    return log
+
+
+def th_spac_cpu_log(nsteps, dt, threads):
+    """(x1)'s CPU half in a worker process of its own: the step log of
+    th_manoli2014 at scale 1."""
+    import torch
+    from mpp_tpu_torch.problems import th_manoli2014 as tm
+    torch.set_num_threads(threads)
+    return th_spac_steps(torch, tm.build_th_manoli2014(device="cpu"),
+                         nsteps, dt)
+
+
+def th_spac_newton_solve(torch, soe, dt):
+    """The linear solve of a THSpacSoE's first Newton iteration from its
+    initial state at ``dt``, as ``_newton`` makes it (colored Jacobian,
+    ILU(0), GMRES at rtol 1e-12): (GMRES iterations, converged, |J dx +
+    F| / |F|, seconds, dx as numpy)."""
+    from mpp_tpu_torch.ops.ilu import csr_matvec, petsc_gmres
+    dev = torch.device(soe.device)
+    X = torch.as_tensor(soe.soln, dtype=torch.float64, device=dev)
+    am, ae = soe._accums(X, dt)
+    res = partial(soe._residual_pure, accum_prev_m=am, accum_prev_e=ae,
+                  dt=dt)
+    tpl, ilu = soe._jac_plan["tpl"], soe._jac_plan["ilu"]
+    sync(torch, str(dev))
+    t0 = time.perf_counter()
+    F = res(X)
+    data = soe._sparse_jac_data(res, X)
+    dx, its, ok = petsc_gmres(tpl.indptr, tpl.indices, data, -F, pc=ilu,
+                              pc_data=ilu.factor(data), rtol=1e-12,
+                              atol=1e-50)
+    sync(torch, str(dev))
+    secs = time.perf_counter() - t0
+    r = csr_matvec(tpl.indptr, tpl.indices, data, dx) + F
+    return (its, ok, float(r.norm() / F.norm()), secs,
+            dx.cpu().numpy())
+
+
+def th_spac_cpu_solve(scale, dt, threads):
+    """(x1)'s scale-10 linear solve on the CPU, in the worker process."""
+    import torch
+    from mpp_tpu_torch.problems import th_manoli2014 as tm
+    torch.set_num_threads(threads)
+    return th_spac_newton_solve(
+        torch, tm.build_th_manoli2014(scale=scale, device="cpu").soe, dt)
+
+
+def run_th_spac(torch, card, pool):
+    """Phase (x1): th_manoli2014 at its reference size on the card against
+    the CPU (run in ``pool``'s worker meanwhile), its conservation, its
+    colored Jacobian against torch.func.jacfwd on the card, and at scale 10
+    one Newton iteration's linear solve, card against CPU.  Returns the
+    rows."""
+    from mpp_tpu_torch.problems import th_manoli2014 as tm
+    x1 = X1_TH_SPAC
+    job = pool.submit(th_spac_cpu_log, x1["steps"], x1["dt"],
+                      W2_CPU_THREADS)
+    mpp = tm.build_th_manoli2014(device="cuda")
+    soe = mpp.soe
+    m0, e0 = soe.totals(soe.soln)
+    g = th_spac_steps(torch, mpp, x1["steps"], x1["dt"])
+    c = job.result()
+    rel = 0.0
+    for k, (a, b) in enumerate(zip(g, c)):
+        check(a[0] and b[0], f"(x1) step {k + 1}: did not converge")
+        check(a[1:4] == b[1:4], f"(x1) step {k + 1}: card (reason, newton, "
+              f"gmres) {a[1:4]} vs CPU {b[1:4]}")
+        rel = max(rel, card_vs_cpu(f"(x1) step {k + 1}", a[6], b[6],
+                                   SERIAL_RTOL))
+    m1, e1 = soe.totals(soe.soln)
+    check(abs(m1 - m0) <= 1e-12 * m0 and abs(e1 - e0) <= 1e-12 * abs(e0),
+          f"(x1): mass {m0!r} -> {m1!r}, energy {e0!r} -> {e1!r}")
+    dT = float(np.max(np.abs(soe.soln[soe.ntot:] - tm.TEMP_INITIAL)))
+    check(0.0 < dT < 0.01, f"(x1): max |T - {tm.TEMP_INITIAL}| {dT:.3e} K")
+    ncolors = soe._jac_plan["ncolors"]
+    check(ncolors == 12, f"(x1): {ncolors} colors, not 12")
+
+    # the colored Jacobian on the card against the dense forward-mode one
+    fresh = tm.build_th_manoli2014(device="cuda").soe
+    X = torch.as_tensor(fresh.soln, dtype=torch.float64, device="cuda")
+    am, ae = fresh._accums(X, x1["dt"])
+    res = partial(fresh._residual_pure, accum_prev_m=am, accum_prev_e=ae,
+                  dt=x1["dt"])
+    data = fresh._sparse_jac_data(res, X)
+    tpl = fresh._jac_plan["tpl"]
+    J = torch.func.jacfwd(res)(X)
+    rows = torch.as_tensor(tpl.row_ids().astype(np.int64), device="cuda")
+    cols = torch.as_tensor(tpl.indices.astype(np.int64), device="cuda")
+    scale = float(J.abs().max())
+    jac_err = float((J[rows, cols] - data).abs().max())
+    outside = J.clone()
+    outside[rows, cols] = 0.0
+    check(jac_err <= 1e-12 * scale and float(outside.abs().max()) == 0.0,
+          f"(x1): colored Jacobian vs jacfwd {jac_err:.3e} of {scale:.3e}")
+    # scale 10: 5000 unknowns; one Newton iteration's linear solve on the
+    # card against the worker's
+    big = x1["big_scale"]
+    job = pool.submit(th_spac_cpu_solve, big, x1["dt"], W2_CPU_THREADS)
+    bs = tm.build_th_manoli2014(scale=big, device="cuda").soe
+    gs = th_spac_newton_solve(torch, bs, x1["dt"])
+    cs = job.result()
+    check(gs[1] and cs[1], f"(x1) scale {big}: GMRES did not converge")
+    check(gs[0] == cs[0], f"(x1) scale {big}: GMRES iterations card "
+          f"{gs[0]} vs CPU {cs[0]}")
+    check(gs[2] <= 1e-9, f"(x1) scale {big}: |J dx + F| / |F| {gs[2]:.3e}")
+    # the two directions are converged GMRES solves: held against the
+    # largest entry (near-zero entries carry the solve's absolute error)
+    big_rel = float(np.abs(gs[4] - cs[4]).max() / np.abs(cs[4]).max())
+    check(big_rel <= SERIAL_RTOL, f"(x1) scale {big}: direction card vs "
+          f"CPU {big_rel:.3e} of max |dx|")
+    n = len(g)
+    levels = lambda s_: [s_._jac_plan["ilu"].batched.levels_fwd,
+                         s_._jac_plan["ilu"].batched.levels_bwd]
+    out = [dict(
+        problem="th_manoli2014", scale=1, unknowns=2 * soe.ntot,
+        ncolors=ncolors, steps=n, dt=x1["dt"],
+        card_ms_per_step=sum(x[5] for x in g) * 1e3 / n,
+        cpu_ms_per_step=sum(x[5] for x in c) * 1e3 / n,
+        newton_per_step=[x[2] for x in g], gmres_per_step=[x[3] for x in g],
+        host_syncs_per_step=sum(x[4] for x in g) / n,
+        ilu_levels=levels(soe), max_rel_card_vs_cpu=rel,
+        mass_rel=abs(m1 - m0) / m0, energy_rel=abs(e1 - e0) / abs(e0),
+        max_abs_dT_K=dT, jacfwd_err_of_max=jac_err / scale, card=card),
+        dict(problem="th_manoli2014", scale=big, unknowns=2 * bs.ntot,
+             ncolors=bs._jac_plan["ncolors"], steps=0,
+             newton_linear_solve=dict(
+                 gmres_iterations=gs[0], card_ms=gs[3] * 1e3,
+                 cpu_ms=cs[3] * 1e3, true_rel_residual=gs[2],
+                 max_rel_card_vs_cpu=big_rel),
+             ilu_levels=levels(bs), card=card)]
+    for r in out:
+        print("th_spac " + json.dumps(r))
+    return out
+
+
+def ugdm_problem(alm, device_mesh=None):
+    """(x2)'s problem: the 128 x 128 grid of columns with (d)'s soils, the
+    wet first half, no forcing and no seepage (a closed domain); on the
+    card, or on ``device_mesh``'s rank device."""
+    from mpp_tpu_torch.parallel.ugrid import UGrid
+    x2 = X2_UGDM
+    ug = UGrid.regular_2d(x2["nx"], x2["ny"])
+    ug.edge_dist[:] = x2["edge"]
+    ug.edge_area[:] = x2["edge"]
+    ncol = ug.ncol
+    soils, _ = alm_inputs(ncol, NZ)
+    soils.pop("include_seepage_bc")
+    P0 = soils.pop("P0")
+    P0[:ncol // 2] = x2["wet"]
+    return alm.alm_vsfm_initialize(P0=P0, lateral_connectivity=True,
+                                   ugrid=ug, device="cuda",
+                                   device_mesh=device_mesh, **soils)
+
+
+def ugdm_steps(torch, hk, alm, prob, captured=None):
+    """(x2)'s steps on ``prob``: one warm step, then the timed steps with
+    the launch counters reset just before and read just after them (the
+    stepper's solve / J.Y hooks record their first arguments in
+    ``captured``).  Returns (the outputs, ms a step, the launches)."""
+    x2 = X2_UGDM
+    outs = [alm.alm_vsfm_solve(prob, x2["dt"])]
+    with (captured_args(torch, prob.comp, captured)
+          if captured is not None else contextlib.nullcontext()):
+        sync(torch)
+        hk.reset_launches()
+        t0 = time.perf_counter()
+        for _ in range(x2["steps"]):
+            outs.append(alm.alm_vsfm_solve(prob, x2["dt"]))
+        sync(torch)
+        ms = (time.perf_counter() - t0) * 1e3 / x2["steps"]
+        launches = dict(hk.LAUNCHES)
+    return outs, ms, launches
+
+
+def run_ugdm(torch, hk, tridiag, alm, card, alm_row):
+    """Phases (x2) and (x3): the UGDM lateral ALM step at full width in one
+    process, then through a ColumnGroup at world size 1 under NCCL.
+    Returns (the launches of (x2) and of (x3), the kernel_check rows of
+    (x2)'s thomas and tridiag_spmv)."""
+    import tempfile
+    import torch.distributed as dist
+    from mpp_tpu_torch.parallel import distributed as pdist
+    from mpp_tpu_torch.parallel.ugrid import lateral_darcy_source_global
+    x2 = X2_UGDM
+    t0 = time.perf_counter()
+    prob = ugdm_problem(alm)
+    setup_s = time.perf_counter() - t0
+    ncol = prob.ncol
+    P0 = prob.P
+    m0 = float(alm.cell_mass_kg(prob, P0).sum())
+    # the step's lateral source against the natural-order reference
+    dm, ug = prob.ugdm, prob.ugrid
+    src = dm.sharded_to_natural(alm._lateral_source(prob, P0))
+    nat = lambda a: dm.sharded_to_natural(a)
+    ref = lateral_darcy_source_global(
+        ug, nat(P0), nat(alm._cell_kr(prob, P0)),
+        nat(prob.dyn[0]["perm"][..., 0]),
+        nat(torch.as_tensor(prob.dz, dtype=torch.float64, device="cuda")))
+    src_err = float((src - ref).abs().max()) / float(ref.abs().max())
+    check(src_err <= 1e-12, f"(x2): lateral source vs the natural-order "
+          f"reference {src_err:.3e} > 1e-12")
+    captured = {}
+    outs, ms, launches = ugdm_steps(torch, hk, alm, prob, captured)
+    m1 = float(alm.cell_mass_kg(prob, prob.P).sum())
+    sums = []
+    for o in outs:
+        q = o["qflx_lateral"]
+        net, gross = float(q.sum()), float(q.abs().sum())
+        sums.append([net, gross])
+        check(gross > 0 and abs(net) < 1e-10 * gross,
+              f"(x2): sum qflx_lateral {net:.3e} vs sum |.| {gross:.3e}")
+        check(bool((o["reason"] > 0).all()), "(x2): a column did not "
+              "converge")
+        check(o["abs_mass_error_col"] < F64_AUDIT_KG,
+              f"(x2): audit error {o['abs_mass_error_col']:.3e} kg")
+    check(abs(m1 - m0) <= 1e-6 * m0, f"(x2): total water {m0!r} -> {m1!r}")
+    check(launches["thomas"] > 0 and launches["tridiag_spmv"] > 0,
+          f"(x2): the UGDM step did not launch its kernels: {launches}")
+    rows = held_at_path(torch, hk, tridiag, captured, "alm_ugdm")
+    timed = outs[1:]
+    print("ugdm " + json.dumps(dict(
+        grid=[x2["nx"], x2["ny"]], ncol=ncol, nz=NZ, dt=x2["dt"],
+        edges=int(ug.edges.shape[0]), setup_s=setup_s, ms_per_step=ms,
+        host_syncs_per_step=[o["host_round_trips_per_step"] for o in timed],
+        newton_iters_per_step=[o["newton_iters"] for o in timed],
+        max_audit_err_kg=max(o["abs_mass_error_col"] for o in outs),
+        mass_kg=[m0, m1], qflx_lateral_net_gross=sums,
+        lateral_src_rel_err=src_err, launches=launches,
+        alm_d_ms_per_step=alm_row["ms"],
+        alm_d_host_syncs_per_step=alm_row["syncs"], card=card)))
+
+    # (x3): the same steps through a ColumnGroup at world size 1 (NCCL)
+    store = tempfile.TemporaryDirectory()
+    t0 = time.perf_counter()
+    pdist.initialize_distributed(init_method=f"file://{store.name}/store",
+                                 world_size=1, rank=0, backend="nccl",
+                                 timeout_s=120.0)
+    try:
+        group = pdist.global_column_mesh()
+        check(dist.get_backend() == "nccl" and group.world_size == 1
+              and group.device.type == "cuda",
+              f"(x3): group {group} on {dist.get_backend()}")
+        gprob = ugdm_problem(alm, device_mesh=group)
+        check(gprob.group is group and gprob.P.device == group.device,
+              "(x3): the problem is not on the group")
+        gouts, gms, glaunches = ugdm_steps(torch, hk, alm, gprob)
+        gap = float(((gprob.P - prob.P).abs() / prob.P.abs()).max())
+        check(gap <= 1e-12, f"(x3): NCCL group vs one process: max rel "
+              f"{gap:.3e} > 1e-12")
+        check(glaunches["thomas"] > 0 and glaunches["tridiag_spmv"] > 0,
+              f"(x3): the group step did not launch its kernels: "
+              f"{glaunches}")
+        print("ugdm_nccl " + json.dumps(dict(
+            backend=dist.get_backend(), world_size=group.world_size,
+            device=str(group.device), ms_per_step=gms,
+            host_syncs_per_step=[o["host_round_trips_per_step"]
+                                 for o in gouts[1:]],
+            max_rel_vs_one_process=gap, launches=glaunches,
+            phase_s=time.perf_counter() - t0, card=card)))
+    finally:
+        dist.destroy_process_group()
+        store.cleanup()
+    return launches, glaunches, rows
+
+
+def run_small_modules(torch, card):
+    """Phase (x4): the MLC bridge and the Krylov solvers on the card."""
+    import copy
+    from mpp_tpu_torch.batched import mlc as bmlc
+    from mpp_tpu_torch.ops import krylov
+    from mpp_tpu_torch.problems.mlc import run_mlc_problem
+    dt = 300.0
+    for ncair, ntree, compiled in X4_MLC_CASES:
+        t0 = time.perf_counter()
+        mpp = run_mlc_problem(ncair, ntree, use_compiled=compiled,
+                              device="cuda")
+        mpp.dtime = dt
+        mpp._vol_air = mpp._compute_vol_air()
+        mpp.pre_solve()
+        inp = bmlc.inputs_from_mpp(mpp)
+        check(inp.at_T.device.type == "cuda", "(x4): inputs not on the card")
+        x_card = bmlc.step(inp, dt).cpu().numpy()
+        x_cpu = bmlc.step(bmlc.inputs_from_mpp(mpp, device="cpu"),
+                          dt).numpy()
+        rel = float(np.abs(x_card - x_cpu).max() / np.abs(x_cpu).max())
+        check(np.isfinite(x_card).all() and rel <= 1e-9,
+              f"(x4) mlc {ncair}x{ntree}: card vs CPU {rel:.3e} of max |x|")
+        # the block solution in the serial MPP's own system
+        rows, cols, vals = mpp.compute_operators()
+        b = mpp.compute_rhs()
+        nc, nlev, nt = mpp.ncair, mpp.nlev, mpp.ntree
+        o = mpp.off
+        g = np.zeros((nc, nlev, 2 + 2 * nt), np.int64)
+        base = np.arange(nc)[:, None] * nlev + np.arange(nlev)[None, :]
+        g[:, :, 0] = o[0] + base
+        g[:, :, 1] = o[1] + base
+        for s in range(2 * nt):
+            r, it = divmod(s, nt)
+            g[:, :, 2 + s] = o[2 + r] + (np.arange(nc)[:, None] * nt + it) \
+                * nlev + np.arange(nlev)[None, :]
+        x = np.zeros(mpp.n)
+        x[g.reshape(-1)] = x_card.reshape(-1)
+        Ax = np.zeros(mpp.n)
+        np.add.at(Ax, rows, vals * x[cols])
+        resid = float(np.linalg.norm(Ax - b) / np.linalg.norm(b))
+        check(resid <= 1e-9, f"(x4) mlc {ncair}x{ntree}: block solution's "
+              f"relative residual {resid:.3e} in the serial system > 1e-9")
+        row = dict(ncair=ncair, ntree=ntree, unknowns=mpp.n,
+                   max_rel_card_vs_cpu=rel, serial_system_rel_residual=resid)
+        if not compiled:
+            A = np.zeros((mpp.n, mpp.n))
+            np.add.at(A, (rows, cols), vals)
+            x_exact = np.linalg.solve(A, b)
+            err = float(np.max(np.abs(x - x_exact)
+                               / (1e-9 * np.abs(x_exact) + 1e-11)))
+            check(err <= 1.0, f"(x4) mlc {ncair}x{ntree}: block solution "
+                  "vs the dense solve outside rtol 1e-9 / atol 1e-11")
+            step = copy.deepcopy(mpp)
+            step.step_dt(dt)
+            gap = float(np.max(np.abs(x - step.soln)))
+            check(np.allclose(x, step.soln, rtol=1e-5, atol=5e-3),
+                  f"(x4) mlc {ncair}x{ntree}: block solution vs the serial "
+                  f"GMRES step {gap:.3e} K")
+            row.update(vs_serial_gmres_step_max_abs=gap)
+        row.update(wall_s=time.perf_counter() - t0, card=card)
+        print("mlc_bridge " + json.dumps(row))
+
+    rng = np.random.default_rng(0)
+    n = X4_KRYLOV_N
+    a = rng.standard_normal((n, n)) * 0.1
+    systems = {"spd": a @ a.T + n * 0.05 * np.eye(n),
+               "nonsym": np.eye(n) * 4.0 + rng.standard_normal((n, n)) * 0.1}
+    b = rng.standard_normal(n)
+    for name, solver in (("spd", "cg"), ("spd", "bicgstab"),
+                         ("spd", "gmres"), ("nonsym", "bicgstab"),
+                         ("nonsym", "gmres")):
+        res = {}
+        for dev in ("cuda", "cpu"):
+            A = torch.as_tensor(systems[name], device=dev)
+            t0 = time.perf_counter()
+            r = getattr(krylov, solver)(lambda v: A @ v,
+                                        torch.as_tensor(b, device=dev))
+            sync(torch, dev)
+            res[dev] = (r, (time.perf_counter() - t0) * 1e3)
+        (rg, ms_g), (rc, ms_c) = res["cuda"], res["cpu"]
+        check(rg.converged and rc.converged, f"(x4) {solver} {name}: not "
+              "converged")
+        check(rg.iters == rc.iters, f"(x4) {solver} {name}: {rg.iters} "
+              f"iterations on the card, {rc.iters} on the CPU")
+        err = float((rg.x.cpu() - rc.x).abs().max())
+        check(err <= 1e-10, f"(x4) {solver} {name}: card vs CPU {err:.3e}")
+        print("krylov " + json.dumps(dict(
+            solver=solver, system=name, n=n, iters=rg.iters,
+            host_syncs=rg.host_syncs, max_abs_card_vs_cpu=err,
+            card_ms=ms_g, cpu_ms=ms_c, card=card)))
+
+
+def run_slices_f2_g(torch, hk, tridiag, alm, card, alm_row):
+    """Phase (x): (x1)-(x4), under X_BUDGET_S.  Returns (the launches of
+    (x2) and (x3), (x2)'s kernel_check rows)."""
+    t_x = time.perf_counter()
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(max_workers=1, mp_context=ctx) as pool:
+        run_th_spac(torch, card, pool)
+    t1 = time.perf_counter()
+    hk.reset_launches()
+    l2, l3, rows = run_ugdm(torch, hk, tridiag, alm, card, alm_row)
+    t2 = time.perf_counter()
+    hk.reset_launches()
+    run_small_modules(torch, card)
+    small = dict(hk.LAUNCHES)
+    check(not any(small.values()), f"(x4): a kernel launched: {small}")
+    phase_s = time.perf_counter() - t_x
+    print("slices_f2_g_phase_s " + json.dumps(dict(
+        x1=t1 - t_x, x2_x3=t2 - t1, x4=time.perf_counter() - t2,
+        total=phase_s, card=card)))
+    check(phase_s <= X_BUDGET_S, f"(x): {phase_s:.1f} s > {X_BUDGET_S:g} s")
+    return l2, l3, rows
+
+
 def main():
     here = os.path.dirname(os.path.abspath(__file__))
     check(os.path.isdir(os.path.join(here, "mpp_tpu_torch")),
@@ -2318,7 +2777,7 @@ def main():
             attempts=[s["attempts"] for s in steps])))
     print("launches_on_main_path " + json.dumps(
         dict(f64=after64, total=launches)))
-    alm_f64_ms = ms64
+    alm_f64_ms, steps64_alm = ms64, steps64
 
     # (f) card against CPU on a small f64 problem
     gpu = run_alm(torch, alm, torch.float64, 1, "cuda", ncol=64)[1]
@@ -2454,6 +2913,13 @@ def main():
     by_path["vsfm_celia_compiled"], rows = run_serial(torch, hk, tridiag,
                                                       card)
     checks += rows
+
+    # (x): the TH-SPAC network, the UGDM lateral ALM step (one process and
+    # an NCCL group of one rank, each counted), the MLC bridge, Krylov
+    by_path["alm_ugdm"], by_path["alm_ugdm_nccl"], rows = run_slices_f2_g(
+        torch, hk, tridiag, alm, card,
+        dict(ms=alm_f64_ms, syncs=[s["host_syncs"] for s in steps64_alm]))
+    checks += rows
     for name in ("thomas", "tridiag_spmv", "tridiag_spmv_mixed"):
         results[name]["launches_by_path"] = {
             path: counts.get(name, 0) for path, counts in by_path.items()}
@@ -2468,7 +2934,8 @@ def main():
         print("kernel_check " + json.dumps(r))
     for r in (esc_busy, thermal_busy, *th_busy, *canopy_busy,
               *mlc_busy):
-        r["device_busy"] = r["step_device_ms"] / r["ms_per_step"]
+        r["device_busy"] = None if r["step_device_ms"] is None \
+            else r["step_device_ms"] / r["ms_per_step"]
         print("step_device " + json.dumps(r))
     print("profiler_after " + json.dumps(dict(
         alm_f64_ms_per_step=[alm_f64_ms, run_alm(torch, alm, torch.float64,

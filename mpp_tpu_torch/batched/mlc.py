@@ -24,6 +24,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from mpp_tpu_torch.constants import HVAP, MM_H2O
@@ -76,6 +77,70 @@ class MLCBlockInputs(NamedTuple):
     bc_T: torch.Tensor
     bc_q: torch.Tensor
     vol_air: torch.Tensor         # [] cell volume (dz_cair)
+
+
+def inputs_from_mpp(mpp, device=None) -> MLCBlockInputs:
+    """Convert a staged serial ``MLCMPP`` (after ``pre_solve`` +
+    ``get_from_soe_auxvars_cturb``) into batched block inputs: f64 tensors
+    on ``device``, the MPP's own device unless given one."""
+    device = mpp.device if device is None else device
+    nc, nlev, nt = mpp.ncair, mpp.nlev, mpp.ntree
+    ns = 2 * nt
+
+    def f(a, shape=None):
+        a = np.asarray(a, np.float64)
+        return torch.as_tensor(a if shape is None else a.reshape(shape),
+                               device=device)
+
+    if not bool(np.all(mpp.at_is_soil.reshape(nc, nlev)[:, 0])):
+        raise ValueError("level 0 must be the soil cell")
+
+    # leaf GE cell (icair, itree, k) -> [ncair, nlev, slot]
+    leaf_T = np.zeros((nc, nlev, ns))
+    leaf_own = {k: np.zeros((nc, nlev, ns))
+                for k in ("gbh", "gbv", "rn", "cp")}
+    for r in (0, 1):
+        ge = mpp.leaf[r]
+        vals = ge["T"].reshape(nc, nt, nlev)
+        for it in range(nt):
+            leaf_T[:, :, r * nt + it] = vals[:, it, :]
+            for k in leaf_own:
+                leaf_own[k][:, :, r * nt + it] = \
+                    ge[k].reshape(nc, nt, nlev)[:, it, :]
+    col0 = lambda a: f(np.asarray(a).reshape(nc, nlev)[:, 0])
+
+    return MLCBlockInputs(
+        at_T=f(mpp.at_T, (nc, nlev)),
+        av_q=f(mpp.av_q, (nc, nlev)),
+        leaf_T=f(leaf_T),
+        cpair=col0(mpp.at_cpair),
+        rhomol=col0(mpp.at_rhomol),
+        pref=col0(mpp.at_pref),
+        leaf_cpair=f(float(mpp.leaf[0]["cpair"][0])),
+        leaf_pref=f(float(mpp.leaf[0]["pref"][0])),
+        soil_rhg=col0(mpp.at_soil_rhg),
+        soil_rn=col0(mpp.at_soil_rn),
+        soil_tk=col0(mpp.at_soil_tk),
+        soil_dz=col0(mpp.at_soil_dz),
+        soil_res=col0(mpp.at_soil_resis),
+        soil_T=col0(mpp.at_soil_T),
+        gbh_air=f(mpp.at_gbh, (nc, nlev, ns)),
+        gbv_air=f(mpp.av_gbv, (nc, nlev, ns)),
+        leaf_gs=f(mpp.at_leaf_gs, (nc, nlev, ns)),
+        leaf_fwet=f(mpp.at_leaf_fwet, (nc, nlev, ns)),
+        leaf_fdry=f(mpp.at_leaf_fdry, (nc, nlev, ns)),
+        leaf_fssh=f(mpp.at_leaf_fssh, (nc, nlev, ns)),
+        leaf_dpai=f(mpp.at_leaf_dpai, (nc, nlev, ns)),
+        leaf_gbh=f(leaf_own["gbh"]),
+        leaf_gbv=f(leaf_own["gbv"]),
+        leaf_rn=f(leaf_own["rn"]),
+        leaf_cp=f(leaf_own["cp"]),
+        conn_ga=f(mpp.at_conn_ga, (nc, nlev - 1)),
+        bc_ga=f(mpp.at_bc_ga, (nc,)),
+        bc_T=f(mpp.at_bc_T, (nc,)),
+        bc_q=f(mpp.av_bc_q, (nc,)),
+        vol_air=f(float(mpp._compute_vol_air()[0])),
+    )
 
 
 def _soil_coeffs(inp: MLCBlockInputs):

@@ -160,9 +160,11 @@ def _dispatch(problem_type: str, opts: dict, device="cuda"):
         return lambda base, nc: p.output_regression(mpp, base, nc)
 
     if problem_type == "th_manoli2014":
-        raise NotImplementedError(
-            "th_manoli2014 needs models/th_spac.py, not ported yet "
-            "(ROADMAP Slice F2)")
+        from mpp_tpu_torch.problems import th_manoli2014 as p
+        p.run_th_manoli2014_problem(
+            dtime=float(opts.get("dt", 8640.0)),
+            nstep=int(opts.get("nstep", 3)), **dev)
+        return lambda base, nc: None
 
     if problem_type == "heat_transport_1D_with_advection":
         from mpp_tpu_torch.problems import th as p

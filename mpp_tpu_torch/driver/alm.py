@@ -23,10 +23,20 @@ per-column mass balance in f64 and unpacks the results to CLM arrays.
   column and, if violated, tighten rtol or stol by 10x according to the
   converged reason and re-solve.
 * Lateral connectivity, the operator-split 'source_sink' model
-  (ibid:465-532): the columns form a ring over the batch axis with
-  edge-replicated ends; the lateral flux -g*((P-left)+(P-right)) of the
-  pre-step pressures is staged as the Lateral_flux SS condition and
-  returned as ``qflx_lateral`` [mm/s].
+  (ibid:465-532): the lateral flux of the pre-step pressures is staged as
+  the Lateral_flux SS condition and returned as ``qflx_lateral`` [mm/s].
+  By default the columns form a ring over the batch axis with
+  edge-replicated ends, flux -g*((P-left)+(P-right)); with ``ugrid`` (a
+  ``parallel.ugrid.UGrid``) the flux is the per-level lateral Darcy flux
+  over the grid's edges, computed on the device from the UGDM's edge
+  lists.
+* Column parallelism (``device_mesh``, a ``parallel.distributed.
+  ColumnGroup``): each rank holds its own block of columns (the
+  reference's begc:endc, mpp_bounds.F90:9-27) on the group's device and
+  exchanges boundary columns for the lateral flux; every decision of the
+  retry ladder (convergence, the audit, the tightened criterion) is
+  all-reduced first, so every rank runs the same attempts and the same
+  collectives.
 * Per-column f64 escalation of f32 state (beyond the reference, which is
   f64 throughout): columns whose audit error stays at or above the
   threshold (the f32 evaluation floor) are gathered, re-solved from the
@@ -42,10 +52,6 @@ predicates; the output's ``host_round_trips_per_step`` and
 
 Level convention: arrays are [ncol, nz] with level 0 at the column BOTTOM
 and level nz-1 at the surface; ``zi`` is top-first.
-
-Not ported yet (raise ``NotImplementedError``, ROADMAP Slice G): the
-general-graph (UGDM, ``ugrid``) lateral model and column sharding over a
-device mesh (``device_mesh``).
 """
 from __future__ import annotations
 
@@ -53,6 +59,7 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from mpp_tpu_torch.constants import (Cond, GEType, MPPType, Region,
                                      MeshType as MeshKind, DENH2O, FMWH2O,
@@ -64,6 +71,7 @@ from mpp_tpu_torch.ops import eos, satfunc as sf
 from mpp_tpu_torch.ops.snes import (CONVERGED_FNORM_RELATIVE,
                                     CONVERGED_SNORM_RELATIVE)
 from mpp_tpu_torch.batched.vsfm_compiled import compile_vsfm
+from mpp_tpu_torch.parallel.sharding import lateral_flux_op_split
 
 MAX_ITER_COUNT = 10              # MPPVSFMALM_Driver.F90:116 max_iter_count
 STOL_ALTERNATE = 1e-10           # ibid:122 stol_alternate
@@ -97,6 +105,12 @@ class ALMVSFMProblem:
     # per-problem audit threshold [kg] (the reference's 1e-5; an f32
     # throughput mode without escalation relaxes it to its evaluation floor)
     audit_threshold_kg: float = MAX_ABS_MASS_ERROR_COL
+    # the general-graph lateral model: the global grid and its maps on
+    # the problem's device (None: the ring)
+    ugrid: object = None
+    ugdm: object = None
+    # the ranks sharing the column axis (None: one process)
+    group: object = None
     # f64 device copies of area / zi / dz and staged defaults
     consts: dict = dataclasses.field(default_factory=dict, repr=False)
 
@@ -178,18 +192,32 @@ def alm_vsfm_initialize(watsat, hksat, bsw, sucsat, residual_sat, dz, area,
     (MultiPhysicsProbVSFM.F90:367-419): perm = hksat_mm/s * 1e-3 * vish2o
     / (denh2o*g), lambda = 1/bsw, alpha = 1/(sucsat*g).
     ``lateral_connectivity`` couples the columns as a ring with
-    ``lateral_conductance`` [kmol/s/Pa] per pair.  ``escalate_f64``
-    matters only for f32 state: audit-failing columns are re-solved in
-    f64 (``escalate_f64=False`` is the throughput mode, with a relaxed
-    ``audit_threshold_kg``).  The state lives on the card unless
-    ``device="cpu"``."""
-    device = device_of(device)
-    if ugrid is not None or device_mesh is not None:
-        raise NotImplementedError(
-            "the UGDM lateral model (ugrid) and column sharding "
-            "(device_mesh) are not ported yet (ROADMAP Slice G)")
+    ``lateral_conductance`` [kmol/s/Pa] per pair, or with ``ugrid`` over
+    the grid's edges (the arrays staged in the UGDM's padded petsc
+    layout, ``ugdm.natural_to_sharded``).  ``device_mesh`` (a
+    ``ColumnGroup``) makes this rank's problem one block of a column axis
+    shared by the group's ranks: the arrays are this rank's columns (with
+    ``ugrid``, its [n_own, nz] block) and the state lives on the group's
+    device.  ``escalate_f64`` matters only for f32 state: audit-failing
+    columns are re-solved in f64 (``escalate_f64=False`` is the
+    throughput mode, with a relaxed ``audit_threshold_kg``).  The state
+    lives on the card unless ``device="cpu"``."""
+    device = device_of(device_mesh.device if device_mesh is not None
+                       else device)
     watsat = np.asarray(watsat, np.float64)
     ncol, nz = watsat.shape
+    ugdm = None
+    if ugrid is not None:
+        ugdm = ugrid.partition(device_mesh.world_size
+                               if device_mesh is not None else 1)
+        staged = ugdm.n_own if device_mesh is not None \
+            else ugdm.ndev * ugdm.n_own
+        if staged != ncol:
+            raise ValueError(
+                f"ugrid padding ({ugdm.ndev}x{ugdm.n_own}) must match the "
+                f"staged column count {ncol}; stage CLM arrays through "
+                "ugdm.natural_to_sharded")
+        ugdm = ugdm.to(device)
     full = lambda v: np.broadcast_to(np.asarray(v, np.float64), (ncol, nz))
     hksat, bsw, sucsat, residual_sat = (full(hksat), full(bsw),
                                         full(sucsat), full(residual_sat))
@@ -241,7 +269,8 @@ def alm_vsfm_initialize(watsat, hksat, bsw, sucsat, residual_sat, dz, area,
                           include_seepage_bc=include_seepage_bc,
                           lateral_connectivity=lateral_connectivity,
                           lateral_conductance=lateral_conductance,
-                          escalate_f64=escalate_f64)
+                          escalate_f64=escalate_f64, ugrid=ugrid,
+                          ugdm=ugdm, group=device_mesh)
 
 
 def state_from_numpy(P, dyn, *, device, dtype):
@@ -271,13 +300,53 @@ def cell_mass_kg(prob: ALMVSFMProblem, P, dyn=None):
     return g.accum(P, dyn=dyn[0]) * FMWH2O
 
 
+def _cell_kr(prob: ALMVSFMProblem, P):
+    """Relative permeability [ncol, nz] of state P."""
+    return prob.comp.goveqns[0]._cell_aux(P, prob.dyn[0])[2]
+
+
 def _lateral_source(prob: ALMVSFMProblem, P):
     """Operator-split lateral flux [kmol/s] per cell (Driver:465-532,
-    'source_sink'): the ring stencil over the column axis with
-    edge-replicated neighbours, in P's dtype."""
+    'source_sink'), in P's dtype: with a UGDM the per-level lateral Darcy
+    flux over its edges (x-directional permeability), else the ring
+    stencil over the column axis with edge-replicated neighbours; over
+    the problem's group, with the neighbours' columns exchanged."""
+    if prob.ugdm is not None:
+        dz = prob.const(("dz", P.dtype), lambda: torch.as_tensor(
+            prob.dz, dtype=P.dtype, device=P.device))
+        return prob.ugdm.lateral_darcy_source(
+            P, _cell_kr(prob, P), prob.dyn[0]["perm"][..., 0], dz,
+            group=prob.group)
+    if prob.group is not None:
+        return lateral_flux_op_split(P, prob.lateral_conductance,
+                                     prob.group)
     left = torch.cat([P[:1], P[:-1]], dim=0)
     right = torch.cat([P[1:], P[-1:]], dim=0)
     return -prob.lateral_conductance * ((P - left) + (P - right))
+
+
+def _all_ranks(prob: ALMVSFMProblem, worst):
+    """``worst`` (f64 numpy) reduced over the problem's group by MAX: one
+    all_reduce, so that every rank acts on the same values (without a
+    group, ``worst`` itself)."""
+    if prob.group is None:
+        return worst
+    t = torch.as_tensor(worst, dtype=F64, device=prob.device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=prob.group.group)
+    return t.cpu().numpy()
+
+
+def _ladder_diag(prob: ALMVSFMProblem, diag):
+    """The attempt's diagnostics over all ranks: every column converged,
+    the largest audit error and Newton iterations, any FNORM / SNORM
+    relative."""
+    if prob.group is None:
+        return diag
+    worst = diag.copy()
+    worst[0] = 1.0 - worst[0]
+    worst = _all_ranks(prob, worst)
+    worst[0] = 1.0 - worst[0]
+    return worst
 
 
 def _stage_drainage(qflx_drain, zwt, zi, dz, h2osoi_liq, dtime, conv):
@@ -511,7 +580,7 @@ def alm_vsfm_solve(prob: ALMVSFMProblem, dtime,
         attempts += 1
         out = _attempt(prob, P_prev, dyn_base, temperature, frac_liq,
                        frac_ice, forcing, reset_fl, rtol, stol, gate, dtime)
-        diag = out["diag"].cpu().numpy()
+        diag = _ladder_diag(prob, out["diag"].cpu().numpy())
         diag_pulls += 1
         converged = bool(diag[0])
         P = out["P"]
@@ -532,8 +601,10 @@ def alm_vsfm_solve(prob: ALMVSFMProblem, dtime,
                         escalation_dyn(), err_stub, dtime,
                         out["total_flux_col"].cpu().numpy())
                     escalated_cols += nesc
-                    if np.all(np.isfinite(err_np)):
-                        abs_mass_error = float(err_np.max())
+                    worst = float(_all_ranks(prob, np.array(
+                        [np.max(err_np, initial=0.0)]))[0])
+                    if np.isfinite(worst):
+                        abs_mass_error = worst
                         if abs_mass_error < prob.audit_threshold_kg:
                             break
         else:
@@ -544,7 +615,8 @@ def alm_vsfm_solve(prob: ALMVSFMProblem, dtime,
                                     out["mass_beg"].cpu().numpy(),
                                     out["total_flux_col"].cpu().numpy(),
                                     dtime, (out["S_end"], out["bflux"]))
-                abs_mass_error = float(np.max(err_np))
+                abs_mass_error = float(_all_ranks(prob, np.array(
+                    [np.max(err_np)]))[0])
             else:
                 abs_mass_error = float(diag[1])
             if abs_mass_error >= prob.audit_threshold_kg:
@@ -559,7 +631,8 @@ def alm_vsfm_solve(prob: ALMVSFMProblem, dtime,
                         escalation_dyn(), err_np, dtime,
                         out["total_flux_col"].cpu().numpy())
                     escalated_cols += nesc
-                    abs_mass_error = float(err_np.max())
+                    abs_mass_error = float(_all_ranks(prob, np.array(
+                        [err_np.max()]))[0])
                     if abs_mass_error < prob.audit_threshold_kg:
                         break
                 else:

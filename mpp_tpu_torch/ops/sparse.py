@@ -50,9 +50,14 @@ class CSRTemplate:
 
 def csr_template(n_rows: int, n_cols: int, coo_rows, coo_cols) -> CSRTemplate:
     """Build the static CSR sparsity from COO contribution coordinates
-    (sorted-unique keys, the contract of ``mpp_tpu.ops.sparse``)."""
+    (sorted-unique keys, the contract of ``mpp_tpu.ops.sparse``); a
+    coordinate outside the matrix raises ValueError."""
     coo_rows = np.asarray(coo_rows, np.int64)
     coo_cols = np.asarray(coo_cols, np.int64)
+    if coo_rows.size and (coo_rows.min() < 0 or coo_rows.max() >= n_rows
+                          or coo_cols.min() < 0
+                          or coo_cols.max() >= n_cols):
+        raise ValueError("csr_template: coordinate out of range")
     keys = coo_rows * n_cols + coo_cols
     uniq, inv = np.unique(keys, return_inverse=True)
     rows_u = (uniq // n_cols).astype(np.int32)

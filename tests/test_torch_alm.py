@@ -216,15 +216,27 @@ def test_f32_throughput_mode_converges():
 
 
 def test_unported_options_raise():
-    """The UGDM lateral model (ugrid) and column sharding (device_mesh)
-    wait for Slice G; the ring lateral and f32 escalation are ported."""
-    with pytest.raises(NotImplementedError, match="Slice G"):
-        talm.alm_vsfm_initialize(lateral_connectivity=True, ugrid=object(),
-                                 device="cpu", **_soil_kwargs(ncol=2, nz=4))
-    with pytest.raises(NotImplementedError, match="Slice G"):
+    """The UGDM lateral model (ugrid) is ported and runs (column sharding,
+    device_mesh, is held in tests/test_torch_parallel.py and
+    tests/test_torch_multiprocess.py); a grid whose padding does not
+    match the staged columns raises ValueError; the ring lateral and f32
+    escalation are ported."""
+    from mpp_tpu_torch.parallel.ugrid import UGrid
+    with pytest.raises(ValueError, match="padding"):
         talm.alm_vsfm_initialize(lateral_connectivity=True,
-                                 device_mesh=object(), device="cpu",
+                                 ugrid=UGrid.regular_2d(3, 1), device="cpu",
                                  **_soil_kwargs(ncol=2, nz=4))
+    P0 = np.full((2, 4), 3.5355e3)
+    P0[0] = 9.0e4
+    prob = talm.alm_vsfm_initialize(lateral_connectivity=True, P0=P0,
+                                    ugrid=UGrid.regular_2d(2, 1),
+                                    device="cpu",
+                                    **_soil_kwargs(ncol=2, nz=4))
+    out = talm.alm_vsfm_solve(prob, 1800.0)
+    q = out["qflx_lateral"]
+    assert float(q[0]) > 0.0 and float(q[1]) < 0.0
+    assert abs(float(q.sum())) < 1e-10 * float(q.abs().sum())
+    assert out["abs_mass_error_col"] < talm.MAX_ABS_MASS_ERROR_COL
     prob = talm.alm_vsfm_initialize(dtype=torch.float32, device="cpu",
                                     lateral_connectivity=True,
                                     **_soil_kwargs(ncol=2, nz=4))

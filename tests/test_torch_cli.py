@@ -7,8 +7,8 @@ of each section's scale.  The JAX CLI has no ``vsfm_mms`` problem type;
 the port's file for it is held against the JAX package's
 ``run_vsfm_mms_problem`` and ``output_regression``.  Every problem type
 of the JAX CLI's dispatcher (read from the text of ``mpp_tpu/cli.py``)
-reaches a runner of the port, with each problem module stubbed out;
-``th_manoli2014`` raises, naming Slice F2.
+reaches a runner of the port, with each problem module stubbed out,
+``th_manoli2014`` among them.
 """
 import os
 import pathlib
@@ -127,14 +127,10 @@ def test_port_dispatches_every_jax_problem_type(monkeypatch):
                 "canopy_radiation", "photosynthesis", "ml_model",
                 "vsfm_sy1991", "vsfm_wt_dynamics",
                 "vsfm_vchannel_operator_split", "vsfm_manoli2014",
-                "vsfm_spac_mms", "vsfm_mms"):
+                "vsfm_spac_mms", "vsfm_mms", "th_manoli2014"):
         monkeypatch.setattr(pkg, mod, _StubModule(calls), raising=False)
     for pt in types:
         del calls[:]
-        if pt == "th_manoli2014":
-            with pytest.raises(NotImplementedError, match="Slice F2"):
-                tcli._dispatch(pt, {}, "cpu")
-            continue
         writer = tcli._dispatch(pt, {}, "cpu")
         assert callable(writer), pt
         assert calls and calls[0][0].startswith("run_"), pt

@@ -338,11 +338,11 @@ def test_f32_step_converges(mh20):
     assert float(dX[:, :n].max()) < 20.0 and float(dX[:, n:].max()) < 0.05
 
 
-def test_unported_paths_raise(tmp_path):
+def test_unported_paths_raise(tmp_path, monkeypatch):
     """The serial TH SNES (``compiled=False``, the default, and
-    ``THSoE.step_dt``) and ``pressure_ic_file`` are ported; what still
-    raises is an unknown plan (ValueError) and the TH-SPAC problem of
-    Slice F2 (``th_manoli2014``), which names its slice."""
+    ``THSoE.step_dt``), ``pressure_ic_file`` and the TH-SPAC problem
+    (``th_manoli2014``, dispatched by the CLI) are ported and run; what
+    still raises is an unknown plan (ValueError)."""
     mt, _ = tth.run_mass_and_heat(nx=6, nstep=0, device="cpu")
     assert compile_th(mt).plan == "petsc"   # the default plan
     with pytest.raises(ValueError):
@@ -360,8 +360,17 @@ def test_unported_paths_raise(tmp_path):
         device="cpu")
     assert np.isfinite(T).all()
     from mpp_tpu_torch.cli import _dispatch
-    with pytest.raises(NotImplementedError, match="Slice F2"):
-        _dispatch("th_manoli2014", {}, "cpu")
+    from mpp_tpu_torch.models.th_spac import THSpacSoE
+    steps = []
+    step_dt = THSpacSoE.step_dt
+
+    def counted(self, dt, nstep=1):
+        steps.append(step_dt(self, dt, nstep))
+        return steps[-1]
+
+    monkeypatch.setattr(THSpacSoE, "step_dt", counted)
+    writer = _dispatch("th_manoli2014", {"nstep": 1}, "cpu")
+    assert callable(writer) and steps == [(True, 3)]
 
 
 def test_unstepped_problem_is_staged():
