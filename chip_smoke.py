@@ -82,12 +82,14 @@ line is printed):
       converged at every Newton iteration, block_thomas2 launched 0 times,
       the first step's state within TH_PLAN_BOUND of (h)'s direct one, and
       a 64-column f64 step on the card equal to the CPU's (Newton
-      iterations, reasons, X within rtol 1e-9);
+      iterations, reasons, X within rtol 1e-9); every ILU(0)
+      factorization and apply one launch of its kernel, and no other
+      kernel launched;
   (r) vsfm_vchannel at the reference size (20 x 10 x 30 = 6000 cells,
       ncol=1, f64, 3 steps of 8640 s) through "petsc" on the card and on
       the CPU and "direct" (block-Thomas, b = 200) on the card: both plans
       converge, petsc card vs CPU within rtol 1e-9, petsc vs direct within
-      VCH_PLAN_PA;
+      VCH_PLAN_PA; the card's ILU(0) one launch a factorization / apply;
   (s) the 2-D (20 x 20) and 3-D (20 x 20 x 20) thermal MMS through
       compile_ksp("petsc") on the card and the CPU: GMRES converges, the
       solutions within rtol 1e-9 and their errors against the
@@ -97,8 +99,9 @@ line is printed):
       and "direct" (the JAX package's rule picks block-Thomas there),
       card against CPU within rtol 1e-9;
   (u) the batched canopy pipeline (turbulence -> longwave -> LBL ->
-      photosynthesis -> MLC, 93 levels, no hand-written kernel on its
-      path: the launch counters read 0 over the phase):
+      photosynthesis -> MLC, 93 levels; of the hand-written kernels only
+      the ILU(0) pair of the radiation solves, one launch a factorization
+      / apply on the card):
       (u1) f32 at ncair = 4096 (bench.py:968's largest scaling point),
       default forcing, 1 warm and 4 timed staged substeps and one
       12-substep fused hour: ms a substep, column-substeps/s, each stage's
@@ -123,8 +126,9 @@ line is printed):
       use_compiled=True on the card and the CPU: equal GMRES cycles, the
       fluxes within rtol 1e-9, the absorbed fluxes within CANOPY_IABS_REL
       of the largest flux.
-  (v) the serial canopy stack (Slice E2; no hand-written kernel on its
-      path: the launch counters read 0 over the phase):
+  (v) the serial canopy stack (Slice E2; of the hand-written kernels
+      only the ILU(0) pair, one launch a factorization / apply on the
+      card, counted over (v1) and over (v2)-(v3)):
       (v1) the coupled ml_model (run_ml_model_problem: an MLModel and its
       run) at the reference size, one canopy column of 92 air levels +
       soil, medlyn, hours ML_HOURS x 12 substeps of 300 s under the
@@ -163,9 +167,9 @@ line is printed):
       steps cut from the JAX defaults printed;
       (w3) python -m mpp_tpu_torch.cli on a vsfm_mms namelist in its own
       process on the card (started before (w2), read after it), its
-      regression file within SERIAL_RTOL of the CPU CLI's; the counters
-      read 0 over the serial runs, and the phase takes less than
-      SERIAL_BUDGET_S;
+      regression file within SERIAL_RTOL of the CPU CLI's; over the
+      serial runs only the ILU(0) pair launched, once a factorization /
+      apply on the card, and the phase takes less than SERIAL_BUDGET_S;
   (x) Slices F2 and G, within X_BUDGET_S:
       (x1) th_manoli2014 (the 6-GE TH-SPAC network, 500 unknowns, 12
       colors) for 3 steps of 8640 s on the card and, in a worker process
@@ -198,7 +202,19 @@ line is printed):
       serial MPP's own system (at (2, 2) also the dense solve, rtol 1e-9,
       and the serial GMRES step within its stopping tolerance); cg (SPD),
       bicgstab and gmres (SPD and nonsymmetric) at n = 256: equal
-      iterations card vs CPU, solutions within 1e-10; no kernel launched.
+      iterations card vs CPU, solutions within 1e-10; no kernel but the
+      ILU(0) pair launched, once a factorization / apply on the card;
+      (x1)'s card runs launch it the same way;
+  (y) the ILU(0) factor and apply kernels against their plain forms
+      (ilu0_factor bit for bit, ilu0_apply within 1e-12 (f64) / 1e-5
+      (f32) of max |x|) in f64 and f32 at the paths' sparsities and
+      batches (ILU_PATHS: (q)'s TH column at 8192 columns, L2-cold;
+      celia1990's tridiagonal column; th_manoli2014 at scale 1 and 10;
+      (v3)'s 256-column MLC) and at the edges (levels wider than a
+      block's threads, the largest system whose y stays in shared memory
+      and the next size up, inputs not 16-byte aligned); each timed with
+      its plain form; their launches in the kernels line are those
+      counted on the paths above.
 
 Every kernel timing is read twice: ``ms``, CUDA events around back-to-back
 calls of the wrapper (host cost per call included), and ``device_ms``, the
@@ -215,9 +231,11 @@ that no whole profiler window gives is null, not measured, with a
 "device_time_short" line (see device_time); no gate reads one.
 
 The launch counters are reset just before (d) and read just after (e),
-reset just before (u) and read just after it (all zero), the same for
-(v) and for (w)'s serial runs (its compiled celia1990 run is counted
-apart),
+reset just before (u) and read just after it (all zero but the ILU(0)
+pair, whose launches must equal the card's factorizations and applies over
+every BatchedILU0, ilu_gmres.CARD_CALLS), the same for (v) and for (w)'s
+serial runs (its compiled celia1990 run is counted apart), and the ILU(0)
+pair is counted the same way over (q), (r), (s), (t), (x1) and (x4),
 reset just before (h) and read just after (i), reset just before (k)'s
 calls of the ops and read just after them, reset just before (l)'s
 harness run and read just after it, and reset just before each of
@@ -317,8 +335,8 @@ W2_PROBLEMS = {
 }
 # (x): Slices F2 and G. (x1) th_manoli2014 at its reference size (3 steps
 # of 8640 s at scale 1, card and CPU) and at scale 10 the linear solve of
-# one Newton iteration (the step, ~85 s on the card with the one-column
-# ILU(0)'s eager level loops, is cut for X_BUDGET_S); (x2) the
+# one Newton iteration (the step is cut for X_BUDGET_S: the CPU worker's
+# takes about a minute, 331 GMRES iterations); (x2) the
 # UGDM lateral ALM step on a 128 x 128 grid of columns (edges of 10 m,
 # tests/test_alm.py:280 at full width) with (d)'s soils, nz 30, the wet
 # half at 1.0e5 Pa (at that test's 1.06e5 Pa, over the reference pressure,
@@ -353,12 +371,14 @@ SUBNORMAL_TIE_SHAPES = ((8192, 1), (4096, 32), (2048, 64), (1024, 100),
                         (512, 256), (512, 512))
 # the solves' tolerance against their plain versions, of max |x|
 TOLS = {"thomas": {"float64": 1e-12, "float32": 1e-5},
-        "block_thomas2": {"float64": 1e-12, "float32": 2e-5}}
+        "block_thomas2": {"float64": 1e-12, "float32": 2e-5},
+        "ilu0_apply": {"float64": 1e-12, "float32": 1e-5}}
 # the H100 SXM's published peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s,
 # and operations/s outside the tensor cores
 HBM_BYTES_S = 3.35e12
 PEAK_OPS_S = {"float64": 34e12, "float32": 67e12}
 _TRIDIAG = "mpp_tpu_torch/csrc/tridiag_kernels.cu"
+_ILU0 = "mpp_tpu_torch/csrc/ilu0_kernels.cu"
 _FAMILY = "mpp_tpu_torch/csrc/spmv_family_kernels.cu"
 # name in the kernels line: (source, file:line of the TPU kernel's
 # pl.pallas_call), in the order of PERF.md's table
@@ -375,6 +395,9 @@ KERNELS = {
     "spmv_variant_cp": (_FAMILY, "tools/exp_spmv.py:143"),
     "spmv_packed": (_FAMILY, "tools/exp_spmv.py:174"),
     "stream_ceiling": (_FAMILY, "tools/exp_spmv.py:205"),
+    # no pl.pallas_call: the JAX package's lax.scan row sweeps
+    "ilu0_factor": (_ILU0, "mpp_tpu/batched/ilu_gmres.py:140"),
+    "ilu0_apply": (_ILU0, "mpp_tpu/batched/ilu_gmres.py:152,161"),
 }
 # harness variants behind each harness row of the kernels line; the first
 # is the row's representative (its times and error)
@@ -398,6 +421,23 @@ OPS = {"thomas": 8, "tridiag_spmv": 5, "tridiag_spmv_mixed": 5,
        "stream_ceiling": 6}
 
 
+# (y): the ILU(0) kernels at the paths' sparsities ((path, B) as the path
+# runs them; ILU_AT holds the BatchedILU0 that (q) and (v3) built) and at
+# the edges: levels of more rows than a block's threads (600 2x2 blocks),
+# the largest n whose y stays in shared memory and the next one up (2x2
+# blocks), inputs not 16-byte aligned; L2-cold where the caller finds the
+# factor cold (GMRES's Krylov basis at 8192 x 128 is ~260 MB)
+ILU_AT = {}
+ILU_PATHS = (("th_petsc", TH_NCOL, True), ("celia1990", 1, False),
+             ("th_manoli2014", 1, False), ("th_manoli2014_x10", 1, False),
+             ("mlc_compiled", 1, False))
+ILU_WIDE = dict(blocks=600, B=300)
+ILU_SKEWED_B = 1000
+# the ILU(0) factorizations and applies on the card of each counted path,
+# each one launch of its kernel (ilu_since)
+ILU_BY_PATH = {}
+
+
 def fail(msg):
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
     sys.exit(1)
@@ -414,21 +454,22 @@ PENDING = []
 AGAIN = {}
 
 
-def later(fn, reps, *rows, key="device_ms", count_key=None, windows=1):
-    """Queue ``device_time(fn, reps, windows=windows)``; settle() writes its
-    reading into ``row[key]`` of every row of ``rows``, and with
-    ``count_key`` the device activities (kernels, copies, fills) of one
-    call into ``row[count_key]``."""
+def later(fn, reps, *rows, key="device_ms", count_key=None, windows=1,
+          exclude=()):
+    """Queue ``device_time(fn, reps, windows=windows, exclude=exclude)``;
+    settle() writes its reading into ``row[key]`` of every row of
+    ``rows``, and with ``count_key`` the device activities (kernels,
+    copies, fills) of one call into ``row[count_key]``."""
     for row in rows:
         row[key] = None
-    PENDING.append((fn, reps, rows, key, count_key, windows))
+    PENDING.append((fn, reps, rows, key, count_key, windows, exclude))
 
 
 def settle(torch):
     """Take the queued device-time readings."""
-    for fn, reps, rows, key, count_key, windows in PENDING:
+    for fn, reps, rows, key, count_key, windows, exclude in PENDING:
         ms, count = device_time(torch, fn, reps, with_count=True,
-                                windows=windows)
+                                windows=windows, exclude=exclude)
         for row in rows:
             row[key] = ms
             if count_key:
@@ -540,7 +581,50 @@ def time_cuda(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def device_time(torch, fn, reps, tries=6, with_count=False, windows=1):
+_FLUSH = []
+
+
+def l2_flusher(torch):
+    """A call that evicts the card's 50 MB L2: one 128 MB device-to-device
+    copy (a "Memcpy DtoD" activity, which the cold readings leave out);
+    its buffers are made once."""
+    if not _FLUSH:
+        src = torch.zeros(16 << 20, dtype=torch.float64, device="cuda")
+        _FLUSH.append(partial(torch.empty_like(src).copy_, src))
+    return _FLUSH[0]
+
+
+FLUSH_ACTIVITY = ("Memcpy DtoD",)
+
+
+def time_cold(torch, fn, reps, flush):
+    """Mean milliseconds of ``fn()`` with the L2 flushed before each call:
+    CUDA events around each call alone (its launch is queued behind the
+    flush, so the host's cost of the call is mostly hidden)."""
+    fn()
+    evs = []
+    for _ in range(reps):
+        flush()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        fn()
+        ev[1].record()
+        evs.append(ev)
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in evs) / reps
+
+
+def cold_call(flush, fn):
+    """``fn`` behind an L2 flush, for device_time(..., exclude=
+    FLUSH_ACTIVITY)."""
+    def call():
+        flush()
+        return fn()
+    return call
+
+
+def device_time(torch, fn, reps, tries=6, with_count=False, windows=1,
+                exclude=()):
     """Mean device milliseconds of one ``fn()``: the summed durations of the
     device activities (kernels, copies, fills) that torch.profiler (CUPTI)
     records over ``reps`` runs, after two warm-up runs, divided by
@@ -561,6 +645,8 @@ def device_time(torch, fn, reps, tries=6, with_count=False, windows=1):
     seldom agree twice in a row on their record counts): read that many
     whole windows and keep the one with the most records, since a lost
     record only shortens a window.
+    Activities whose name holds a string of ``exclude`` (the L2 flush of
+    a cold call, see l2_flusher) are left out like the spins.
     Returns None, and prints a "device_time_short" line with the record
     counts of every try, when no window is whole: the reading is then not
     measured, never taken from a short window.
@@ -590,7 +676,7 @@ def device_time(torch, fn, reps, tries=6, with_count=False, windows=1):
                 continue
             if "spin_kernel" in e.name:
                 spins += 1
-            else:
+            elif not any(x in e.name for x in exclude):
                 by_name.setdefault(e.name, []).append(
                     e.time_range.elapsed_us())
         return by_name, spins
@@ -618,6 +704,46 @@ def device_time(torch, fn, reps, tries=6, with_count=False, windows=1):
     if with_count:
         return ms, n // reps
     return ms
+
+
+def ilu_mark(hk):
+    """The ILU(0) counters now: the kernels' launches, and the card's
+    factorizations / applies over every BatchedILU0."""
+    from mpp_tpu_torch.batched.ilu_gmres import CARD_CALLS
+    return dict(hk.LAUNCHES), dict(CARD_CALLS)
+
+
+def ilu_since(hk, path, mark, only_ilu=False, required=True, steps=None,
+              instance=None):
+    """Fail unless every ILU(0) factorization and apply on the card since
+    ``mark`` was one launch of its kernel (and, ``required``, there was one
+    of each at least); with ``only_ilu`` unless no other kernel launched;
+    with ``instance`` = (a BatchedILU0, its factors and applies at the
+    mark) unless its counters moved as far.  Records the launches under
+    ``path`` (per step with ``steps``) and returns them."""
+    (l0, c0), (l1, c1) = mark, ilu_mark(hk)
+    calls = {k: c1[k] - c0[k] for k in c1}
+    launched = {k: l1[f"ilu0_{k}"] - l0[f"ilu0_{k}"] for k in c1}
+    check(launched == calls, f"{path}: ILU(0) launches {launched} against "
+          f"the card's factorizations / applies {calls}")
+    check(not required or min(calls.values()) > 0,
+          f"{path}: no ILU(0) factorization or apply on the card: {calls}")
+    if instance is not None:
+        ilu, f0, a0 = instance
+        moved = {"factor": ilu.factors - f0, "apply": ilu.applies - a0}
+        check(moved == launched, f"{path}: BatchedILU0 counted {moved}, "
+              f"the kernels launched {launched}")
+    if only_ilu:
+        rest = {k: l1[k] - l0[k] for k in l1
+                if not k.startswith("ilu0_") and l1[k] != l0[k]}
+        check(not rest, f"{path}: launched kernels off the ILU(0) pair: "
+              f"{rest}")
+    row = dict(path=path, launches=launched)
+    if steps:
+        row["per_step"] = {k: v / steps for k, v in launched.items()}
+    ILU_BY_PATH[path] = row
+    print("ilu_launches " + json.dumps(row))
+    return launched
 
 
 def misaligned(torch, a):
@@ -729,10 +855,17 @@ def kernel_checks(torch, hk, tridiag):
                                      or name == "tridiag_spmv_mixed")
                 targets = [rows[-1]]
                 if main:
+                    # the main rows also with the L2 flushed before each
+                    # call: their inputs (< 50 MB) stay in it otherwise
+                    flush = l2_flusher(torch)
+                    row["ms_cold"] = time_cold(torch, kern, 20, flush)
+                    rows[-1]["ms_cold"] = row["ms_cold"]
                     results[name] = dict(shape=list(shape), dtype=dt_name,
                                          **row)
                     targets.append(results[name])
                     AGAIN[name] = (kern, row["ms"])
+                    later(cold_call(flush, kern), 20, *targets,
+                          key="device_ms_cold", exclude=FLUSH_ACTIVITY)
                 later(kern, 20, *targets)
                 if name == "tridiag_spmv":
                     library_spmv(torch, dl, d, du, x, yp, 10 * tol, *targets)
@@ -1425,12 +1558,15 @@ def run_th_petsc(torch, hk, mpp, comp_direct, X0_np, X1_direct):
     from mpp_tpu_torch.batched.th_compiled import compile_th
     comp = compile_th(mpp)
     check(comp.plan == "petsc", f"(q): plan {comp.plan}")
+    ilu = ILU_AT["th_petsc"] = comp._ilu
     hk.reset_launches()
+    mark, inst = ilu_mark(hk), (ilu, ilu.factors, ilu.applies)
     X, ms, steps, setup_s, dm, X1 = run_th(
         torch, comp, X0_np, torch.float64, TH_PETSC_STEPS, "cuda", TH_NCOL)
     launches = dict(hk.LAUNCHES)
     per_step = TH_PETSC_STEPS + 1
-    ilu = comp._ilu
+    ilu_since(hk, "th_petsc", mark, only_ilu=True, steps=per_step,
+              instance=inst)
     counts = dict(factors_per_step=ilu.factors / per_step,
                   applies_per_step=ilu.applies / per_step)
     check(launches["block_thomas2"] == 0,
@@ -1470,7 +1606,8 @@ def run_th_petsc(torch, hk, mpp, comp_direct, X0_np, X1_direct):
         launches=launches, **counts)))
     # the step's parts at its first Newton iteration, each timed alone
     # (CUDA events, host cost included): the Jacobian, the ILU(0) factor,
-    # one preconditioner apply, one ELL SpMV and the whole GMRES solve
+    # one preconditioner apply (each one kernel launch), one ELL SpMV and
+    # the whole GMRES solve
     Xs, bc, ss, dyn = th_inputs(torch, comp, X0_np, TH_NCOL, "cuda",
                                 torch.float64)
     dt_col = torch.full((TH_NCOL, 1), TH_DT, dtype=torch.float64,
@@ -1483,7 +1620,6 @@ def run_th_petsc(torch, hk, mpp, comp_direct, X0_np, X1_direct):
         jacobian_ms=time_cuda(torch, partial(comp._jac, Xs, bc, ss, dt_col,
                                              dyn), 5),
         factor_ms=time_cuda(torch, partial(ilu.factor, data), 5),
-        prepare_ms=time_cuda(torch, partial(ilu.prepare, prep.f), 5),
         apply_ms=time_cuda(torch, partial(ilu.solve, prep, F), 5),
         ell_spmv_ms=time_cuda(torch, partial(comp._ell, data, F), 5),
         gmres_solve_ms=time_cuda(torch, partial(comp._csr_solve, data, F),
@@ -1502,9 +1638,9 @@ def run_th_petsc(torch, hk, mpp, comp_direct, X0_np, X1_direct):
     return rows
 
 
-def run_vchannel(torch):
+def run_vchannel(torch, hk):
     """Phase (r): vsfm_vchannel at the reference size under "petsc" (card
-    and CPU) and "direct" (card)."""
+    and CPU, the card's ILU(0) counted) and "direct" (card)."""
     from mpp_tpu_torch.constants import AuxVarKind, Var
     from mpp_tpu_torch.problems import vsfm_vchannel as vch
     P, info = {}, {}
@@ -1520,6 +1656,10 @@ def run_vchannel(torch):
         check(comp.plan == ("petsc" if plan == "petsc" else "block"),
               f"(r): {plan} took the {comp.plan} plan")
         sync(torch, device)
+        counted = plan == "petsc" and device == "cuda"
+        if counted:
+            mark = ilu_mark(hk)
+            inst = (comp._ilu, comp._ilu.factors, comp._ilu.applies)
         t0 = time.perf_counter()
         reasons = []
         for istep in range(1, VCH_STEPS + 1):
@@ -1528,6 +1668,9 @@ def run_vchannel(torch):
             reasons.append(reason)
         sync(torch, device)
         ms = (time.perf_counter() - t0) / VCH_STEPS * 1e3
+        if counted:
+            ilu_since(hk, "vchannel_petsc", mark, steps=VCH_STEPS,
+                      instance=inst)
         its = mpp.soe.cumulative_newton_iterations
         P[plan, device] = mpp.get_data(AuxVarKind.INTERNAL, Var.PRESSURE)
         info[f"{plan}_{device}"] = dict(
@@ -1682,6 +1825,7 @@ def run_canopy(torch, hk):
     from mpp_tpu_torch.problems import canopy_radiation as cr
     from mpp_tpu_torch.problems.ml_model import synthetic_diurnal_bc
     hk.reset_launches()
+    mark = ilu_mark(hk)
     t_u = time.perf_counter()
 
     # (u1) f32 at full width: substeps, stages, the fused hour
@@ -1816,8 +1960,7 @@ def run_canopy(torch, hk):
     print("canopy_radiation " + json.dumps(res))
 
     launches = dict(hk.LAUNCHES)
-    check(not any(launches.values()),
-          f"(u): the canopy path launched a hand-written kernel: {launches}")
+    ilu_since(hk, "canopy", mark, only_ilu=True, required=False)
     print("launches_on_canopy_path " + json.dumps(dict(
         launches=launches, phase_s=time.perf_counter() - t_u)))
     return [busy]
@@ -1929,9 +2072,13 @@ def run_mlc(torch, hk):
     mid = (beg + end) // 2
     with tempfile.TemporaryDirectory() as d:
         runs = {}
+        mark = ilu_mark(hk)
         for device in ("cuda", "cpu"):
             os.makedirs(f"{d}/{device}")
             runs[device] = run_ml_model(torch, tml, device, f"{d}/{device}")
+        ilu_since(hk, "ml_model", mark, only_ilu=True,
+                  steps=(end - beg + 1) * ML_NSUBSTEP)
+        mark = ilu_mark(hk)
         model, states, walls = runs["cuda"]
         ml_model_envelope(states[mid], model.nbot, f"(v1) hour {mid}")
         rep = model.timers.report()
@@ -2040,6 +2187,7 @@ def run_mlc(torch, hk):
     sync(torch)
     build_s = time.perf_counter() - t0
     comp = mpp.soe.step_dt.__self__
+    ILU_AT["mlc_compiled"] = comp._ilu
     c0 = (comp.gmres_cycles, comp._ilu.factors, comp._ilu.applies,
           comp.host_syncs)
     t0 = time.perf_counter()
@@ -2095,9 +2243,7 @@ def run_mlc(torch, hk):
           count_key="device_activities_per_step", windows=2)
 
     launches = dict(hk.LAUNCHES)
-    check(not any(launches.values()),
-          f"(v): the MLC / ml_model path launched a hand-written kernel: "
-          f"{launches}")
+    ilu_since(hk, "mlc", mark, only_ilu=True)
     print("launches_on_mlc_path " + json.dumps(dict(
         launches=launches, phase_s=time.perf_counter() - t_v)))
     return [busy]
@@ -2185,6 +2331,7 @@ def run_serial(torch, hk, tridiag, card):
     import importlib
     t_w = time.perf_counter()
     hk.reset_launches()
+    mark = ilu_mark(hk)
 
     # (w1) celia1990 through the serial SNES, card and CPU
     w1 = W1_CELIA
@@ -2195,9 +2342,8 @@ def run_serial(torch, hk, tridiag, card):
     row.update(nz=w1["nz"], dt=w1["dt"], jax_default_steps=w1["ref_steps"],
                cut=f"{w1['serial_steps']} of {w1['ref_steps']} steps")
     print("serial_w1 " + json.dumps(row))
-    serial_launches = dict(hk.LAUNCHES)
-    check(not any(serial_launches.values()),
-          f"(w1): the serial SNES launched a kernel: {serial_launches}")
+    ilu_since(hk, "celia1990_serial", mark, only_ilu=True,
+              steps=w1["serial_steps"])
 
     # (w1) use_compiled=True: thomas and tridiag_spmv at [1, nz] f64,
     # counted, and held to their plain forms at the shapes they got
@@ -2258,6 +2404,7 @@ def run_serial(torch, hk, tridiag, card):
         # in a worker process of its own while the card runs here, so its
         # ms per step are taken under that load
         hk.reset_launches()
+        mark = ilu_mark(hk)
         t2 = time.perf_counter()
         ctx = multiprocessing.get_context("spawn")
         with ProcessPoolExecutor(max_workers=W2_CPU_WORKERS,
@@ -2311,8 +2458,7 @@ def run_serial(torch, hk, tridiag, card):
     check(rel <= SERIAL_RTOL, f"(w3): the card's regression file is "
           f"{rel:.3e} from the CPU's > {SERIAL_RTOL:g}")
     serial_launches = dict(hk.LAUNCHES)
-    check(not any(serial_launches.values()),
-          f"(w2)/(w3): the serial path launched a kernel: {serial_launches}")
+    ilu_since(hk, "vsfm_serial_w2_w3", mark, only_ilu=True)
     phase_s = time.perf_counter() - t_w
     print("serial_w3 " + json.dumps(dict(
         problem="vsfm_mms", cli_process_s_beside_w2=cli_s,
@@ -2390,7 +2536,7 @@ def th_spac_cpu_solve(scale, dt, threads):
         torch, tm.build_th_manoli2014(scale=scale, device="cpu").soe, dt)
 
 
-def run_th_spac(torch, card, pool):
+def run_th_spac(torch, hk, card, pool):
     """Phase (x1): th_manoli2014 at its reference size on the card against
     the CPU (run in ``pool``'s worker meanwhile), its conservation, its
     colored Jacobian against torch.func.jacfwd on the card, and at scale 10
@@ -2403,7 +2549,10 @@ def run_th_spac(torch, card, pool):
     mpp = tm.build_th_manoli2014(device="cuda")
     soe = mpp.soe
     m0, e0 = soe.totals(soe.soln)
+    mark = ilu_mark(hk)
     g = th_spac_steps(torch, mpp, x1["steps"], x1["dt"])
+    ilu_since(hk, "th_manoli2014", mark, only_ilu=True, steps=x1["steps"],
+              instance=(soe._jac_plan["ilu"].batched, 0, 0))
     c = job.result()
     rel = 0.0
     for k, (a, b) in enumerate(zip(g, c)):
@@ -2442,7 +2591,9 @@ def run_th_spac(torch, card, pool):
     big = x1["big_scale"]
     job = pool.submit(th_spac_cpu_solve, big, x1["dt"], W2_CPU_THREADS)
     bs = tm.build_th_manoli2014(scale=big, device="cuda").soe
+    mark = ilu_mark(hk)
     gs = th_spac_newton_solve(torch, bs, x1["dt"])
+    ilu_since(hk, "th_manoli2014_x10_solve", mark, only_ilu=True)
     cs = job.result()
     check(gs[1] and cs[1], f"(x1) scale {big}: GMRES did not converge")
     check(gs[0] == cs[0], f"(x1) scale {big}: GMRES iterations card "
@@ -2706,21 +2857,159 @@ def run_slices_f2_g(torch, hk, tridiag, alm, card, alm_row):
     t_x = time.perf_counter()
     ctx = multiprocessing.get_context("spawn")
     with ProcessPoolExecutor(max_workers=1, mp_context=ctx) as pool:
-        run_th_spac(torch, card, pool)
+        run_th_spac(torch, hk, card, pool)
     t1 = time.perf_counter()
     hk.reset_launches()
     l2, l3, rows = run_ugdm(torch, hk, tridiag, alm, card, alm_row)
     t2 = time.perf_counter()
     hk.reset_launches()
+    mark = ilu_mark(hk)
     run_small_modules(torch, card)
-    small = dict(hk.LAUNCHES)
-    check(not any(small.values()), f"(x4): a kernel launched: {small}")
+    ilu_since(hk, "mlc_bridge_krylov", mark, only_ilu=True, required=False)
     phase_s = time.perf_counter() - t_x
     print("slices_f2_g_phase_s " + json.dumps(dict(
         x1=t1 - t_x, x2_x3=t2 - t1, x4=time.perf_counter() - t2,
         total=phase_s, card=card)))
     check(phase_s <= X_BUDGET_S, f"(x): {phase_s:.1f} s > {X_BUDGET_S:g} s")
     return l2, l3, rows
+
+
+def ilu_systems(ilu, B, seed):
+    """Random systems on ``ilu``'s sparsity (numpy seed): off-diagonals in
+    [-1, -0.05), diagonals 1.05-2 times one plus the row's off-diagonal
+    sum (M-matrices like the paths' Jacobians; a row with no off-diagonal,
+    as the MLC has, gets a diagonal of 1.05-2); returns (data [B, nnz], b
+    [B, n]) in f64."""
+    rows = np.repeat(np.arange(ilu.n), np.diff(ilu.indptr))
+    rng = np.random.default_rng(seed)
+    data = -rng.uniform(0.05, 1.0, (B, ilu.nnz))
+    diag = rows == ilu.indices
+    dsum = np.add.reduceat(np.where(diag, 0.0, data), ilu.indptr[:-1],
+                           axis=1)
+    data[:, diag] = (1.0 - dsum) * rng.uniform(1.05, 2.0, (B, ilu.n))
+    return data, rng.standard_normal((B, ilu.n))
+
+
+def ilu_work(name, ilu, B, elem):
+    """(bytes, operations) of one call: inputs read once (the schedule
+    too), outputs written once; a multiplier is a division, a pair a
+    multiply and a subtract, an off-diagonal term of a sweep a multiply
+    and an add, a row one subtract (and in the back sweep a divide)."""
+    s = ilu.schedule
+    if name == "ilu0_factor":
+        return (2 * B * ilu.nnz * elem + 4 * s.factor.size,
+                B * (s.ptrs["lp_ptr"][-1] + 2 * s.ptrs["pair_ptr"][-1]))
+    return (B * (ilu.nnz + 2 * ilu.n) * elem + 4 * s.apply.size,
+            B * (2 * (ilu.nnz - ilu.n) + s.ptrs["f_row_ptr"][-1]
+                 + 2 * ilu.n))
+
+
+def ilu_block_diagonal(nblocks):
+    """A BatchedILU0 on ``nblocks`` dense 2x2 diagonal blocks: two levels
+    of ``nblocks`` rows a sweep, one factor step of ``nblocks`` rows."""
+    from mpp_tpu_torch.batched.ilu_gmres import BatchedILU0
+    k = np.arange(4 * nblocks)
+    return BatchedILU0(np.arange(0, 4 * nblocks + 1, 2),
+                       2 * (k // 4) + k % 2)
+
+
+def ilu_case(torch, hk, path, ilu, B, dt_name, cold=False, skew=False):
+    """Phase (y) at one shape: ilu0_factor against its plain form bit for
+    bit, ilu0_apply (on the kernel's factor) within TOLS; both timed
+    (``ms``, CUDA events back to back; with ``cold`` also ``ms_cold`` and
+    ``device_ms_cold``, the L2 flushed before each call), their plain
+    forms timed, their device time queued.  Returns the two rows."""
+    dtype = getattr(torch, dt_name)
+    data_np, b_np = ilu_systems(ilu, B, seed=B + ilu.n)
+    data, b = (torch.as_tensor(a, dtype=dtype, device="cuda")
+               for a in (data_np, b_np))
+    if skew:
+        data, b = misaligned(torch, data), misaligned(torch, b)
+    sched = ilu.schedule
+    label = f"{path} {[B, ilu.n]} {dt_name}{' misaligned' if skew else ''}"
+    f = hk.ilu0_factor(data, sched)
+    err_f, scale_f = hold(torch, f"ilu0_factor {label}", f,
+                          hk.ilu0_factor_plain(data, sched), 0)
+    if skew:
+        f = misaligned(torch, f)
+    tol = TOLS["ilu0_apply"][dt_name]
+    err_x, scale_x = hold(torch, f"ilu0_apply {label}",
+                          hk.ilu0_apply(f, b, sched),
+                          hk.ilu0_apply_plain(f, b, sched), tol)
+    big = ilu.n * B > 10 ** 5 or ilu.levels_fwd > 1000
+    rows = []
+    for name, args, err, scale, rtol in (
+            ("ilu0_factor", (data, sched), err_f, scale_f, 0),
+            ("ilu0_apply", (f, b, sched), err_x, scale_x, tol)):
+        kern = partial(getattr(hk, name), *args)
+        plain = partial(getattr(hk, name + "_plain"), *args)
+        nbytes, ops = ilu_work(name, ilu, B, data.element_size())
+        bms, by = bound(nbytes, ops, dt_name)
+        row = dict(kernel=name, path=path, shape=[B, ilu.n], nnz=ilu.nnz,
+                   dtype=dt_name, misaligned=skew,
+                   levels=[ilu.levels_fwd, ilu.levels_bwd],
+                   factor_steps=int(sched.factor[0]),
+                   threads=(sched.factor_threads if name == "ilu0_factor"
+                            else sched.apply_threads),
+                   max_abs_err=err, max_abs_x=scale, rel_tol=rtol,
+                   bitwise=rtol == 0, ms=time_cuda(torch, kern, 10),
+                   plain_ms=time_cuda(torch, plain, 1 if big else 3),
+                   library_ms=None, library_device_ms=None, bytes=nbytes,
+                   ops=ops, bound_ms=bms, bound_by=by)
+        if cold:
+            flush = l2_flusher(torch)
+            row["ms_cold"] = time_cold(torch, kern, 10, flush)
+            later(cold_call(flush, kern), 10, row, key="device_ms_cold",
+                  exclude=FLUSH_ACTIVITY)
+        later(kern, 10, row)
+        rows.append(row)
+    return rows
+
+
+def ilu_kernel_checks(torch, hk):
+    """Phase (y): both ILU(0) kernels against their plain forms on the
+    card at the paths' sparsities and at the edges, f64 and f32.  Returns
+    (the kernel_check rows, the kernels line's entries: (q)'s shape in
+    f64, L2-cold)."""
+    from mpp_tpu_torch.batched.ilu_gmres import BatchedILU0
+    from mpp_tpu_torch.ops.sparse import csr_template
+    from mpp_tpu_torch.problems import th_manoli2014 as tm
+
+    def manoli(scale):
+        soe = tm.build_th_manoli2014(scale=scale, device="cpu").soe
+        soe._build_jac_plan()
+        return soe._jac_plan["ilu"].batched
+    k = np.arange(W1_CELIA["nz"])
+    tri = csr_template(len(k), len(k), np.r_[k, k[1:], k[:-1]],
+                       np.r_[k, k[:-1], k[1:]])
+    ILU_AT.update(celia1990=BatchedILU0(tri.indptr, tri.indices),
+                  th_manoli2014=manoli(1),
+                  th_manoli2014_x10=manoli(X1_TH_SPAC["big_scale"]))
+    t0 = time.perf_counter()
+    rows, results = [], {}
+    for path, B, cold in ILU_PATHS:
+        for dt_name in ("float64", "float32"):
+            got = ilu_case(torch, hk, path, ILU_AT[path], B, dt_name, cold)
+            rows += got
+            if path == "th_petsc" and dt_name == "float64":
+                results = {r["kernel"]: r for r in got}
+    t1 = time.perf_counter()
+    wide = ilu_block_diagonal(ILU_WIDE["blocks"])
+    check(wide.levels_fwd == 2 and ILU_WIDE["blocks"] > hk.ILU0_MAX_THREADS,
+          "(y): the wide edge has no level wider than a block")
+    for dt_name in ("float64", "float32"):
+        # the largest even n whose y fits shared memory, and n + 2
+        top = hk.max_on_chip("ilu0_apply", getattr(torch, dt_name))
+        edges = [("edge_wide_levels", wide, ILU_WIDE["B"], False),
+                 ("edge_shared_top", ilu_block_diagonal(top // 2), 2, False),
+                 ("edge_past_shared", ilu_block_diagonal(top // 2 + 1), 2,
+                  False),
+                 ("edge_misaligned", ILU_AT["th_petsc"], ILU_SKEWED_B, True)]
+        for path, ilu, B, skew in edges:
+            rows += ilu_case(torch, hk, path, ilu, B, dt_name, skew=skew)
+    print("ilu_kernels_phase_s " + json.dumps(dict(
+        paths=t1 - t0, edges=time.perf_counter() - t1)))
+    return rows, results
 
 
 def main():
@@ -2892,11 +3181,15 @@ def main():
     t0 = time.perf_counter()
     th_busy = run_th_petsc(torch, hk, mpp, comp, X0_np, X1_direct)
     t_q = time.perf_counter()
-    run_vchannel(torch)
+    run_vchannel(torch, hk)
     t_r = time.perf_counter()
+    mark = ilu_mark(hk)
     run_thermal_mms_petsc(torch)
+    ilu_since(hk, "thermal_mms_petsc", mark)
     t_s = time.perf_counter()
+    mark = ilu_mark(hk)
     run_small_problems(torch)
+    ilu_since(hk, "small_problems", mark, required=False)
     t_t = time.perf_counter()
     print("petsc_phases_s " + json.dumps(dict(
         q=t_q - t0, r=t_r - t_q, s=t_s - t_r, t=t_t - t_s)))
@@ -2927,8 +3220,23 @@ def main():
             results[name]["launches_by_path"].values())
     results["thomas"]["thermal"] = thermal_row
 
-    # the device times queued by (c)-(p), then the host-clock readings of
-    # (d) and (c) again, after those profiler windows
+    # (y): the ILU(0) kernels against their plain forms at the paths'
+    # sparsities and the edges; their launches are those counted on the
+    # paths (q)-(x), one a factorization or an apply on the card
+    rows, ilu_results = ilu_kernel_checks(torch, hk)
+    checks += rows
+    for name, r in ilu_results.items():
+        key = name.replace("ilu0_", "")
+        r["launches_by_path"] = {p: row["launches"][key]
+                                 for p, row in ILU_BY_PATH.items()}
+        r["launches_per_step"] = {p: row["per_step"][key]
+                                  for p, row in ILU_BY_PATH.items()
+                                  if "per_step" in row}
+        r["launches"] = sum(r["launches_by_path"].values())
+        results[name] = r
+
+    # the device times queued by (c)-(p) and (y), then the host-clock
+    # readings of (d) and (c) again, after those profiler windows
     settle(torch)
     for r in checks:
         print("kernel_check " + json.dumps(r))

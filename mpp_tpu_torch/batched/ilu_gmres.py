@@ -12,12 +12,16 @@ stops at, so the port replicates it with a batch axis of columns.
   are built in numpy, as in the JAX package, plus a wavefront level for
   each row (one more than the highest level among the row's strictly
   lower neighbours; the backward sweep's levels likewise over the upper
-  neighbours).  The factor and both sweeps run one level at a time: the
-  rows of a level never read or write each other's slots, so all of them,
-  and all columns of the batch, go in one gather / multiply / scatter,
-  with the arithmetic of each row as JAX's row scan has it (the IKJ update
-  order, the padded-width sum).  A level loop is ~nx+ny+nz steps on a
-  structured mesh where a row loop is n.
+  neighbours), and flattened once into an
+  ``ops/hopper_kernels.ILU0Schedule``.  The factor and the apply are one
+  launch each of ``hopper_kernels.ilu0_factor`` / ``ilu0_apply`` on the
+  card (one thread block a system, the levels a loop inside it); on the
+  CPU their plain forms run the levels one at a time: the rows of a level
+  never read or write each other's slots, so all of them, and all columns
+  of the batch, go in one gather / multiply / scatter, with the arithmetic
+  of each row as JAX's row scan has it (the IKJ update order, the
+  padded-width sum).  A level loop is ~nx+ny+nz steps on a structured
+  mesh where a row loop is n.
 * :func:`petsc_gmres_batched`: fixed-shape Arnoldi cycles with per-column
   convergence; a column that converges at inner step ``mj`` takes the
   mj-truncated correction.  The cycle loop and the Arnoldi loop are
@@ -27,17 +31,27 @@ stops at, so the port replicates it with a batch axis of columns.
   converged: the steps JAX still runs then change no column's truncated
   correction.
 
-Everything here is plain PyTorch.  The JAX package computes ILU(0) and
-GMRES with ``lax.scan``, ``fori_loop`` and ``while_loop``, outside any
-Pallas kernel.
+GMRES is plain PyTorch.  The JAX package computes ILU(0) and GMRES with
+``lax.scan``, ``fori_loop`` and ``while_loop``, outside any Pallas kernel.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from mpp_tpu_torch.ops import hopper_kernels as hk
+
 # PETSc's cap on GMRES cycles as the port's solves run them
 MAXCYCLES = 100
+
+#: factorizations and applies on CUDA tensors over every BatchedILU0: each is
+#: one launch of its kernel (hopper_kernels.LAUNCHES)
+CARD_CALLS = {"factor": 0, "apply": 0}
+
+
+def _count(t, which):
+    if t.device.type == "cuda":
+        CARD_CALLS[which] += 1
 
 
 def _ell_layout(indptr, indices, rows, which):
@@ -65,17 +79,6 @@ def _levels(deps, order):
     return lev
 
 
-class ILUFactors:
-    """The ILU(0) factor values of a batch, gathered per level into the
-    sweeps' padded layouts (``BatchedILU0.prepare``)."""
-
-    def __init__(self, f, lower, upper, diag):
-        self.f = f            # [..., nnz] factor values
-        self.lower = lower    # per forward level: [..., R, W] L values
-        self.upper = upper    # per backward level: [..., R, W] U values
-        self.diag = diag      # per backward level: [..., R] U diagonal
-
-
 class BatchedILU0:
     """ILU(0) on a fixed CSR sparsity, batched over the leading axes.
 
@@ -84,8 +87,8 @@ class BatchedILU0:
     order and triangular sweeps, scheduled by wavefront level."""
 
     def __init__(self, indptr, indices):
-        indptr = np.asarray(indptr, np.int64)
-        indices = np.asarray(indices, np.int64)
+        self.indptr = indptr = np.asarray(indptr, np.int64)
+        self.indices = indices = np.asarray(indices, np.int64)
         self.n = n = len(indptr) - 1
         self.nnz = nnz = int(indices.size)
         diag_pos = np.empty(n, np.int64)
@@ -130,24 +133,23 @@ class BatchedILU0:
         self.levels_bwd = int(lev_b.max(initial=-1)) + 1
 
         # factor: per (level, l), the rows' (pos_ik, diag_k) and their
-        # pairs (pos_ij, pos_kj, index of the pair's row in the step)
-        fact = []
+        # pairs (pos_ij, pos_ik, pos_kj), the multiplier read back from its
+        # slot
+        steps = []
         for L in range(1, self.levels_fwd):
             rows = np.nonzero(lev_f == L)[0]
             for step in range(max(len(rows_low[i]) for i in rows)):
-                lp, ld, pij, pkj, pm = [], [], [], [], []
+                lp, ld, pij, pik, pkj = [], [], [], [], []
                 for i in rows:
                     if step < len(rows_low[i]):
                         p, dk, pairs = rows_low[i][step]
                         for q, qk in pairs:
                             pij.append(q)
+                            pik.append(p)
                             pkj.append(qk)
-                            pm.append(len(lp))
                         lp.append(p)
                         ld.append(dk)
-                fact.append(tuple(np.asarray(a, np.int64)
-                                  for a in (lp, ld, pij, pkj, pm)))
-        self._fact = fact
+                steps.append((lp, ld, pij, pik, pkj))
 
         # sweeps: per level the rows and their padded (slot, column)
         # layout; pads read slot nnz / column n, an appended zero
@@ -163,64 +165,39 @@ class BatchedILU0:
                 out.append((rows, pos, col))
             return out
 
-        self._fwd = sweep(lev_f, self.levels_fwd,
-                          lambda i: (indptr[i], diag_pos[i]), True)
-        self._bwd = sweep(lev_b, self.levels_bwd,
-                          lambda i: (diag_pos[i] + 1, indptr[i + 1]), False)
-        self._dev = {}
+        bwd = sweep(lev_b, self.levels_bwd,
+                    lambda i: (diag_pos[i] + 1, indptr[i + 1]), False)
+        self.schedule = hk.ILU0Schedule(
+            n, nnz, steps,
+            sweep(lev_f, self.levels_fwd,
+                  lambda i: (indptr[i], diag_pos[i]), True),
+            bwd, [diag_pos[rows] for rows, _, _ in bwd])
         #: factorizations and preconditioner applies since construction
         self.factors = 0
         self.applies = 0
 
-    def _sched(self, device):
-        key = str(device)
-        s = self._dev.get(key)
-        if s is None:
-            t = lambda a: torch.as_tensor(a, device=device)
-            s = (tuple(tuple(t(a) for a in step) for step in self._fact),
-                 tuple((t(r), t(p), t(c)) for r, p, c in self._fwd),
-                 tuple((t(r), t(p), t(c), t(self.diag_pos[r]))
-                       for r, p, c in self._bwd))
-            self._dev[key] = s
-        return s
-
     def factor(self, data):
-        """Numeric IKJ factorization: data ``[..., nnz]`` -> LU values."""
+        """Numeric IKJ factorization: data ``[..., nnz]`` -> LU values
+        (``hopper_kernels.ilu0_factor``)."""
         self.factors += 1
-        f = data.clone()
-        for lp, ld, pij, pkj, pm in self._sched(data.device)[0]:
-            m = f[..., lp] / f[..., ld]
-            f[..., lp] = m
-            if pij.numel():
-                # f_ij + (-(m f_kj)), as JAX's .add(-upd); the slots of a
-                # step are distinct
-                f.index_add_(-1, pij, m[..., pm] * f[..., pkj], alpha=-1)
-        return f
+        _count(data, "factor")
+        f = hk.ilu0_factor(data.reshape(-1, self.nnz).contiguous(),
+                           self.schedule)
+        return f.reshape(data.shape)
 
     def prepare(self, f):
-        """The factor values gathered once into the sweeps' layouts (a
-        GMRES call applies the preconditioner ~30 times a cycle)."""
-        _, fwd, bwd = self._sched(f.device)
-        fz = torch.cat([f, f.new_zeros(f.shape[:-1] + (1,))], dim=-1)
-        return ILUFactors(f, [fz[..., pos] for _, pos, _ in fwd],
-                          [fz[..., pos] for _, pos, _, _ in bwd],
-                          [f[..., dp] for _, _, _, dp in bwd])
+        """The factor values in the apply's ``[B, nnz]`` contiguous form,
+        made once for the many applies of a GMRES call."""
+        return f.reshape(-1, self.nnz).contiguous()
 
     def solve(self, f, b):
-        """(LU)^-1 b, batched: ``f`` the factor values ``[..., nnz]`` (or
-        :meth:`prepare`'s form), ``b`` ``[..., n]``."""
+        """(LU)^-1 b, batched: ``f`` the factor values ``[..., nnz]``, ``b``
+        ``[..., n]`` (``hopper_kernels.ilu0_apply``)."""
         self.applies += 1
-        fac = f if isinstance(f, ILUFactors) else self.prepare(f)
-        _, fwd, bwd = self._sched(b.device)
-        # y with an appended zero that the pads read
-        y = torch.cat([b, b.new_zeros(b.shape[:-1] + (1,))], dim=-1)
-        for (rows, _, col), Lv in zip(fwd, fac.lower):
-            s = torch.sum(Lv * y[..., col], dim=-1)
-            y.index_add_(-1, rows, s, alpha=-1)
-        for (rows, _, col, _), Uv, D in zip(bwd, fac.upper, fac.diag):
-            s = torch.sum(Uv * y[..., col], dim=-1)
-            y.index_copy_(-1, rows, (y[..., rows] - s) / D)
-        return y[..., :self.n]
+        _count(b, "apply")
+        x = hk.ilu0_apply(self.prepare(f),
+                          b.reshape(-1, self.n).contiguous(), self.schedule)
+        return x.reshape(b.shape)
 
 
 def make_ell_matvec(indptr, indices):
@@ -289,8 +266,7 @@ def gmres_cycles(matvec, data, b, ilu: BatchedILU0 = None, pc_data=None,
     ncol, n = b.shape
     m = restart if full_restart else min(restart, n)
     dtype = b.dtype
-    pc = None if ilu is None else (
-        pc_data if isinstance(pc_data, ILUFactors) else ilu.prepare(pc_data))
+    pc = None if ilu is None else ilu.prepare(pc_data)
 
     def M(r):
         return ilu.solve(pc, r) if ilu is not None else r

@@ -55,6 +55,11 @@ SIGNATURES = {
     "mpp_spmv_variant_f32": (_P,) * 5 + (_I,) * 5 + (_P,),
     "mpp_spmv_packed_f32": (_P,) * 3 + (_I, _I, _P),
     "mpp_stream_ceiling_f32": (_P,) * 5 + (_I, _I, _P),
+    "mpp_ilu0_apply_max_on_chip": (_I,),
+    "mpp_ilu0_factor_f32": (_P,) * 3 + (_I,) * 3 + (_P,),
+    "mpp_ilu0_factor_f64": (_P,) * 3 + (_I,) * 3 + (_P,),
+    "mpp_ilu0_apply_f32": (_P,) * 4 + (_I,) * 4 + (_P,),
+    "mpp_ilu0_apply_f64": (_P,) * 4 + (_I,) * 4 + (_P,),
 }
 
 _LIB = None

@@ -31,6 +31,19 @@ and the SpMV measurement harness (``tools/exp_spmv.py``):
 * :func:`stream_ceiling` — the harness's elementwise 4-read, 1-write pass
   (the yardstick XLA fused in the JAX tool; no TPU kernel).
 
+The ILU(0) pair (``csrc/ilu0_kernels.cu``) serves every Krylov caller
+through ``batched/ilu_gmres.BatchedILU0``; it replaces no Pallas kernel but
+the JAX package's ``lax.scan`` row sweeps
+(``mpp_tpu/batched/ilu_gmres.py:121-162``):
+
+* :func:`ilu0_factor` — the numeric IKJ factorization of a batch of
+  systems on one CSR sparsity, bit for bit :func:`ilu0_factor_plain`.
+* :func:`ilu0_apply` — (LU)^-1 b: the unit-lower forward sweep, then the
+  upper back sweep with the diagonal divide.
+
+Both walk an :class:`ILU0Schedule`, the wavefront schedule flattened once
+a sparsity, as their plain forms do.
+
 Dispatch rule: a CPU tensor runs the plain version (``ops/tridiag.py``,
 ``ops/block_thomas.py``, the ``*_plain`` functions here);
 a CUDA tensor launches the kernel, building it at first use
@@ -39,6 +52,7 @@ falls back.  Each launch adds one to ``LAUNCHES[name]``.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from mpp_tpu_torch.ops import _build
@@ -51,7 +65,7 @@ from mpp_tpu_torch.ops.tridiag import tridiag_matvec
 LAUNCHES = {"thomas": 0, "tridiag_spmv": 0, "tridiag_spmv_mixed": 0,
             "block_thomas2": 0, "tridiag_spmv_chain": 0,
             "tridiag_jacobi_smooth": 0, "spmv_variant": 0, "spmv_packed": 0,
-            "stream_ceiling": 0}
+            "stream_ceiling": 0, "ilu0_factor": 0, "ilu0_apply": 0}
 
 
 def reset_launches():
@@ -67,9 +81,10 @@ def max_on_chip(kernel, dtype, memory="shared"):
     ``dtype``: for "thomas" and "block_thomas2" with the carries in shared
     memory, for "tridiag_spmv_chain" and "tridiag_jacobi_smooth" with the
     bands, b and x in shared memory, or with ``memory="registers"`` in a
-    warp's registers (those two only).  Deeper columns need a global
-    scratch.  The launcher's own rule, read from the library (built at
-    first use) once per kernel, dtype and memory."""
+    warp's registers (those two only); for "ilu0_apply" the largest system
+    whose y stays in shared memory.  Deeper columns need a global scratch
+    (the apply: y in x).  The launcher's own rule, read from the library
+    (built at first use) once per kernel, dtype and memory."""
     key = (kernel, dtype, memory)
     if key not in _MAX_ON_CHIP:
         which = {"shared": "max_on_chip",
@@ -399,3 +414,226 @@ def stream_ceiling(a, b, c, x):
                                         y.data_ptr(), ncol, nz, _stream(x))
     _launched("stream_ceiling", rc)
     return y
+
+
+# ---- ILU(0): the factor and the apply -------------------------------------
+
+#: the most threads a block of the ILU(0) kernels runs (a level or step with
+#: more rows or pairs takes them in turns)
+ILU0_MAX_THREADS = 256
+
+
+def _pack(counts, sections):
+    """One int32 array laid out as ``csrc/ilu0_kernels.cu`` reads it: the
+    ``counts``, the offsets of the named ``sections`` (in order), then the
+    sections.  Returns (array, {name: (start, stop)})."""
+    head = len(counts) + len(sections)
+    spans, o = {}, head
+    for name, a in sections:
+        spans[name] = (o, o + len(a))
+        o += len(a)
+    if o >= 2 ** 31:
+        raise ValueError(f"ILU(0) schedule of {o} entries exceeds int32")
+    out = np.zeros(o, np.int64)
+    out[:len(counts)] = counts
+    out[len(counts):head] = [lo for lo, _ in spans.values()]
+    for name, a in sections:
+        lo, hi = spans[name]
+        out[lo:hi] = a
+    return out.astype(np.int32), spans
+
+
+def _threads(width):
+    """Threads of a block whose widest level or step has ``width`` items: a
+    whole number of warps, at most ILU0_MAX_THREADS."""
+    return int(min(ILU0_MAX_THREADS, max(32, -(-width // 32) * 32)))
+
+
+class ILU0Schedule:
+    """The ILU(0) schedule of one CSR sparsity, flattened into the two int32
+    arrays that :func:`ilu0_factor` and :func:`ilu0_apply` (and their plain
+    forms) walk; built once on the host, copied once to each device.
+
+    ``steps``: the IKJ steps in wavefront order, each ``(lp, ld, pij, pik,
+    pkj)``: slots ``lp`` take the multipliers ``f[lp] / f[ld]``, then
+    ``f[pij] -= f[pik] * f[pkj]`` (``pik`` the multiplier's slot).
+    ``fwd`` / ``bwd``: the levels of the forward / back sweep, each ``(rows,
+    pos, col)`` with ``pos`` / ``col`` ``[rows, W]`` padded with slot
+    ``nnz`` / column ``n``; ``dpos``: per back-sweep level, its rows'
+    diagonal slots."""
+
+    def __init__(self, n, nnz, steps, fwd, bwd, dpos):
+        self.n, self.nnz = int(n), int(nnz)
+
+        def cat(arrs):
+            return np.concatenate([np.asarray(a, np.int64).ravel()
+                                   for a in arrs] + [np.zeros(0, np.int64)])
+
+        def ptr(sizes):
+            return np.concatenate([[0], np.cumsum(sizes, dtype=np.int64)])
+
+        nl = [len(st[0]) for st in steps]
+        npair = [len(st[2]) for st in steps]
+        self.factor, fspans = _pack(
+            [len(steps)],
+            [("lp_ptr", ptr(nl)), ("pair_ptr", ptr(npair))]
+            + [(k, cat([st[i] for st in steps]))
+               for i, k in enumerate(("lp", "ld", "pij", "pik", "pkj"))])
+
+        def sweep(tag, levels):
+            return [(tag + "row_ptr", ptr([len(lv[0]) for lv in levels])),
+                    (tag + "tab_ptr", ptr([lv[1].size for lv in levels])),
+                    (tag + "width", [lv[1].shape[1] for lv in levels]),
+                    (tag + "rows", cat([lv[0] for lv in levels])),
+                    (tag + "pos", cat([lv[1] for lv in levels])),
+                    (tag + "col", cat([lv[2] for lv in levels]))]
+        self.apply, aspans = _pack([len(fwd), len(bwd)],
+                                   sweep("f_", fwd) + sweep("b_", bwd)
+                                   + [("dpos", cat(dpos))])
+        self.factor_threads = _threads(max(nl + npair + [0]))
+        self.apply_threads = _threads(max(
+            [len(lv[0]) for lv in list(fwd) + list(bwd)] + [0]))
+        self._spans = {"factor": fspans, "apply": aspans}
+        # the pointer sections on the host, for the plain forms' loops
+        self.ptrs = {k: [int(v) for v in arr[lo:hi]]
+                     for arr, spans in ((self.factor, fspans),
+                                        (self.apply, aspans))
+                     for k, (lo, hi) in spans.items()
+                     if k.endswith(("_ptr", "width"))}
+        self._dev = {}
+
+    def on(self, device):
+        """(factor, apply) schedules as tensors on ``device``: int32 on a
+        card (the kernels'), int64 on the CPU (the plain forms' indices)."""
+        device = torch.device(device)
+        key = str(device)
+        if key not in self._dev:
+            itype = torch.int64 if device.type == "cpu" else torch.int32
+            self._dev[key] = tuple(
+                torch.as_tensor(a, dtype=itype, device=device)
+                for a in (self.factor, self.apply))
+        return self._dev[key]
+
+    def sections(self, device, which, *names):
+        """Sections ``names`` of the ``which`` ("factor" or "apply")
+        schedule on ``device`` as int64 index tensors."""
+        t = self.on(device)[which == "apply"]
+        return [t[slice(*self._spans[which][k])].long() for k in names]
+
+
+def _check_ilu0(name, sched, arrays, widths):
+    """Raise ValueError unless ``sched`` is an ILU0Schedule and every array
+    is a contiguous 2-D f32 / f64 tensor of ``sched``'s ``widths`` ("nnz"
+    or "n") columns, all of one dtype, batch and CPU or CUDA device."""
+    if not isinstance(sched, ILU0Schedule):
+        raise ValueError(f"{name}: sched must be an ILU0Schedule, got "
+                         f"{type(sched)}")
+    for a, w in zip(arrays, (getattr(sched, k) for k in widths)):
+        if not isinstance(a, torch.Tensor):
+            raise ValueError(f"{name}: expected tensors, got {type(a)}")
+        if a.dim() != 2 or a.shape[1] != w:
+            raise ValueError(f"{name}: expected a [B, {w}] tensor, got "
+                             f"{tuple(a.shape)}")
+        if a.dtype not in (torch.float32, torch.float64):
+            raise ValueError(f"{name}: dtype {a.dtype} is not f32 or f64")
+        if not a.is_contiguous():
+            raise ValueError(f"{name}: arrays must be contiguous")
+    ref = arrays[0]
+    for a in arrays[1:]:
+        if a.dtype != ref.dtype or a.device != ref.device or \
+                a.shape[0] != ref.shape[0]:
+            raise ValueError(f"{name}: arrays of one dtype, device and batch "
+                             f"expected, got {a.dtype} / {ref.dtype}, "
+                             f"{a.device} / {ref.device}, {a.shape[0]} / "
+                             f"{ref.shape[0]}")
+    if ref.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {ref.device}")
+
+
+def ilu0_factor_plain(data, sched):
+    """Plain version of :func:`ilu0_factor`: the steps of ``sched`` one at a
+    time, every system of the batch in one gather / divide / scatter."""
+    lp, ld, pij, pik, pkj = sched.sections(data.device, "factor", "lp", "ld",
+                                           "pij", "pik", "pkj")
+    lp_ptr, pair_ptr = sched.ptrs["lp_ptr"], sched.ptrs["pair_ptr"]
+    f = data.clone()
+    for s in range(len(lp_ptr) - 1):
+        a, b = lp_ptr[s], lp_ptr[s + 1]
+        f[:, lp[a:b]] = f[:, lp[a:b]] / f[:, ld[a:b]]
+        c, d = pair_ptr[s], pair_ptr[s + 1]
+        if d > c:
+            # f_ij + (-(m f_kj)): the slots of a step are distinct
+            f.index_add_(1, pij[c:d], f[:, pik[c:d]] * f[:, pkj[c:d]],
+                         alpha=-1)
+    return f
+
+
+def ilu0_apply_plain(f, b, sched):
+    """Plain version of :func:`ilu0_apply`: each level of the two sweeps as
+    one gather, padded-row sum and scatter over the batch; the pads read an
+    appended zero of f and of y."""
+    fz = torch.cat([f, f.new_zeros(f.shape[0], 1)], dim=1)
+    y = torch.cat([b, b.new_zeros(b.shape[0], 1)], dim=1)
+    dpos, = sched.sections(b.device, "apply", "dpos")
+    for tag in ("f_", "b_"):
+        rows, pos, col = sched.sections(b.device, "apply", tag + "rows",
+                                        tag + "pos", tag + "col")
+        row_ptr, tab_ptr = sched.ptrs[tag + "row_ptr"], \
+            sched.ptrs[tag + "tab_ptr"]
+        for L, w in enumerate(sched.ptrs[tag + "width"]):
+            r = slice(row_ptr[L], row_ptr[L + 1])
+            t = slice(tab_ptr[L], tab_ptr[L + 1])
+            s = torch.sum(fz[:, pos[t].view(-1, w)] * y[:, col[t].view(-1, w)],
+                          dim=-1)
+            if tag == "f_":
+                y.index_add_(1, rows[r], s, alpha=-1)
+            else:
+                y.index_copy_(1, rows[r], (y[:, rows[r]] - s) / fz[:, dpos[r]])
+    return y[:, :sched.n]
+
+
+def ilu0_factor(data, sched):
+    """The ILU(0) factor values ``[B, nnz]`` of the systems ``data [B,
+    nnz]`` (f32 or f64, contiguous) on ``sched``'s sparsity: PETSc's IKJ
+    order (levels 0, natural ordering, no shift), any n and nnz."""
+    name = "ilu0_factor"
+    _check_ilu0(name, sched, (data,), ("nnz",))
+    if data.device.type == "cpu":
+        return ilu0_factor_plain(data, sched)
+    f = torch.empty_like(data)
+    B = data.shape[0]
+    if B == 0:
+        return f
+    fac, _ = sched.on(data.device)
+    lib = _build.library()
+    fn = lib.mpp_ilu0_factor_f64 if data.dtype == torch.float64 else \
+        lib.mpp_ilu0_factor_f32
+    with torch.cuda.device(data.device):
+        rc = fn(data.data_ptr(), f.data_ptr(), fac.data_ptr(), B, sched.nnz,
+                sched.factor_threads, _stream(data))
+    _launched(name, rc)
+    return f
+
+
+def ilu0_apply(f, b, sched):
+    """(LU)^-1 b for ``b [B, n]`` and the factor values ``f [B, nnz]`` (one
+    dtype, f32 or f64, contiguous) on ``sched``'s sparsity: the unit-lower
+    forward sweep, then the upper back sweep; any n (y in shared memory up
+    to ``max_on_chip("ilu0_apply", dtype)``, in x past it)."""
+    name = "ilu0_apply"
+    _check_ilu0(name, sched, (f, b), ("nnz", "n"))
+    if b.device.type == "cpu":
+        return ilu0_apply_plain(f, b, sched)
+    x = torch.empty_like(b)
+    B = b.shape[0]
+    if B == 0 or sched.n == 0:
+        return x
+    _, app = sched.on(b.device)
+    lib = _build.library()
+    fn = lib.mpp_ilu0_apply_f64 if b.dtype == torch.float64 else \
+        lib.mpp_ilu0_apply_f32
+    with torch.cuda.device(b.device):
+        rc = fn(f.data_ptr(), b.data_ptr(), x.data_ptr(), app.data_ptr(), B,
+                sched.n, sched.nnz, sched.apply_threads, _stream(b))
+    _launched(name, rc)
+    return x
