@@ -210,11 +210,17 @@ line is printed):
       (f32) of max |x|) in f64 and f32 at the paths' sparsities and
       batches (ILU_PATHS: (q)'s TH column at 8192 columns, L2-cold;
       celia1990's tridiagonal column; th_manoli2014 at scale 1 and 10;
-      (v3)'s 256-column MLC) and at the edges (levels wider than a
-      block's threads, the largest system whose y stays in shared memory
-      and the next size up, inputs not 16-byte aligned); each timed with
-      its plain form; their launches in the kernels line are those
-      counted on the paths above.
+      (v3)'s 256-column MLC in its 270 parts), each with the apply's
+      library yardstick (two torch.triangular_solve calls, cuSPARSE, held
+      to the plain form within the same tolerance), and at the edges of
+      every form of the rule (ILU_FORMS: systems a warp, a warp a system
+      (levels of 32 rows and of 33), streamed (a root row cut into
+      pieces), streamed with cells / rows spilled; the largest
+      tridiagonal system staged whole and the next one up; a batch no
+      systems-a-block count divides; many parts; inputs not 16-byte
+      aligned), failing unless each form is reached in each
+      dtype; each timed with its plain form; their launches in the
+      kernels line are those counted on the paths above.
 
 Every kernel timing is read twice: ``ms``, CUDA events around back-to-back
 calls of the wrapper (host cost per call included), and ``device_ms``, the
@@ -423,16 +429,29 @@ OPS = {"thomas": 8, "tridiag_spmv": 5, "tridiag_spmv_mixed": 5,
 
 # (y): the ILU(0) kernels at the paths' sparsities ((path, B) as the path
 # runs them; ILU_AT holds the BatchedILU0 that (q) and (v3) built) and at
-# the edges: levels of more rows than a block's threads (600 2x2 blocks),
-# the largest n whose y stays in shared memory and the next one up (2x2
-# blocks), inputs not 16-byte aligned; L2-cold where the caller finds the
-# factor cold (GMRES's Krylov basis at 8192 x 128 is ~260 MB)
+# the edges of their forms (ops/ilu0_schedule.py's rule, ILU_FORMS): combs
+# of 32 and 33 chains (a warp a system, one round a level and two), the
+# largest tridiagonal system each kernel stages whole in each dtype and the
+# next one up (streamed), an arrow chain streamed with nothing spilled and
+# one whose side rows outnumber the streamed factor's on-chip cells and
+# whose rows the apply's (spilled; both root rows wider than a ring
+# stage), (q)'s column at a batch that no
+# systems-a-block count divides, 600 dense 2x2 blocks (many parts), inputs
+# not 16-byte aligned; L2-cold where the caller finds the factor cold
+# (GMRES's Krylov basis at 8192 x 128 is ~260 MB)
 ILU_AT = {}
 ILU_PATHS = (("th_petsc", TH_NCOL, True), ("celia1990", 1, False),
              ("th_manoli2014", 1, False), ("th_manoli2014_x10", 1, False),
              ("mlc_compiled", 1, False))
+ILU_COMB = dict(length=40, B=300)
+# side rows past the f32 factor's 49,920 on-chip cells (f64: 24,960); and
+# few enough that both kernels stream with nothing spilled
+ILU_ARROW_SIDE, ILU_ARROW_SIDE_STREAMED = 51000, 3000
 ILU_WIDE = dict(blocks=600, B=300)
 ILU_SKEWED_B = 1000
+ILU_EDGE_B = 2
+#: the kernels' forms (ilu_form), every one reached by (y) in each dtype
+ILU_FORMS = ("systems_a_warp", "warp", "streamed", "streamed_spilled")
 # the ILU(0) factorizations and applies on the card of each counted path,
 # each one launch of its kernel (ilu_since)
 ILU_BY_PATH = {}
@@ -579,6 +598,17 @@ def time_cuda(torch, fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def time_once(torch, fn):
+    """(``fn()``, its milliseconds): CUDA events around one call."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    out = fn()
+    ev[1].record()
+    torch.cuda.synchronize()
+    return out, ev[0].elapsed_time(ev[1])
 
 
 _FLUSH = []
@@ -2891,34 +2921,152 @@ def ilu_systems(ilu, B, seed):
 
 
 def ilu_work(name, ilu, B, elem):
-    """(bytes, operations) of one call: inputs read once (the schedule
-    too), outputs written once; a multiplier is a division, a pair a
+    """(bytes, operations) of one call: the values read once and written
+    once, and the sparsity read once as an int32 CSR (indptr and indices),
+    whatever program a kernel walks; a multiplier is a division, a pair a
     multiply and a subtract, an off-diagonal term of a sweep a multiply
     and an add, a row one subtract (and in the back sweep a divide)."""
     s = ilu.schedule
+    csr = 4 * (ilu.n + 1 + ilu.nnz)
     if name == "ilu0_factor":
-        return (2 * B * ilu.nnz * elem + 4 * s.factor.size,
+        return (2 * B * ilu.nnz * elem + csr,
                 B * (s.ptrs["lp_ptr"][-1] + 2 * s.ptrs["pair_ptr"][-1]))
-    return (B * (ilu.nnz + 2 * ilu.n) * elem + 4 * s.apply.size,
+    return (B * (ilu.nnz + 2 * ilu.n) * elem + csr,
             B * (2 * (ilu.nnz - ilu.n) + s.ptrs["f_row_ptr"][-1]
                  + 2 * ilu.n))
 
 
-def ilu_block_diagonal(nblocks):
-    """A BatchedILU0 on ``nblocks`` dense 2x2 diagonal blocks: two levels
-    of ``nblocks`` rows a sweep, one factor step of ``nblocks`` rows."""
+def ilu_form(plan):
+    """The form a kernel launch takes (ILU_FORMS)."""
+    if plan["form"] == "streamed":
+        return "streamed_spilled" if plan["spill"] else "streamed"
+    return "warp" if plan["lanes"] == 32 else "systems_a_warp"
+
+
+def ilu_pattern(rows, cols):
+    """A BatchedILU0 on the pattern of (rows, cols) (diagonal included)."""
     from mpp_tpu_torch.batched.ilu_gmres import BatchedILU0
+    from mpp_tpu_torch.ops.sparse import csr_template
+    r, c = np.concatenate(rows), np.concatenate(cols)
+    n = int(max(r.max(), c.max())) + 1
+    t = csr_template(n, n, r, c)
+    return BatchedILU0(t.indptr, t.indices)
+
+
+def ilu_block_diagonal(nblocks):
+    """``nblocks`` dense 2x2 diagonal blocks: ``nblocks`` components."""
     k = np.arange(4 * nblocks)
-    return BatchedILU0(np.arange(0, 4 * nblocks + 1, 2),
-                       2 * (k // 4) + k % 2)
+    return ilu_pattern([2 * (k // 4) + (k % 4) // 2], [2 * (k // 4) + k % 2])
 
 
-def ilu_case(torch, hk, path, ilu, B, dt_name, cold=False, skew=False):
+def ilu_tridiagonal(n):
+    k = np.arange(n)
+    return ilu_pattern([k, k[1:], k[:-1]], [k, k[:-1], k[1:]])
+
+
+def ilu_comb(width, length):
+    """``width`` chains of ``length`` rows (position p of chain c at row
+    p * width + c) and a hub row joined to every chain's end: every level
+    of either sweep ``width`` rows wide."""
+    ids = np.arange(width * length).reshape(length, width)
+    hub = width * length
+    d, last = np.arange(hub + 1), ids[-1]
+    return ilu_pattern([d, ids[:-1].ravel(), ids[1:].ravel(), last,
+                        np.full(width, hub)],
+                       [d, ids[1:].ravel(), ids[:-1].ravel(),
+                        np.full(width, hub), last])
+
+
+def ilu_arrow_chain(side):
+    """Row 0 a root, rows 1..side on it, rows side+1..2 side a chain whose
+    j-th row is joined to side row j: every side row's diagonal is updated
+    at the first step and read at chain level j, so ~side slots stay live
+    throughout the factor."""
+    a = np.arange(1, side + 1)
+    c = a + side
+    d, z = np.arange(2 * side + 1), np.zeros(side, np.int64)
+    return ilu_pattern([d, z, a, a, c, c[:-1], c[1:]],
+                       [d, a, z, c, a, c[1:], c[:-1]])
+
+
+def ilu_staged_top(hk, kind, dtype, cache):
+    """The largest n whose tridiagonal system ``kind`` ("factor" /
+    "apply") stages whole in ``dtype`` at ILU_EDGE_B systems: the rule's
+    edge (bisection on ILU0Schedule.plan; ``cache`` keeps the systems)."""
+    lim, elem = hk.ilu0_limits(dtype), dtype.itemsize
+
+    def staged(n):
+        if n not in cache:
+            cache[n] = ilu_tridiagonal(n)
+        return cache[n].schedule.plan(kind, elem, ILU_EDGE_B,
+                                      lim)["form"] == "staged"
+    # start from the line through one system's shared memory at n = 512
+    # and 1024
+    smem = []
+    for n in (512, 1024):
+        plan = cache.setdefault(n, ilu_tridiagonal(n)).schedule.plan(
+            kind, elem, ILU_EDGE_B, lim)
+        smem.append(plan["smem"] - (plan["systems"] - 1)
+                    * plan["program"]["stride"] * elem)
+    slope = (smem[1] - smem[0]) / 512
+    est = int(512 + (lim["staged_bytes"] - smem[0]) / slope)
+    lo, hi = est - 4, est + 4
+    while not staged(lo):
+        lo, hi = lo // 2, lo
+    while staged(hi):
+        lo, hi = hi, 2 * hi
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if staged(mid) else (lo, mid)
+    return lo
+
+
+def ilu_triangular_csr(torch, f, ilu):
+    """The B systems' L (its unit diagonal stored) and U as block-diagonal
+    CSR matrices [B n, B n] on ``f``'s device, from the factor values ``f
+    [B, nnz]`` (the library yardstick's operands; the port never uses
+    them)."""
+    B, n = f.shape[0], ilu.n
+    rows = np.repeat(np.arange(n), np.diff(ilu.indptr))
+    off = (np.arange(B) * n)[:, None]
+
+    def csr(mask, unit):
+        slots = np.nonzero(mask)[0]
+        r, c = rows[slots], ilu.indices[slots]
+        vals = f[:, torch.as_tensor(slots, device=f.device)]
+        if unit:
+            r, c = np.r_[r, np.arange(n)], np.r_[c, np.arange(n)]
+            vals = torch.cat([vals, vals.new_ones(B, n)], 1)
+        order = np.lexsort((c, r))
+        vals = vals[:, torch.as_tensor(order, device=f.device)]
+        crow = np.r_[0, np.cumsum(np.tile(np.bincount(r, minlength=n), B))]
+        cols = (c[order][None, :] + off).ravel()
+        return torch.sparse_csr_tensor(
+            torch.as_tensor(crow, dtype=torch.int32, device=f.device),
+            torch.as_tensor(cols, dtype=torch.int32, device=f.device),
+            vals.reshape(-1), (B * n, B * n))
+    return (csr(ilu.indices < rows, True), csr(ilu.indices >= rows, False))
+
+
+def ilu_library_apply(torch, L, U, b):
+    """(LU)^-1 b by two torch.triangular_solve calls on the block-diagonal
+    CSR factors (cuSPARSE's sparse triangular solve on the card): the
+    apply's library yardstick."""
+    y = torch.triangular_solve(b.reshape(-1, 1), L, upper=False,
+                               unitriangular=True).solution
+    return torch.triangular_solve(y, U, upper=True).solution.reshape(b.shape)
+
+
+def ilu_case(torch, hk, path, ilu, B, dt_name, cold=False, skew=False,
+             library=False):
     """Phase (y) at one shape: ilu0_factor against its plain form bit for
     bit, ilu0_apply (on the kernel's factor) within TOLS; both timed
     (``ms``, CUDA events back to back; with ``cold`` also ``ms_cold`` and
     ``device_ms_cold``, the L2 flushed before each call), their plain
-    forms timed, their device time queued.  Returns the two rows."""
+    forms timed, their device time queued; with ``library`` the apply's
+    library yardstick (ilu_library_apply) held to the plain form within
+    TOLS and timed the same way.  Returns the two rows (each with its
+    launch's form, lanes, systems a block and parts)."""
     dtype = getattr(torch, dt_name)
     data_np, b_np = ilu_systems(ilu, B, seed=B + ilu.n)
     data, b = (torch.as_tensor(a, dtype=dtype, device="cuda")
@@ -2928,32 +3076,38 @@ def ilu_case(torch, hk, path, ilu, B, dt_name, cold=False, skew=False):
     sched = ilu.schedule
     label = f"{path} {[B, ilu.n]} {dt_name}{' misaligned' if skew else ''}"
     f = hk.ilu0_factor(data, sched)
-    err_f, scale_f = hold(torch, f"ilu0_factor {label}", f,
-                          hk.ilu0_factor_plain(data, sched), 0)
+    fp, fp_ms = time_once(torch, partial(hk.ilu0_factor_plain, data, sched))
+    err_f, scale_f = hold(torch, f"ilu0_factor {label}", f, fp, 0)
     if skew:
         f = misaligned(torch, f)
     tol = TOLS["ilu0_apply"][dt_name]
+    xp, xp_ms = time_once(torch, partial(hk.ilu0_apply_plain, f, b, sched))
     err_x, scale_x = hold(torch, f"ilu0_apply {label}",
-                          hk.ilu0_apply(f, b, sched),
-                          hk.ilu0_apply_plain(f, b, sched), tol)
+                          hk.ilu0_apply(f, b, sched), xp, tol)
+    # a plain form of over 10^5 values or 1000 levels is timed once (the
+    # call held above), as a kernel's comparison, not a yardstick
     big = ilu.n * B > 10 ** 5 or ilu.levels_fwd > 1000
+    lim = hk.ilu0_limits(dtype)
     rows = []
-    for name, args, err, scale, rtol in (
-            ("ilu0_factor", (data, sched), err_f, scale_f, 0),
-            ("ilu0_apply", (f, b, sched), err_x, scale_x, tol)):
+    for name, args, err, scale, rtol, once_ms in (
+            ("ilu0_factor", (data, sched), err_f, scale_f, 0, fp_ms),
+            ("ilu0_apply", (f, b, sched), err_x, scale_x, tol, xp_ms)):
         kern = partial(getattr(hk, name), *args)
         plain = partial(getattr(hk, name + "_plain"), *args)
+        plan = sched.plan(name[5:], data.element_size(), B, lim)
         nbytes, ops = ilu_work(name, ilu, B, data.element_size())
         bms, by = bound(nbytes, ops, dt_name)
         row = dict(kernel=name, path=path, shape=[B, ilu.n], nnz=ilu.nnz,
                    dtype=dt_name, misaligned=skew,
                    levels=[ilu.levels_fwd, ilu.levels_bwd],
                    factor_steps=int(sched.factor[0]),
-                   threads=(sched.factor_threads if name == "ilu0_factor"
-                            else sched.apply_threads),
+                   form=ilu_form(plan), lanes=plan["lanes"],
+                   systems_a_block=plan["systems"],
+                   threads=plan["threads"], parts=len(sched.parts),
+                   components=sched.ncomponents, smem=plan["smem"],
                    max_abs_err=err, max_abs_x=scale, rel_tol=rtol,
                    bitwise=rtol == 0, ms=time_cuda(torch, kern, 10),
-                   plain_ms=time_cuda(torch, plain, 1 if big else 3),
+                   plain_ms=once_ms if big else time_cuda(torch, plain, 3),
                    library_ms=None, library_device_ms=None, bytes=nbytes,
                    ops=ops, bound_ms=bms, bound_by=by)
         if cold:
@@ -2963,52 +3117,88 @@ def ilu_case(torch, hk, path, ilu, B, dt_name, cold=False, skew=False):
                   exclude=FLUSH_ACTIVITY)
         later(kern, 10, row)
         rows.append(row)
+    if library:
+        L, U = ilu_triangular_csr(torch, f, ilu)
+        call = partial(ilu_library_apply, torch, L, U, b)
+        hold(torch, f"library apply {label}", call(), xp, tol)
+        rows[1]["library_ms"] = time_cuda(torch, call, 10)
+        later(call, 10, rows[1], key="library_device_ms")
     return rows
 
 
 def ilu_kernel_checks(torch, hk):
     """Phase (y): both ILU(0) kernels against their plain forms on the
-    card at the paths' sparsities and at the edges, f64 and f32.  Returns
-    (the kernel_check rows, the kernels line's entries: (q)'s shape in
-    f64, L2-cold)."""
-    from mpp_tpu_torch.batched.ilu_gmres import BatchedILU0
-    from mpp_tpu_torch.ops.sparse import csr_template
+    card at the paths' sparsities (with the apply's library yardstick) and
+    at the edges of every form, f64 and f32; fails unless the edges reach
+    every form of ILU_FORMS in each dtype and a batch no systems-a-block
+    count divides.  Returns (the kernel_check rows, the kernels line's
+    entries: (q)'s shape in f64, L2-cold)."""
     from mpp_tpu_torch.problems import th_manoli2014 as tm
 
     def manoli(scale):
         soe = tm.build_th_manoli2014(scale=scale, device="cpu").soe
         soe._build_jac_plan()
         return soe._jac_plan["ilu"].batched
-    k = np.arange(W1_CELIA["nz"])
-    tri = csr_template(len(k), len(k), np.r_[k, k[1:], k[:-1]],
-                       np.r_[k, k[:-1], k[1:]])
-    ILU_AT.update(celia1990=BatchedILU0(tri.indptr, tri.indices),
+    ILU_AT.update(celia1990=ilu_tridiagonal(W1_CELIA["nz"]),
                   th_manoli2014=manoli(1),
                   th_manoli2014_x10=manoli(X1_TH_SPAC["big_scale"]))
     t0 = time.perf_counter()
     rows, results = [], {}
     for path, B, cold in ILU_PATHS:
         for dt_name in ("float64", "float32"):
-            got = ilu_case(torch, hk, path, ILU_AT[path], B, dt_name, cold)
+            got = ilu_case(torch, hk, path, ILU_AT[path], B, dt_name, cold,
+                           library=True)
             rows += got
             if path == "th_petsc" and dt_name == "float64":
                 results = {r["kernel"]: r for r in got}
     t1 = time.perf_counter()
-    wide = ilu_block_diagonal(ILU_WIDE["blocks"])
-    check(wide.levels_fwd == 2 and ILU_WIDE["blocks"] > hk.ILU0_MAX_THREADS,
-          "(y): the wide edge has no level wider than a block")
+    arrow = ilu_arrow_chain(ILU_ARROW_SIDE)
+    arrow_streamed = ilu_arrow_chain(ILU_ARROW_SIDE_STREAMED)
+    combs = {w: ilu_comb(w, ILU_COMB["length"]) for w in (32, 33)}
+    t2 = time.perf_counter()
+    tri, q = {}, ILU_AT["th_petsc"]
     for dt_name in ("float64", "float32"):
-        # the largest even n whose y fits shared memory, and n + 2
-        top = hk.max_on_chip("ilu0_apply", getattr(torch, dt_name))
-        edges = [("edge_wide_levels", wide, ILU_WIDE["B"], False),
-                 ("edge_shared_top", ilu_block_diagonal(top // 2), 2, False),
-                 ("edge_past_shared", ilu_block_diagonal(top // 2 + 1), 2,
-                  False),
-                 ("edge_misaligned", ILU_AT["th_petsc"], ILU_SKEWED_B, True)]
+        dtype = getattr(torch, dt_name)
+        lim, elem = hk.ilu0_limits(dtype), dtype.itemsize
+        # a batch of (q)'s column that neither kernel's block count divides
+        ks = [q.schedule.plan(k, elem, TH_NCOL, lim)["systems"]
+              for k in ("factor", "apply")]
+        odd = 3 * ks[0] * ks[1] + 1
+        edges = [("edge_comb_32", combs[32], ILU_COMB["B"], False),
+                 ("edge_comb_33", combs[33], ILU_COMB["B"], False),
+                 ("edge_batch_remainder", q, odd, False),
+                 ("edge_many_parts", ilu_block_diagonal(ILU_WIDE["blocks"]),
+                  ILU_WIDE["B"], False),
+                 ("edge_streamed", arrow_streamed, ILU_EDGE_B, False),
+                 ("edge_spilled", arrow, ILU_EDGE_B, False),
+                 ("edge_misaligned", q, ILU_SKEWED_B, True)]
+        for kind in ("factor", "apply"):
+            top = ilu_staged_top(hk, kind, dtype, tri)
+            edges += [(f"edge_{kind}_staged_top", tri[top], ILU_EDGE_B,
+                       False),
+                      (f"edge_{kind}_streamed_next", tri[top + 1],
+                       ILU_EDGE_B, False)]
+        got = []
         for path, ilu, B, skew in edges:
-            rows += ilu_case(torch, hk, path, ilu, B, dt_name, skew=skew)
+            got += ilu_case(torch, hk, path, ilu, B, dt_name, skew=skew)
+        rows += got
+        for kind in ("ilu0_factor", "ilu0_apply"):
+            reached = {r["form"] for r in rows
+                       if r["kernel"] == kind and r["dtype"] == dt_name}
+            check(reached >= set(ILU_FORMS), f"(y) {kind} {dt_name}: the "
+                  f"rows reach {sorted(reached)}, not every form {ILU_FORMS}")
+            for path, form in (("edge_streamed", "streamed"),
+                               ("edge_spilled", "streamed_spilled")):
+                check([r["form"] for r in got if r["kernel"] == kind
+                       and r["path"] == path] == [form],
+                      f"(y) {kind} {dt_name}: {path} is not {form}")
+            check(any(r["shape"][0] % r["systems_a_block"]
+                      and r["form"] not in ("streamed", "streamed_spilled")
+                      for r in got if r["kernel"] == kind),
+                  f"(y) {kind} {dt_name}: no batch left a short block")
     print("ilu_kernels_phase_s " + json.dumps(dict(
-        paths=t1 - t0, edges=time.perf_counter() - t1)))
+        paths=t1 - t0, edge_builds=t2 - t1,
+        edges=time.perf_counter() - t2)))
     return rows, results
 
 

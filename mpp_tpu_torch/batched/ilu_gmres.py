@@ -12,11 +12,12 @@ stops at, so the port replicates it with a batch axis of columns.
   are built in numpy, as in the JAX package, plus a wavefront level for
   each row (one more than the highest level among the row's strictly
   lower neighbours; the backward sweep's levels likewise over the upper
-  neighbours), and flattened once into an
-  ``ops/hopper_kernels.ILU0Schedule``.  The factor and the apply are one
-  launch each of ``hopper_kernels.ilu0_factor`` / ``ilu0_apply`` on the
-  card (one thread block a system, the levels a loop inside it); on the
-  CPU their plain forms run the levels one at a time: the rows of a level
+  neighbours), and split once into an ``ops/ilu0_schedule.ILU0Schedule``:
+  the connected components binned into parts, each with its own steps
+  and levels.  The factor and the apply are one launch each of
+  ``hopper_kernels.ilu0_factor`` / ``ilu0_apply`` on the card (a grid of
+  systems x parts, the levels a loop in shared memory); on the CPU their
+  plain forms run the parts' levels in lockstep: the rows of a level
   never read or write each other's slots, so all of them, and all columns
   of the batch, go in one gather / multiply / scatter, with the arithmetic
   of each row as JAX's row scan has it (the IKJ update order, the
@@ -135,9 +136,16 @@ class BatchedILU0:
         # factor: per (level, l), the rows' (pos_ik, diag_k) and their
         # pairs (pos_ij, pos_ik, pos_kj), the multiplier read back from its
         # slot
+        def by_level(lev, nlev):
+            """The rows of each level, ascending."""
+            order = np.argsort(lev, kind="stable")
+            cut = np.searchsorted(lev[order], np.arange(nlev + 1))
+            return [order[cut[L]:cut[L + 1]] for L in range(nlev)]
+        rows_f = by_level(lev_f, self.levels_fwd)
+
         steps = []
         for L in range(1, self.levels_fwd):
-            rows = np.nonzero(lev_f == L)[0]
+            rows = rows_f[L]
             for step in range(max(len(rows_low[i]) for i in rows)):
                 lp, ld, pij, pik, pkj = [], [], [], [], []
                 for i in rows:
@@ -155,8 +163,7 @@ class BatchedILU0:
         # layout; pads read slot nnz / column n, an appended zero
         def sweep(lev, nlev, which, skip_empty):
             out = []
-            for L in range(nlev):
-                rows = np.nonzero(lev == L)[0]
+            for L, rows in enumerate(by_level(lev, nlev)):
                 if skip_empty and L == 0:
                     continue               # no lower entries: y_i = b_i
                 pos, col = _ell_layout(indptr, indices, rows, which)
@@ -168,7 +175,7 @@ class BatchedILU0:
         bwd = sweep(lev_b, self.levels_bwd,
                     lambda i: (diag_pos[i] + 1, indptr[i + 1]), False)
         self.schedule = hk.ILU0Schedule(
-            n, nnz, steps,
+            indptr, indices, steps,
             sweep(lev_f, self.levels_fwd,
                   lambda i: (indptr[i], diag_pos[i]), True),
             bwd, [diag_pos[rows] for rows, _, _ in bwd])

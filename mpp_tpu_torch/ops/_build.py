@@ -33,7 +33,8 @@ _D = ctypes.c_double
 #: ``c_void_p``, sizes and switches as ``c_int``, coefficients as
 #: ``c_double``; every launcher returns cudaError_t (the ``*_max_on_chip``
 #: and ``*_max_in_registers`` queries the deepest column a kernel keeps on
-#: chip, or in registers, for 4- or 8-byte values)
+#: chip, or in registers, for 4- or 8-byte values; ``mpp_ilu0_limit`` the
+#: ILU(0) forms' limits)
 SIGNATURES = {
     "mpp_thomas_max_on_chip": (_I,),
     "mpp_thomas_f32": (_P,) * 6 + (_I, _I, _P),
@@ -55,11 +56,11 @@ SIGNATURES = {
     "mpp_spmv_variant_f32": (_P,) * 5 + (_I,) * 5 + (_P,),
     "mpp_spmv_packed_f32": (_P,) * 3 + (_I, _I, _P),
     "mpp_stream_ceiling_f32": (_P,) * 5 + (_I, _I, _P),
-    "mpp_ilu0_apply_max_on_chip": (_I,),
-    "mpp_ilu0_factor_f32": (_P,) * 3 + (_I,) * 3 + (_P,),
-    "mpp_ilu0_factor_f64": (_P,) * 3 + (_I,) * 3 + (_P,),
-    "mpp_ilu0_apply_f32": (_P,) * 4 + (_I,) * 4 + (_P,),
-    "mpp_ilu0_apply_f64": (_P,) * 4 + (_I,) * 4 + (_P,),
+    "mpp_ilu0_limit": (_I, _I),
+    "mpp_ilu0_factor_f32": (_P,) * 4 + (_I,) * 11 + (_P,),
+    "mpp_ilu0_factor_f64": (_P,) * 4 + (_I,) * 11 + (_P,),
+    "mpp_ilu0_apply_f32": (_P,) * 5 + (_I,) * 11 + (_P,),
+    "mpp_ilu0_apply_f64": (_P,) * 5 + (_I,) * 11 + (_P,),
 }
 
 _LIB = None

@@ -41,8 +41,12 @@ the JAX package's ``lax.scan`` row sweeps
 * :func:`ilu0_apply` — (LU)^-1 b: the unit-lower forward sweep, then the
   upper back sweep with the diagonal divide.
 
-Both walk an :class:`ILU0Schedule`, the wavefront schedule flattened once
-a sparsity, as their plain forms do.
+Both walk an :class:`ILU0Schedule` (``ops/ilu0_schedule.py``), built once a
+sparsity: its connected components binned into parts that the kernels run
+independently, each part's steps and levels, and the rule that picks a
+kernel's form (staged or streamed) from the schedule's widths and the
+kernels' shared-memory limits (:func:`ilu0_limits`); the plain forms walk
+the same parts in lockstep.
 
 Dispatch rule: a CPU tensor runs the plain version (``ops/tridiag.py``,
 ``ops/block_thomas.py``, the ``*_plain`` functions here);
@@ -52,10 +56,10 @@ falls back.  Each launch adds one to ``LAUNCHES[name]``.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from mpp_tpu_torch.ops import _build
+from mpp_tpu_torch.ops.ilu0_schedule import LIMITS, ILU0Schedule
 from mpp_tpu_torch.ops.block_thomas import block_thomas
 from mpp_tpu_torch.ops import tridiag
 from mpp_tpu_torch.ops.tridiag import thomas as thomas_plain
@@ -81,10 +85,10 @@ def max_on_chip(kernel, dtype, memory="shared"):
     ``dtype``: for "thomas" and "block_thomas2" with the carries in shared
     memory, for "tridiag_spmv_chain" and "tridiag_jacobi_smooth" with the
     bands, b and x in shared memory, or with ``memory="registers"`` in a
-    warp's registers (those two only); for "ilu0_apply" the largest system
-    whose y stays in shared memory.  Deeper columns need a global scratch
-    (the apply: y in x).  The launcher's own rule, read from the library
-    (built at first use) once per kernel, dtype and memory."""
+    warp's registers (those two only).  Deeper columns need a global
+    scratch.  The launcher's own rule, read
+    from the library (built at first use) once per kernel, dtype and
+    memory.  (The ILU(0) kernels' limits: :func:`ilu0_limits`.)"""
     key = (kernel, dtype, memory)
     if key not in _MAX_ON_CHIP:
         which = {"shared": "max_on_chip",
@@ -418,107 +422,21 @@ def stream_ceiling(a, b, c, x):
 
 # ---- ILU(0): the factor and the apply -------------------------------------
 
-#: the most threads a block of the ILU(0) kernels runs (a level or step with
-#: more rows or pairs takes them in turns)
-ILU0_MAX_THREADS = 256
+_ILU0_LIMITS = {}
 
 
-def _pack(counts, sections):
-    """One int32 array laid out as ``csrc/ilu0_kernels.cu`` reads it: the
-    ``counts``, the offsets of the named ``sections`` (in order), then the
-    sections.  Returns (array, {name: (start, stop)})."""
-    head = len(counts) + len(sections)
-    spans, o = {}, head
-    for name, a in sections:
-        spans[name] = (o, o + len(a))
-        o += len(a)
-    if o >= 2 ** 31:
-        raise ValueError(f"ILU(0) schedule of {o} entries exceeds int32")
-    out = np.zeros(o, np.int64)
-    out[:len(counts)] = counts
-    out[len(counts):head] = [lo for lo, _ in spans.values()]
-    for name, a in sections:
-        lo, hi = spans[name]
-        out[lo:hi] = a
-    return out.astype(np.int32), spans
-
-
-def _threads(width):
-    """Threads of a block whose widest level or step has ``width`` items: a
-    whole number of warps, at most ILU0_MAX_THREADS."""
-    return int(min(ILU0_MAX_THREADS, max(32, -(-width // 32) * 32)))
-
-
-class ILU0Schedule:
-    """The ILU(0) schedule of one CSR sparsity, flattened into the two int32
-    arrays that :func:`ilu0_factor` and :func:`ilu0_apply` (and their plain
-    forms) walk; built once on the host, copied once to each device.
-
-    ``steps``: the IKJ steps in wavefront order, each ``(lp, ld, pij, pik,
-    pkj)``: slots ``lp`` take the multipliers ``f[lp] / f[ld]``, then
-    ``f[pij] -= f[pik] * f[pkj]`` (``pik`` the multiplier's slot).
-    ``fwd`` / ``bwd``: the levels of the forward / back sweep, each ``(rows,
-    pos, col)`` with ``pos`` / ``col`` ``[rows, W]`` padded with slot
-    ``nnz`` / column ``n``; ``dpos``: per back-sweep level, its rows'
-    diagonal slots."""
-
-    def __init__(self, n, nnz, steps, fwd, bwd, dpos):
-        self.n, self.nnz = int(n), int(nnz)
-
-        def cat(arrs):
-            return np.concatenate([np.asarray(a, np.int64).ravel()
-                                   for a in arrs] + [np.zeros(0, np.int64)])
-
-        def ptr(sizes):
-            return np.concatenate([[0], np.cumsum(sizes, dtype=np.int64)])
-
-        nl = [len(st[0]) for st in steps]
-        npair = [len(st[2]) for st in steps]
-        self.factor, fspans = _pack(
-            [len(steps)],
-            [("lp_ptr", ptr(nl)), ("pair_ptr", ptr(npair))]
-            + [(k, cat([st[i] for st in steps]))
-               for i, k in enumerate(("lp", "ld", "pij", "pik", "pkj"))])
-
-        def sweep(tag, levels):
-            return [(tag + "row_ptr", ptr([len(lv[0]) for lv in levels])),
-                    (tag + "tab_ptr", ptr([lv[1].size for lv in levels])),
-                    (tag + "width", [lv[1].shape[1] for lv in levels]),
-                    (tag + "rows", cat([lv[0] for lv in levels])),
-                    (tag + "pos", cat([lv[1] for lv in levels])),
-                    (tag + "col", cat([lv[2] for lv in levels]))]
-        self.apply, aspans = _pack([len(fwd), len(bwd)],
-                                   sweep("f_", fwd) + sweep("b_", bwd)
-                                   + [("dpos", cat(dpos))])
-        self.factor_threads = _threads(max(nl + npair + [0]))
-        self.apply_threads = _threads(max(
-            [len(lv[0]) for lv in list(fwd) + list(bwd)] + [0]))
-        self._spans = {"factor": fspans, "apply": aspans}
-        # the pointer sections on the host, for the plain forms' loops
-        self.ptrs = {k: [int(v) for v in arr[lo:hi]]
-                     for arr, spans in ((self.factor, fspans),
-                                        (self.apply, aspans))
-                     for k, (lo, hi) in spans.items()
-                     if k.endswith(("_ptr", "width"))}
-        self._dev = {}
-
-    def on(self, device):
-        """(factor, apply) schedules as tensors on ``device``: int32 on a
-        card (the kernels'), int64 on the CPU (the plain forms' indices)."""
-        device = torch.device(device)
-        key = str(device)
-        if key not in self._dev:
-            itype = torch.int64 if device.type == "cpu" else torch.int32
-            self._dev[key] = tuple(
-                torch.as_tensor(a, dtype=itype, device=device)
-                for a in (self.factor, self.apply))
-        return self._dev[key]
-
-    def sections(self, device, which, *names):
-        """Sections ``names`` of the ``which`` ("factor" or "apply")
-        schedule on ``device`` as int64 index tensors."""
-        t = self.on(device)[which == "apply"]
-        return [t[slice(*self._spans[which][k])].long() for k in names]
+def ilu0_limits(dtype):
+    """The ILU(0) kernels' limits for ``dtype`` values, by ``LIMITS`` name
+    (``csrc/ilu0_kernels.cu``'s ``mpp_ilu0_limit``, read from the library
+    once a dtype): the staged form's shared memory, a ring stage's words
+    and values, the ring's stages, and the streamed forms' on-chip cells
+    (factor) and rows of y (apply); past those the streamed forms keep
+    the rest in a global scratch."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    if elem not in _ILU0_LIMITS:
+        q = _build.library().mpp_ilu0_limit
+        _ILU0_LIMITS[elem] = {k: q(i, elem) for i, k in enumerate(LIMITS)}
+    return _ILU0_LIMITS[elem]
 
 
 def _check_ilu0(name, sched, arrays, widths):
@@ -592,10 +510,34 @@ def ilu0_apply_plain(f, b, sched):
     return y[:, :sched.n]
 
 
+def _ilu0_launch(name, sched, lead, B, fn, args, elem_arrays):
+    """Launch ``fn`` on ``sched``'s plan for ``lead``'s dtype at ``B``
+    systems: the program, the spill scratch the streamed forms need past
+    their on-chip limit, then ``args`` and the plan's shape."""
+    plan = sched.plan(name.replace("ilu0_", ""), lead.element_size(), B,
+                      ilu0_limits(lead.dtype))
+    prog = sched.program_on(plan, lead.device)
+    spill = plan.get("spill", 0)
+    scratch = torch.empty(B * len(sched.parts) * spill, dtype=lead.dtype,
+                          device=lead.device) if spill else None
+    with torch.cuda.device(lead.device):
+        rc = fn(*args, prog.data_ptr(),
+                None if scratch is None else scratch.data_ptr(), B,
+                *elem_arrays, len(sched.parts), int(plan["form"] ==
+                                                    "streamed"),
+                plan["systems"], plan["lanes"], plan["threads"],
+                plan["smem"], plan.get("on_chip", 0), spill, _stream(lead))
+    _launched(name, rc)
+
+
 def ilu0_factor(data, sched):
     """The ILU(0) factor values ``[B, nnz]`` of the systems ``data [B,
     nnz]`` (f32 or f64, contiguous) on ``sched``'s sparsity: PETSc's IKJ
-    order (levels 0, natural ordering, no shift), any n and nnz."""
+    order (levels 0, natural ordering, no shift), any n, nnz and B; bit
+    for bit :func:`ilu0_factor_plain`.  On the card one launch, in the
+    form ``sched.plan`` picks: staged (the part's steps and G-lane
+    systems' values in shared memory, 32 / G systems a warp) or streamed (the steps through a ring, the values in
+    shared-memory cells, a global scratch past them)."""
     name = "ilu0_factor"
     _check_ilu0(name, sched, (data,), ("nnz",))
     if data.device.type == "cpu":
@@ -604,22 +546,23 @@ def ilu0_factor(data, sched):
     B = data.shape[0]
     if B == 0:
         return f
-    fac, _ = sched.on(data.device)
     lib = _build.library()
     fn = lib.mpp_ilu0_factor_f64 if data.dtype == torch.float64 else \
         lib.mpp_ilu0_factor_f32
-    with torch.cuda.device(data.device):
-        rc = fn(data.data_ptr(), f.data_ptr(), fac.data_ptr(), B, sched.nnz,
-                sched.factor_threads, _stream(data))
-    _launched(name, rc)
+    _ilu0_launch(name, sched, data, B, fn, (data.data_ptr(), f.data_ptr()),
+                 (sched.n, sched.nnz))
     return f
 
 
 def ilu0_apply(f, b, sched):
     """(LU)^-1 b for ``b [B, n]`` and the factor values ``f [B, nnz]`` (one
     dtype, f32 or f64, contiguous) on ``sched``'s sparsity: the unit-lower
-    forward sweep, then the upper back sweep; any n (y in shared memory up
-    to ``max_on_chip("ilu0_apply", dtype)``, in x past it)."""
+    forward sweep, then the upper back sweep; any n, nnz and B, within
+    1e-12 (f64) / 1e-5 (f32) of max |x| of :func:`ilu0_apply_plain`.  On the
+    card one launch, in the form ``sched.plan`` picks: staged (the part's
+    levels and G-lane systems' f and y in shared memory) or streamed (the
+    levels and the f values they read through a ring, y in shared memory
+    and a global scratch past it)."""
     name = "ilu0_apply"
     _check_ilu0(name, sched, (f, b), ("nnz", "n"))
     if b.device.type == "cpu":
@@ -628,12 +571,9 @@ def ilu0_apply(f, b, sched):
     B = b.shape[0]
     if B == 0 or sched.n == 0:
         return x
-    _, app = sched.on(b.device)
     lib = _build.library()
     fn = lib.mpp_ilu0_apply_f64 if b.dtype == torch.float64 else \
         lib.mpp_ilu0_apply_f32
-    with torch.cuda.device(b.device):
-        rc = fn(f.data_ptr(), b.data_ptr(), x.data_ptr(), app.data_ptr(), B,
-                sched.n, sched.nnz, sched.apply_threads, _stream(b))
-    _launched(name, rc)
+    _ilu0_launch(name, sched, b, B, fn, (f.data_ptr(), b.data_ptr(),
+                                         x.data_ptr()), (sched.n, sched.nnz))
     return x

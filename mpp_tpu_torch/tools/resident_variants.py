@@ -1,5 +1,7 @@
 """The SpMV chain and the Jacobi smoother against variant builds of
-themselves on one NVIDIA GPU, and their sweep loops counted in SASS.
+themselves on one NVIDIA GPU, and their sweep loops counted in SASS; with
+``--ilu``, the ILU(0) factor and apply of other checkouts against this
+one's.
 
 A variant is this checkout's ``csrc/spmv_family_kernels.cu`` with the text
 edits of ``VARIANTS[name]``, in a copy of the package under
@@ -14,8 +16,18 @@ order given and then reversed, ROUNDS times (A B .. B A A B .. B A); a
 device time is torch.profiler's summed kernel durations over REPS calls,
 divided by REPS, from a window holding exactly REPS kernel records.
 
+``--ilu`` times ``hopper_kernels.ilu0_factor`` / ``ilu0_apply`` instead, in
+f64 at ILU_PATHS, ``chip_smoke.py`` (y)'s path shapes: the sparsities are
+built once by this checkout and every tree builds its own
+``BatchedILU0`` on them, draws the same systems (``chip_smoke.
+ilu_systems``), holds its factor bit for bit and its apply within 1e-12 of
+max |x| against its own plain forms, and is timed as above; where the
+caller finds the factor L2-cold ((q): GMRES's Krylov basis evicts it)
+also behind a 128 MB copy before each call (``cold``).
+
     python -m mpp_tpu_torch.tools.resident_variants [--tree NAME=ROOT ...]
         [TREE ...]                       # default: this and every variant
+    python -m mpp_tpu_torch.tools.resident_variants --ilu --tree NAME=ROOT
     python -m mpp_tpu_torch.tools.resident_variants --sass [--root ROOT]
         [--dump FILE]
 
@@ -60,6 +72,10 @@ CASES = (("float64", 16384, 30), ("float32", 16384, 30),
 ITERS = 30
 REPS = 20
 ROUNDS = 2
+#: --ilu: (path, systems, L2-cold too)
+ILU_PATHS = (("th_petsc", 8192, True), ("celia1990", 1, False),
+             ("th_manoli2014", 1, False), ("th_manoli2014_x10", 1, False),
+             ("mlc_compiled", 1, False))
 # opcodes counted on the hot path
 SASS_OPS = ("FADD", "FMUL", "FFMA", "DADD", "DMUL", "DFMA", "MUFU", "F2F",
             "FCHK", "FSEL", "SEL", "FSETP", "DSETP", "SHFL", "IMAD", "ISETP",
@@ -90,9 +106,11 @@ def make_variant(name):
     return root
 
 
-def _device_ms(torch, fn, tries=5):
+def _device_ms(torch, fn, tries=5, flush=None, name=""):
     """Device milliseconds of one ``fn()`` (one kernel launch): the summed
-    kernel durations over REPS calls, over REPS, after two warm calls."""
+    durations of the device records whose name holds ``name`` over REPS
+    calls (each behind ``flush()`` if given), over REPS, after two warm
+    calls."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -103,11 +121,13 @@ def _device_ms(torch, fn, tries=5):
                                  ProfilerActivity.CUDA]) as prof:
             time.sleep(1e-3)
             for _ in range(REPS):
+                if flush is not None:
+                    flush()
                 fn()
             torch.cuda.synchronize()
             time.sleep(1e-3)
         us = [e.time_range.elapsed_us() for e in prof.events()
-              if e.device_type == DeviceType.CUDA]
+              if e.device_type == DeviceType.CUDA and name in e.name]
         if len(us) == REPS:
             return sum(us) / REPS / 1e3
     raise RuntimeError(f"torch.profiler: no window of {REPS} kernel records "
@@ -147,6 +167,83 @@ def time_tree():
                                    "bitwise equal to its plain version")
             out[f"{name} [{ncol},{nz}] {dt_name}"] = _device_ms(
                 torch, partial(getattr(hk, name), *args))
+    return out
+
+
+def _chip_smoke():
+    """This checkout's ``chip_smoke.py`` as a module (its ILU(0)
+    helpers)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(THIS, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def ilu_sparsities(path):
+    """Write the CSR patterns of ILU_PATHS to ``path`` (npz, NAME_indptr
+    and NAME_indices), built by this checkout on the CPU: (q)'s TH column
+    at nx 64 ("petsc"), (w1)'s celia1990 column, (x1)'s th_manoli2014 at
+    scale 1 and 10, (v3)'s CompiledMLC at 256 columns."""
+    import numpy as np
+    from mpp_tpu_torch.batched.th_compiled import compile_th
+    from mpp_tpu_torch.problems import mlc, th, th_manoli2014
+    cs = _chip_smoke()
+    mpp, _ = th.run_mass_and_heat(nx=cs.TH_NH, compiled=True,
+                                  linear_solver="direct", device="cpu")
+    out = {"th_petsc": compile_th(mpp)._ilu,
+           "celia1990": cs.ilu_tridiagonal(cs.W1_CELIA["nz"])}
+    for name, scale in (("th_manoli2014", 1),
+                        ("th_manoli2014_x10", cs.X1_TH_SPAC["big_scale"])):
+        soe = th_manoli2014.build_th_manoli2014(scale=scale,
+                                                device="cpu").soe
+        soe._build_jac_plan()
+        out[name] = soe._jac_plan["ilu"].batched
+    out["mlc_compiled"] = mlc.run_mlc_problem(
+        cs.MLC_WIDE_NCAIR, 1, use_compiled=True,
+        device="cpu").soe.step_dt.__self__._ilu
+    np.savez(path, **{f"{k}_{a}": getattr(v, a) for k, v in out.items()
+                      for a in ("indptr", "indices")})
+
+
+def time_ilu(data_path):
+    """{case: device ms} of both ILU(0) kernels at ILU_PATHS (f64), in the
+    tree whose package is first on sys.path, on the sparsities at
+    ``data_path``; fails unless each holds to its plain form."""
+    from functools import partial
+
+    import numpy as np
+    import torch
+    from mpp_tpu_torch.batched.ilu_gmres import BatchedILU0
+    from mpp_tpu_torch.ops import hopper_kernels as hk
+    if not torch.cuda.is_available():
+        raise RuntimeError("torch.cuda.is_available() is false")
+    systems = _chip_smoke().ilu_systems
+    pats = np.load(data_path)
+    src = torch.zeros(16 << 20, dtype=torch.float64, device="cuda")
+    flush = partial(torch.empty_like(src).copy_, src)
+    out = {}
+    for path, B, cold in ILU_PATHS:
+        ilu = BatchedILU0(pats[f"{path}_indptr"], pats[f"{path}_indices"])
+        data, b = (torch.as_tensor(a, device="cuda")
+                   for a in systems(ilu, B, seed=B + ilu.n))
+        s = ilu.schedule
+        f = hk.ilu0_factor(data, s)
+        if not torch.equal(f.view(torch.int64),
+                           hk.ilu0_factor_plain(data, s).view(torch.int64)):
+            raise RuntimeError(f"{path}: factor not bitwise its plain form")
+        x, xp = hk.ilu0_apply(f, b, s), hk.ilu0_apply_plain(f, b, s)
+        err = float((x - xp).abs().max()) / float(xp.abs().max())
+        if not err <= 1e-12:
+            raise RuntimeError(f"{path}: apply off its plain form by {err}")
+        for kern, call in (("ilu0_factor", partial(hk.ilu0_factor, data, s)),
+                           ("ilu0_apply", partial(hk.ilu0_apply, f, b, s))):
+            case = f"{kern} {path} [{B},{ilu.n}] float64"
+            out[case] = _device_ms(torch, call, name="ilu0")
+            if cold:
+                out[case + " cold"] = _device_ms(torch, call, flush=flush,
+                                                 name="ilu0")
     return out
 
 
@@ -264,8 +361,9 @@ def sass_sweeps(dump=None):
 
 
 def _child(mode, root, dump):
-    """Run ``mode`` ("time" or "sass") on ``root``'s package in a process
-    of its own; returns its JSON result."""
+    """Run ``mode`` ("time" or "sass"; "ilu" with the sparsities at
+    ``dump``) on ``root``'s package in a process of its own; returns its
+    JSON result."""
     cmd = [sys.executable, _HERE, "--child", mode, "--root", root]
     if dump:
         cmd += ["--dump", dump]
@@ -281,13 +379,15 @@ def main(argv=None):
     ap.add_argument("--tree", action="append", default=[],
                     help="NAME=ROOT: another checkout, as it is")
     ap.add_argument("--sass", action="store_true")
+    ap.add_argument("--ilu", action="store_true")
     ap.add_argument("--root", default=THIS)
     ap.add_argument("--dump")
-    ap.add_argument("--child", choices=("time", "sass"))
+    ap.add_argument("--child", choices=("time", "sass", "ilu"))
     args = ap.parse_args(argv)
     if args.child:
         sys.path.insert(0, os.path.abspath(args.root))
-        res = time_tree() if args.child == "time" else sass_sweeps(args.dump)
+        res = {"time": time_tree, "ilu": lambda: time_ilu(args.dump),
+               "sass": lambda: sass_sweeps(args.dump)}[args.child]()
         print(json.dumps(res))
         return
     import torch
@@ -299,24 +399,31 @@ def main(argv=None):
         print(json.dumps(dict(card=card(), root=args.root, sass=_child(
             "sass", os.path.abspath(args.root), args.dump))))
         return
-    roots = {"this": THIS}
-    for name in args.trees or ["this", *VARIANTS]:
-        if name != "this":
-            roots[name] = make_variant(name)
+    roots, mode, data = {}, "time", None
     for spec in args.tree:
         name, root = spec.split("=", 1)
         roots[name] = os.path.abspath(root)
+    roots["this"] = THIS
+    for name in args.trees or ([] if args.ilu else list(VARIANTS)):
+        if name != "this":
+            roots[name] = make_variant(name)
+    if args.ilu:
+        mode = "ilu"
+        data = os.path.join(_PKG, "_build", "ilu_sparsities.npz")
+        os.makedirs(os.path.dirname(data), exist_ok=True)
+        ilu_sparsities(data)
     order = list(roots)
     times = {name: [] for name in order}
     for k in range(ROUNDS):
         for name in (order + order[::-1]):
-            times[name].append(_child("time", roots[name], None))
+            times[name].append(_child(mode, roots[name], data))
             print(f"{name} round {k}: {times[name][-1]}", flush=True)
     cases = list(times[order[0]][0])
     summary = {case: {name: sum(t[case] for t in times[name])
                       / len(times[name]) for name in order}
                for case in cases}
-    print(json.dumps(dict(card=card(), runs_per_tree=2 * ROUNDS,
+    print(json.dumps(dict(card=card(), order=order,
+                          runs_per_tree=2 * ROUNDS,
                           mean_device_ms=summary)))
 
 

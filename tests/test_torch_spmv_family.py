@@ -262,6 +262,12 @@ def test_resident_variants_refuse_to_run_without_cuda(monkeypatch):
         rv.main(["this"])
 
 
+def test_resident_variants_ilu_refuses_to_run_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        rv.main(["--ilu", "--tree", f"parent={ROOT}"])
+
+
 # --- wrapper checks ---------------------------------------------------------
 def _bad_calls():
     a = torch.ones(4, 8, dtype=torch.float64)
