@@ -99,9 +99,12 @@ line is printed):
       and "direct" (the JAX package's rule picks block-Thomas there),
       card against CPU within rtol 1e-9;
   (u) the batched canopy pipeline (turbulence -> longwave -> LBL ->
-      photosynthesis -> MLC, 93 levels; of the hand-written kernels only
-      the ILU(0) pair of the radiation solves, one launch a factorization
-      / apply on the card):
+      photosynthesis -> MLC, 93 levels; of the hand-written kernels
+      block_thomas_small, one launch for the longwave solve and one for
+      the MLC solve a substep (counted on (u1)-(u4), none on (u5), and the
+      plain level loop run on no CUDA tensor over (u)), and the ILU(0)
+      pair of the radiation solves, one launch a factorization / apply on
+      the card):
       (u1) f32 at ncair = 4096 (bench.py:968's largest scaling point),
       default forcing, 1 warm and 4 timed staged substeps and one
       12-substep fused hour: ms a substep, column-substeps/s, each stage's
@@ -203,7 +206,8 @@ line is printed):
       and the serial GMRES step within its stopping tolerance); cg (SPD),
       bicgstab and gmres (SPD and nonsymmetric) at n = 256: equal
       iterations card vs CPU, solutions within 1e-10; no kernel but the
-      ILU(0) pair launched, once a factorization / apply on the card;
+      ILU(0) pair, once a factorization / apply on the card, and
+      block_thomas_small, once a bridge case's block solve, launched;
       (x1)'s card runs launch it the same way;
   (y) the ILU(0) factor and apply kernels against their plain forms
       (ilu0_factor bit for bit, ilu0_apply within 1e-12 (f64) / 1e-5
@@ -220,7 +224,20 @@ line is printed):
       systems-a-block count divides; many parts; inputs not 16-byte
       aligned), failing unless each form is reached in each
       dtype; each timed with its plain form; their launches in the
-      kernels line are those counted on the paths above.
+      kernels line are those counted on the paths above;
+  (z) the block_thomas_small kernel against its plain form
+      (ops/block_thomas.block_thomas) on the card: at the canopy's path
+      shapes (BTS_PATHS: [4096, 93, 3] f64, [4096, 93, 4] f32 and f64,
+      [8, 93, 3 / 4] f64; ms, device ms, plain ms, the bound and its
+      share of the device ms), at the
+      edges (every m = 1..8 at n in BTS_EDGE_N and B in BTS_EDGE_B, f64
+      and f32, block diagonally dominant and row-swapping blocks (each D
+      block's rows rotated, its leading diagonal zero); the plain forms
+      run at the largest B, the kernel on the first B systems), and a NaN
+      in one system's D that reaches that system's x and no other's;
+      tolerances: f64 1e-12 of max |x|, f32 no farther from the plain f64
+      solve of the same values than twice the plain f32 solve; its
+      launches in the kernels line are those counted on (u) and (x4).
 
 Every kernel timing is read twice: ``ms``, CUDA events around back-to-back
 calls of the wrapper (host cost per call included), and ``device_ms``, the
@@ -237,9 +254,10 @@ that no whole profiler window gives is null, not measured, with a
 "device_time_short" line (see device_time); no gate reads one.
 
 The launch counters are reset just before (d) and read just after (e),
-reset just before (u) and read just after it (all zero but the ILU(0)
-pair, whose launches must equal the card's factorizations and applies over
-every BatchedILU0, ilu_gmres.CARD_CALLS), the same for (v) and for (w)'s
+reset just before (u) and read just after it (all zero but
+block_thomas_small, two a substep, and the ILU(0) pair, whose launches
+must equal the card's factorizations and applies over every BatchedILU0,
+ilu_gmres.CARD_CALLS), the same for (v) and for (w)'s
 serial runs (its compiled celia1990 run is counted apart), and the ILU(0)
 pair is counted the same way over (q), (r), (s), (t), (x1) and (x4),
 reset just before (h) and read just after (i), reset just before (k)'s
@@ -404,6 +422,8 @@ KERNELS = {
     # no pl.pallas_call: the JAX package's lax.scan row sweeps
     "ilu0_factor": (_ILU0, "mpp_tpu/batched/ilu_gmres.py:140"),
     "ilu0_apply": (_ILU0, "mpp_tpu/batched/ilu_gmres.py:152,161"),
+    "block_thomas_small": ("mpp_tpu_torch/csrc/block_thomas_small_kernels.cu",
+                           "mpp_tpu/ops/block_thomas.py:113,120"),
 }
 # harness variants behind each harness row of the kernels line; the first
 # is the row's representative (its times and error)
@@ -455,6 +475,24 @@ ILU_FORMS = ("systems_a_warp", "warp", "streamed", "streamed_spilled")
 # the ILU(0) factorizations and applies on the card of each counted path,
 # each one launch of its kernel (ilu_since)
 ILU_BY_PATH = {}
+# (z): block_thomas_small at the canopy's path shapes ((path, B, n, m,
+# dtype): (u1)/(u2)'s longwave and MLC solves, (u3)'s at 8 columns) and at
+# the edges: every m = 1..8 at BTS_EDGE_N levels and BTS_EDGE_B systems
+# (33: no warp's system count divides it); tolerances: f64 BTS_F64_REL of
+# max |x|, f32 BTS_F32_FACTOR x the plain f32 solve's own distance from
+# the plain f64 solve of the same values (the MLC solve is ill-conditioned
+# in f32: tests/test_torch_canopy_pipeline.py:14-18)
+CANOPY_NLEV = 93            # the pipeline's levels (92 air + soil)
+BTS_PATHS = (("longwave", CANOPY_NCAIR, CANOPY_NLEV, 3, "float64"),
+             ("mlc", CANOPY_NCAIR, CANOPY_NLEV, 4, "float32"),
+             ("mlc", CANOPY_NCAIR, CANOPY_NLEV, 4, "float64"),
+             ("longwave_u3", 8, CANOPY_NLEV, 3, "float64"),
+             ("mlc_u3", 8, CANOPY_NLEV, 4, "float64"))
+BTS_EDGE_N = (1, 2, 93, 1000)
+BTS_EDGE_B = (1, 33, 4096)
+BTS_F64_REL, BTS_F32_FACTOR = 1e-12, 2.0
+# block_thomas_small's launches on each counted path (run_canopy, (x4))
+BTS_BY_PATH = {}
 
 
 def fail(msg):
@@ -744,10 +782,11 @@ def ilu_mark(hk):
 
 
 def ilu_since(hk, path, mark, only_ilu=False, required=True, steps=None,
-              instance=None):
+              instance=None, also=()):
     """Fail unless every ILU(0) factorization and apply on the card since
     ``mark`` was one launch of its kernel (and, ``required``, there was one
-    of each at least); with ``only_ilu`` unless no other kernel launched;
+    of each at least); with ``only_ilu`` unless no other kernel but those
+    named in ``also`` launched;
     with ``instance`` = (a BatchedILU0, its factors and applies at the
     mark) unless its counters moved as far.  Records the launches under
     ``path`` (per step with ``steps``) and returns them."""
@@ -765,7 +804,8 @@ def ilu_since(hk, path, mark, only_ilu=False, required=True, steps=None,
               f"the kernels launched {launched}")
     if only_ilu:
         rest = {k: l1[k] - l0[k] for k in l1
-                if not k.startswith("ilu0_") and l1[k] != l0[k]}
+                if not k.startswith("ilu0_") and k not in also
+                and l1[k] != l0[k]}
         check(not rest, f"{path}: launched kernels off the ILU(0) pair: "
               f"{rest}")
     row = dict(path=path, launches=launched)
@@ -1800,6 +1840,36 @@ def run_small_problems(torch):
     print("small_problems " + json.dumps(res))
 
 
+def count_plain_block_loops(hk):
+    """Count the plain block-Thomas level loops run on CUDA tensors: the
+    names through which ``ops/block_structure.block_solve`` (m > 8) and
+    ``hopper_kernels.block_thomas_small`` (CPU tensors) reach it.  Returns
+    (the list of their b shapes, a function that restores the names)."""
+    from mpp_tpu_torch.ops import block_structure as bs
+    calls, saved = [], (hk.block_thomas, bs.block_thomas)
+
+    def counted(fn):
+        def run(L, D, U, b):
+            if b.is_cuda:
+                calls.append(list(b.shape))
+            return fn(L, D, U, b)
+        return run
+    hk.block_thomas, bs.block_thomas = counted(saved[0]), counted(saved[1])
+
+    def restore():
+        hk.block_thomas, bs.block_thomas = saved
+    return calls, restore
+
+
+def bts_count(hk, tag, mark, expected):
+    """block_thomas_small's launches since ``mark``; fail unless they are
+    ``expected`` (two a canopy substep: the longwave and MLC solves)."""
+    got = hk.LAUNCHES["block_thomas_small"] - mark
+    check(got == expected, f"{tag}: block_thomas_small launched {got} "
+          f"times, not {expected}")
+    return got
+
+
 def canopy_gates(torch, pipe, state, tag, dtype):
     """(u)'s physical gates (tests/test_canopy_pipeline.py:18-39)."""
     for name, a in zip(state._fields, state):
@@ -1820,14 +1890,17 @@ def canopy_counts(pipe):
     return (pipe.host_syncs, pipe.hybrid_iterations, pipe.psy_iterations)
 
 
-def run_canopy_timed(torch, cp, dtype, substeps, tag):
+def run_canopy_timed(torch, hk, cp, dtype, substeps, tag):
     """(u1) / (u2): build the pipeline at CANOPY_NCAIR, one warm and
-    ``substeps`` timed staged substeps; returns (pipe, state, the row)."""
+    ``substeps`` timed staged substeps, block_thomas_small launched twice
+    a substep; returns (pipe, state, the row)."""
     t0 = time.perf_counter()
     pipe = cp.CanopyPipeline(CANOPY_NCAIR, dtype=dtype, device="cuda")
     sync(torch)
     build_s = time.perf_counter() - t0
+    check(pipe.nlev == CANOPY_NLEV, f"{tag}: {pipe.nlev} levels")
     fns = pipe.staged_substep_fns()
+    mark = hk.LAUNCHES["block_thomas_small"]
     state = pipe.run_staged(fns, pipe.initial_state(), CANOPY_DT)
     sync(torch)
     c0 = canopy_counts(pipe)
@@ -1838,6 +1911,7 @@ def run_canopy_timed(torch, cp, dtype, substeps, tag):
     ms = (time.perf_counter() - t0) * 1e3 / substeps
     c1 = canopy_counts(pipe)
     canopy_gates(torch, pipe, state, tag, dtype)
+    bts = bts_count(hk, tag, mark, 2 * (substeps + 1))
     per = [(b - a) / substeps for a, b in zip(c0, c1)]
     return pipe, state, dict(
         cell=tag, ncair=CANOPY_NCAIR, nlev=pipe.nlev, dtype=str(dtype),
@@ -1845,7 +1919,8 @@ def run_canopy_timed(torch, cp, dtype, substeps, tag):
         column_substeps_per_s=CANOPY_NCAIR * 1e3 / ms,
         host_syncs_per_substep=per[0],
         hybrid_iterations_per_substep=per[1],
-        psy_newton_iterations_per_substep=per[2])
+        psy_newton_iterations_per_substep=per[2],
+        block_thomas_small_launches_per_substep=bts / (substeps + 1))
 
 
 def run_canopy(torch, hk):
@@ -1856,14 +1931,16 @@ def run_canopy(torch, hk):
     from mpp_tpu_torch.problems.ml_model import synthetic_diurnal_bc
     hk.reset_launches()
     mark = ilu_mark(hk)
+    plain_calls, restore = count_plain_block_loops(hk)
     t_u = time.perf_counter()
 
     # (u1) f32 at full width: substeps, stages, the fused hour
-    pipe, state, row = run_canopy_timed(torch, cp, torch.float32,
+    pipe, state, row = run_canopy_timed(torch, hk, cp, torch.float32,
                                         CANOPY_F32_SUBSTEPS, "u1_f32")
     fns = pipe.staged_substep_fns()
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     f = pipe.default_forcing
+    bts0 = hk.LAUNCHES["block_thomas_small"]
     ev[0].record()
     pre = fns[0](state, f)
     ev[1].record()
@@ -1875,6 +1952,7 @@ def run_canopy(torch, hk):
     row["stage_ms"] = dict(pre=ev[0].elapsed_time(ev[1]),
                            psy=ev[1].elapsed_time(ev[2]),
                            mlc=ev[2].elapsed_time(ev[3]))
+    bts_count(hk, "(u1) stages", bts0, 2)
     times = []
     for _ in range(3):
         sync(torch)
@@ -1885,13 +1963,16 @@ def run_canopy(torch, hk):
     row["shortwave_resolve_ms"] = times
     hour = pipe.fused_hour_fn(nsubstep=CANOPY_HOUR, dt=CANOPY_DT)
     sync(torch)
+    bts0 = hk.LAUNCHES["block_thomas_small"]
     t0 = time.perf_counter()
     s_hour = hour(state, f)
     sync(torch)
+    bts_count(hk, "(u1) fused hour", bts0, 2 * CANOPY_HOUR)
     row["fused_hour_s"] = time.perf_counter() - t0
     row["fused_hour_ms_per_substep"] = row["fused_hour_s"] * 1e3 / \
         CANOPY_HOUR
     canopy_gates(torch, pipe, s_hour, "u1_f32 hour", torch.float32)
+    BTS_BY_PATH["canopy_u1"] = hk.LAUNCHES["block_thomas_small"]
     print("canopy " + json.dumps(row))
     busy = dict(cell="canopy_pipeline", ncair=CANOPY_NCAIR, dtype="float32",
                 ms_per_step=row["ms_per_substep"])
@@ -1903,8 +1984,10 @@ def run_canopy(torch, hk):
           windows=2)
 
     # (u2) f64 at full width, with batch consistency
-    pipe64, s64, row64 = run_canopy_timed(torch, cp, torch.float64,
+    bts0 = hk.LAUNCHES["block_thomas_small"]
+    pipe64, s64, row64 = run_canopy_timed(torch, hk, cp, torch.float64,
                                           CANOPY_F64_SUBSTEPS, "u2_f64")
+    BTS_BY_PATH["canopy_u2"] = hk.LAUNCHES["block_thomas_small"] - bts0
     spread = max(float((a - a[:1]).abs().max()) for a in s64)
     check(spread <= 1e-12, f"(u2): identical columns differ by {spread:.3e}")
     row64["column_spread"] = spread
@@ -1914,11 +1997,14 @@ def run_canopy(torch, hk):
     # (u3) card against CPU, f64, 8 columns, 3 substeps
     out = {}
     for device in ("cuda", "cpu"):
+        bts0 = hk.LAUNCHES["block_thomas_small"]
         p = cp.CanopyPipeline(8, device=device)
         s = p.initial_state()
         for _ in range(3):
             s = p.substep(s, CANOPY_DT)
         out[device] = (s, canopy_counts(p)[1:])
+        BTS_BY_PATH[f"canopy_u3_{device}"] = bts_count(
+            hk, f"(u3) {device}", bts0, 6 if device == "cuda" else 0)
     dT = max(float((a.cpu() - b).abs().max()) for a, b, name in zip(
         out["cuda"][0], out["cpu"][0], cp.CanopyState._fields)
         if name != "q_air")
@@ -1937,6 +2023,7 @@ def run_canopy(torch, hk):
     beg, end = CANOPY_DIURNAL_HOURS
     dpipe = cp.CanopyPipeline(CANOPY_DIURNAL_NCAIR, dtype=torch.float32,
                               device="cuda")
+    bts0 = hk.LAUNCHES["block_thomas_small"]
     with tempfile.TemporaryDirectory() as d:
         sync(torch)
         t0 = time.perf_counter()
@@ -1955,6 +2042,7 @@ def run_canopy(torch, hk):
           f"(u4): canopy top at hour {hi} ({top[hi]:.3f} K) not warmer "
           f"than at hour {lo} ({top[lo]:.3f} K)")
     nsub = (end - beg + 1) * CANOPY_HOUR
+    BTS_BY_PATH["canopy_u4"] = bts_count(hk, "(u4)", bts0, 2 * nsub)
     print("canopy_diurnal " + json.dumps(dict(
         ncair=CANOPY_DIURNAL_NCAIR, hours=[beg, end], substeps=nsub,
         wall_s=wall, ms_per_substep_with_shortwave=wall * 1e3 / nsub,
@@ -1966,6 +2054,7 @@ def run_canopy(torch, hk):
     # at rtol 1e-9; the absorbed fluxes (differences of fluxes) on the
     # fluxes' scale at CANOPY_IABS_REL
     res = {}
+    bts0 = hk.LAUNCHES["block_thomas_small"]
     for name, absorbed in (("run_shortwave_problem",
                             ("Iabs_leaf", "Iabs_soil")),
                            ("run_longwave_problem", ("Iabs",))):
@@ -1987,12 +2076,19 @@ def run_canopy(torch, hk):
               "the largest flux")
         res[name] = dict(gmres_cycles=cyc["cuda"], flux_max_rel=rel,
                          absorbed_of_flux_scale=rel_abs)
+    BTS_BY_PATH["canopy_u5"] = bts_count(hk, "(u5)", bts0, 0)
     print("canopy_radiation " + json.dumps(res))
 
+    restore()
+    check(not plain_calls, f"(u): the plain block-Thomas level loop ran on "
+          f"the card at {plain_calls}")
     launches = dict(hk.LAUNCHES)
-    ilu_since(hk, "canopy", mark, only_ilu=True, required=False)
+    ilu_since(hk, "canopy", mark, only_ilu=True, required=False,
+              also=("block_thomas_small",))
     print("launches_on_canopy_path " + json.dumps(dict(
-        launches=launches, phase_s=time.perf_counter() - t_u)))
+        launches=launches, block_thomas_small_by_subphase=BTS_BY_PATH,
+        plain_block_loops_on_card=len(plain_calls),
+        phase_s=time.perf_counter() - t_u)))
     return [busy]
 
 
@@ -2895,7 +2991,11 @@ def run_slices_f2_g(torch, hk, tridiag, alm, card, alm_row):
     hk.reset_launches()
     mark = ilu_mark(hk)
     run_small_modules(torch, card)
-    ilu_since(hk, "mlc_bridge_krylov", mark, only_ilu=True, required=False)
+    ilu_since(hk, "mlc_bridge_krylov", mark, only_ilu=True, required=False,
+              also=("block_thomas_small",))
+    # one block solve on the card a bridge case
+    BTS_BY_PATH["mlc_bridge_x4"] = bts_count(hk, "(x4)", 0,
+                                             len(X4_MLC_CASES))
     phase_s = time.perf_counter() - t_x
     print("slices_f2_g_phase_s " + json.dumps(dict(
         x1=t1 - t_x, x2_x3=t2 - t1, x4=time.perf_counter() - t2,
@@ -3202,6 +3302,148 @@ def ilu_kernel_checks(torch, hk):
     return rows, results
 
 
+def bts_systems(torch, B, n, m, seed, swap):
+    """(z)'s inputs, made on the card from ``seed``: block diagonally
+    dominant random systems of ``B`` x ``n`` levels of m x m blocks, as
+    f32 values; returned in f32 and in f64 (the same values).  ``swap``:
+    each D block's rows rotated up by one and its leading diagonal zeroed,
+    so every level's small solve swaps rows (as tests/
+    test_torch_block_thomas_small.py's ``_system``)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (B, n, m, m)
+
+    def rand(*sh):
+        return torch.randn(*sh, generator=g, device="cuda",
+                           dtype=torch.float32)
+    L, U = 0.2 * rand(*shape), 0.2 * rand(*shape)
+    eye = torch.eye(m, device="cuda", dtype=torch.float32)
+    D = 0.2 * rand(*shape) + (2.5 + torch.rand(
+        shape[:-1], generator=g, device="cuda"))[..., None] * eye
+    if swap:
+        D = torch.roll(D, -1, dims=-2).contiguous()
+        D[..., 0, 0] = 0.0
+    b = rand(B, n, m)
+    f32 = [a.contiguous() for a in (L, D, U, b)]
+    return f32, [a.double() for a in f32]
+
+
+def bts_ops(m, n, B):
+    """Operations of B solves of n levels (a division one operation, an
+    FMA two): the level's products L Cp and L dp (2 m^3 + 2 m^2) and
+    subtractions (m^2 + m); the small solve (m = 1: 2 divisions; m = 2:
+    the det and adjugate products, 6 + 6 (m + 1), and m (m + 1)
+    divisions; else Gauss-Jordan: (m - 1) divisions and (m - 1)(2 m - j)
+    FMAs at column j, then m (m + 1) divisions); the back substitution
+    2 m^2 a level."""
+    if m == 1:
+        solve = 2
+    elif m == 2:
+        solve = 6 + 6 * (m + 1) + m * (m + 1)
+    else:
+        solve = sum((m - 1) + 2 * (m - 1) * (2 * m - j) for j in range(m)) \
+            + m * (m + 1)
+    level = 2 * m ** 3 + 2 * m ** 2 + m ** 2 + m + solve + 2 * m ** 2
+    return level * n * B
+
+
+def bts_hold(torch, label, got, plain64, plain32=None):
+    """Hold a block_thomas_small result: f64 (``plain32`` None) within
+    BTS_F64_REL of max |x| of the plain f64 solve; f32 no farther from the
+    plain f64 solve of the same values than BTS_F32_FACTOR times the plain
+    f32 solve is.  Both finite.  Returns (max |got - plain| in got's
+    dtype, the tolerance in those units, max |x|)."""
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), f"{label}: non-finite output")
+    scale = float(plain64.abs().max())
+    if plain32 is None:
+        err, tol = float((got - plain64).abs().max()), BTS_F64_REL * scale
+        check(err <= tol, f"{label}: max |kernel - plain| {err:.3e} > "
+              f"{BTS_F64_REL:g} * {scale:.3e}")
+        return err, tol, scale
+    own = float((plain32.double() - plain64).abs().max())
+    far = float((got.double() - plain64).abs().max())
+    check(far <= BTS_F32_FACTOR * own, f"{label}: the f32 kernel is "
+          f"{far:.3e} from the plain f64 solve, more than {BTS_F32_FACTOR} "
+          f"x the plain f32 solve's {own:.3e}")
+    return float((got - plain32).abs().max()), BTS_F32_FACTOR * own, scale
+
+
+def bts_kernel_checks(torch, hk):
+    """Phase (z): block_thomas_small against its plain form on the card at
+    the canopy's path shapes (timed) and at the edges (every m at every n
+    of BTS_EDGE_N and batch of BTS_EDGE_B, f64 and f32, dominant and
+    row-swapping blocks); a NaN kept in its system.  Returns (the
+    kernel_check rows, the kernels line's entry: (u1)'s MLC shape)."""
+    from mpp_tpu_torch.ops.block_thomas import block_thomas as plain
+    t0 = time.perf_counter()
+    rows, result = [], None
+    for path, B, n, m, dt_name in BTS_PATHS:
+        f32, f64 = bts_systems(torch, B, n, m, 7 + m, False)
+        args = f64 if dt_name == "float64" else f32
+        p64 = plain(*f64)
+        p32 = None if dt_name == "float64" else plain(*f32)
+        kern = partial(hk.block_thomas_small, *args)
+        label = f"block_thomas_small {path} {[B, n, m]} {dt_name}"
+        err, tol, scale = bts_hold(torch, label, kern(), p64, p32)
+        elem = 8 if dt_name == "float64" else 4
+        nbytes = (3 * m * m + 2 * m) * n * B * elem
+        ms_b, by = bound(nbytes, bts_ops(m, n, B), dt_name)
+        row = dict(kernel="block_thomas_small", path=path, shape=[B, n, m],
+                   dtype=dt_name, max_abs_err=err, tol=tol, max_abs_x=scale,
+                   ms=time_cuda(torch, kern, 20),
+                   plain_ms=time_cuda(torch, partial(plain, *args), 3),
+                   bytes=nbytes, bound_ms=ms_b, bound_by=by,
+                   library_ms=None, library_device_ms=None)
+        rows.append(row)
+        targets = [row]
+        if path == "mlc" and dt_name == "float32":
+            result = dict(row)
+            targets.append(result)
+        later(kern, 20, *targets)
+    # a NaN in one system's D reaches that system's x and no other's
+    _, (L, D, U, b) = bts_systems(torch, 4096, 93, 4, 11, False)
+    D[5, 40, 2, 1] = float("nan")
+    got, ref = hk.block_thomas_small(L, D, U, b), plain(L, D, U, b)
+    keep = torch.arange(4096, device="cuda") != 5
+    check(not bool(torch.isfinite(got[5]).all()),
+          "(z): the NaN of system 5 did not reach its x")
+    err, _, _ = bts_hold(torch, "(z) NaN's neighbours", got[keep], ref[keep])
+    nan_row = dict(nan_system_nonfinite=int((~torch.isfinite(got[5]))
+                                            .sum()),
+                   plain_nonfinite=int((~torch.isfinite(ref[5])).sum()),
+                   others_max_abs_err=err)
+    t1 = time.perf_counter()
+    # the edges: the plain forms at the largest batch, the kernel at each
+    # batch on the first B systems of the same values
+    worst = {}
+    for m in range(1, 9):
+        for n in BTS_EDGE_N:
+            for swap in ((False, True) if m > 1 else (False,)):
+                f32, f64 = bts_systems(torch, max(BTS_EDGE_B), n, m,
+                                       100 * m + n, swap)
+                p64, p32 = plain(*f64), plain(*f32)
+                for B in BTS_EDGE_B:
+                    for dt_name, args, ref32 in (("float64", f64, None),
+                                                 ("float32", f32, p32)):
+                        got = hk.block_thomas_small(*(a[:B] for a in args))
+                        label = (f"block_thomas_small {[B, n, m]} {dt_name}"
+                                 f"{' swap' if swap else ''}")
+                        err, tol, _ = bts_hold(
+                            torch, label, got, p64[:B],
+                            None if ref32 is None else ref32[:B])
+                        key = f"m{m} {dt_name}"
+                        share = err / tol if tol else 0.0
+                        if share >= worst.get(key, dict(share=-1))["share"]:
+                            worst[key] = dict(share=share, err=err, tol=tol,
+                                              shape=[B, n, m], swap=swap)
+                del got
+                del f32, f64, p64, p32
+    print("block_thomas_small_edges " + json.dumps(dict(
+        n=BTS_EDGE_N, B=BTS_EDGE_B, worst_err_over_tol=worst,
+        nan=nan_row, paths_s=t1 - t0, edges_s=time.perf_counter() - t1)))
+    return rows, result
+
+
 def main():
     here = os.path.dirname(os.path.abspath(__file__))
     check(os.path.isdir(os.path.join(here, "mpp_tpu_torch")),
@@ -3384,15 +3626,16 @@ def main():
     print("petsc_phases_s " + json.dumps(dict(
         q=t_q - t0, r=t_r - t_q, s=t_s - t_r, t=t_t - t_s)))
 
-    # (u): the batched canopy pipeline, counted (no kernel on its path)
+    # (u): the batched canopy pipeline, counted (block_thomas_small twice a
+    # substep, the ILU(0) pair of the radiation solves)
     canopy_busy = run_canopy(torch, hk)
 
     # (v): the serial MLC, CompiledMLC and the ml_model orchestrator,
-    # counted (no kernel on their path)
+    # counted (only the ILU(0) pair on their path)
     mlc_busy = run_mlc(torch, hk)
 
-    # (w): the serial SNES card vs CPU (no kernel on its path), the
-    # compiled celia1990's kernels counted, the CLI
+    # (w): the serial SNES card vs CPU (only the ILU(0) pair on its
+    # path), the compiled celia1990's kernels counted, the CLI
     by_path["vsfm_celia_compiled"], rows = run_serial(torch, hk, tridiag,
                                                       card)
     checks += rows
@@ -3425,9 +3668,22 @@ def main():
         r["launches"] = sum(r["launches_by_path"].values())
         results[name] = r
 
+    # (z): block_thomas_small against its plain form at the canopy's path
+    # shapes and the edges; its launches are those counted on (u) and (x4)
+    rows, results["block_thomas_small"] = bts_kernel_checks(torch, hk)
+    checks += rows
+    results["block_thomas_small"].update(
+        launches_by_path=dict(BTS_BY_PATH),
+        launches=sum(BTS_BY_PATH.values()),
+        path_rows=rows[:len(BTS_PATHS)])
+
     # the device times queued by (c)-(p) and (y), then the host-clock
     # readings of (d) and (c) again, after those profiler windows
     settle(torch)
+    bts = results["block_thomas_small"]
+    for r in (bts, *bts["path_rows"]):
+        r["bound_share"] = None if r["device_ms"] is None else \
+            r["bound_ms"] / r["device_ms"]
     for r in checks:
         print("kernel_check " + json.dumps(r))
     for r in (esc_busy, thermal_busy, *th_busy, *canopy_busy,

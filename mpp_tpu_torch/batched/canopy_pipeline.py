@@ -15,10 +15,11 @@ boundary-layer conductances -> photosynthesis & canopy exchange, stomatal
 conductance -> transpiration, canopy-top state -> next Obukhov iterate).
 
 Every stage is eager PyTorch on the pipeline's device (the card unless
-``device="cpu"``): longwave and MLC solve through the plain batched
-block-Thomas sweep (m = 3 and m = 4; no hand-written kernel, as the JAX
-package reaches no Pallas kernel here), photosynthesis through the batched
-masked Newton, turbulence through the batched Obukhov solve.  The two
+``device="cpu"``): longwave and MLC solve through the batched
+block-Thomas sweep (m = 3 and m = 4; ``ops/block_structure.block_solve``),
+one launch each of the ``block_thomas_small`` kernel on the card (the JAX
+package's ``lax.scan`` sweeps), photosynthesis through the batched masked
+Newton, turbulence through the batched Obukhov solve.  The two
 masked loops read one device scalar on the host an iteration; the
 pipeline counts those reads (``host_syncs``) and the loops' iterations.
 

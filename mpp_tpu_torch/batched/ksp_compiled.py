@@ -18,7 +18,8 @@ over ``ncol`` independent copies of the problem (one row of the
     (``ops/hopper_kernels.thomas``; its plain version for CPU tensors);
   - block-tridiagonal over level-major blocks (the 3-media thermal
     problem at one column): ``ops/block_structure.BlockTridiagTemplate``
-    and the plain ``ops/block_thomas.block_thomas`` sweep;
+    and ``block_solve`` (the ``block_thomas_small`` kernel to block size
+    8, the plain sweep past it);
   - otherwise, under ``linear_solver="petsc"``, the batched ILU(0) +
     GMRES(30) replica of the reference's KSP (``batched/ilu_gmres.py``;
     the 2-D and 3-D thermal MMS problems), else a dense
@@ -42,6 +43,7 @@ from mpp_tpu_torch.batched.vsfm_compiled import _rows
 from mpp_tpu_torch.constants import Cond
 from mpp_tpu_torch.device import device_of
 from mpp_tpu_torch.ops import hopper_kernels as hk
+from mpp_tpu_torch.ops.block_structure import block_solve
 from mpp_tpu_torch.ops.sparse import csr_template
 
 __all__ = ["CompiledKSP", "compile_ksp", "CompiledRadiation",
@@ -223,11 +225,10 @@ class CompiledKSP:
             dl, d, du = self._tri_bands(vals)
             return hk.thomas(dl, d, du, b.contiguous())
         if self._bt is not None:
-            from mpp_tpu_torch.ops.block_thomas import block_thomas
             L, D, U = self._bt.assemble(vals)
             nlev = self.n // self.block_size
-            x = block_thomas(L, D, U, b.reshape(ncol, 1, nlev,
-                                                self.block_size))
+            x = block_solve(L, D, U, b.reshape(ncol, 1, nlev,
+                                               self.block_size))
             return x.reshape(ncol, self.n)
         flat = self._const("dense_flat", vals,
                            lambda: self._coo_r * self.n + self._coo_c)

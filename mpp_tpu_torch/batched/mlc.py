@@ -7,8 +7,9 @@ coupled [T_air | q_air | T_sun... | T_shd...] system is block-tridiagonal
 when unknowns are grouped per canopy level — every coupling in the 4-block
 DMComposite fill (:333-455) stays within a level or reaches level k±1 —
 so the PETSc GMRES+ILU(0) solve becomes an exact batched block-Thomas
-sweep (``ops/block_thomas``, plain PyTorch; m = 4 at one tree), with
-canopy-air columns as the batch axis.
+sweep (``ops/block_structure.block_solve``: the ``block_thomas_small``
+kernel on the card; m = 4 at one tree), with canopy-air columns as the
+batch axis.
 
 Block layout per level: m = 2 + 2*ntree rows
   row 0        = canopy-air temperature (Bonan eliminated-soil row at k=0)
@@ -29,7 +30,7 @@ import torch
 
 from mpp_tpu_torch.constants import HVAP, MM_H2O
 from mpp_tpu_torch.ops.satvap import sat_vap
-from mpp_tpu_torch.ops.block_thomas import block_thomas
+from mpp_tpu_torch.ops.block_structure import block_solve
 
 LAMBDA = HVAP * MM_H2O
 
@@ -300,4 +301,4 @@ def step(inp: MLCBlockInputs, dt):
     Returns the new state x [ncair, nlev, m] (rows: T_air, q_air,
     leaf slots)."""
     L, D, U, b = assemble(inp, dt)
-    return block_thomas(L, D, U, b)
+    return block_solve(L, D, U, b)

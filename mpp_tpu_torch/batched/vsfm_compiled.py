@@ -22,8 +22,9 @@ over ``ncol`` independent copies of the problem (one row of the
   - otherwise the Jacobian as CSR data and J x as the ELL SpMV;
     "petsc" solves by the batched ILU(0) + GMRES(30) replica of the
     reference's inner solve (``batched/ilu_gmres.py``), "direct" by
-    block-Thomas over level-major blocks (``ops/block_structure``,
-    ``ops/block_thomas``) or a batched dense LU;
+    block-Thomas over level-major blocks (``ops/block_structure.
+    block_solve``: the ``block_thomas_small`` kernel to block size 8, the
+    plain sweep past it) or a batched dense LU;
   ``batched/th_compiled.py`` adds the 2x2 block-tridiagonal one;
 * PETSc SNES NEWTONLS + SNESLineSearchBT (cubic) + SNESConvergedDefault,
   batched with per-column masks, straggler compaction, and the
@@ -51,8 +52,8 @@ from mpp_tpu_torch.batched.ilu_gmres import (BatchedILU0, make_ell_matvec,
 from mpp_tpu_torch.constants import FMWH2O
 from mpp_tpu_torch.device import device_of
 from mpp_tpu_torch.ops import hopper_kernels as hk
-from mpp_tpu_torch.ops.block_structure import BlockTridiagTemplate
-from mpp_tpu_torch.ops.block_thomas import block_thomas
+from mpp_tpu_torch.ops.block_structure import BlockTridiagTemplate, \
+    block_solve
 from mpp_tpu_torch.ops.snes import (CONVERGED_FNORM_ABS,
                                     CONVERGED_FNORM_RELATIVE,
                                     CONVERGED_SNORM_RELATIVE,
@@ -261,7 +262,7 @@ class CompiledVSFM:
         if self.plan == "block":
             ncol, b = F.shape[0], self.block_size
             L, D, U = self._bt.assemble(data)
-            x = block_thomas(L, D, U, F.reshape(ncol, 1, self.n // b, b))
+            x = block_solve(L, D, U, F.reshape(ncol, 1, self.n // b, b))
             return x.reshape(ncol, self.n)
         dense = self.template.to_dense(data)
         return torch.linalg.solve(dense, F[..., None])[..., 0]

@@ -45,6 +45,8 @@ SIGNATURES = {
     "mpp_block_thomas2_max_on_chip": (_I,),
     "mpp_block_thomas2_f32": (_P,) * 6 + (_I, _I, _P),
     "mpp_block_thomas2_f64": (_P,) * 6 + (_I, _I, _P),
+    "mpp_block_thomas_small_f32": (_P,) * 6 + (_I, _I, _I, _P),
+    "mpp_block_thomas_small_f64": (_P,) * 6 + (_I, _I, _I, _P),
     "mpp_tridiag_spmv_chain_max_in_registers": (_I,),
     "mpp_tridiag_spmv_chain_max_on_chip": (_I,),
     "mpp_tridiag_jacobi_smooth_max_in_registers": (_I,),

@@ -4,7 +4,7 @@ Counterpart of ``mpp_tpu/ops/block_structure.py``.  KSP-path systems are
 assembled per column: cells are ordered column-major (cell = col*nlev + k)
 and every coupling stays within a level or reaches level k±1 of the same
 column.  The same COO values scatter into [ncol, nlev, m, m] sub/diag/super
-blocks, solved by the batched block-Thomas sweep (``ops/block_thomas``).
+blocks, solved by the batched block-Thomas sweep (:func:`block_solve`).
 
 The template is built once from the (rows, cols) pattern (numpy);
 ``assemble`` is one ``index_add_`` over the last dimension, batched over
@@ -15,7 +15,20 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from mpp_tpu_torch.ops import hopper_kernels as hk
 from mpp_tpu_torch.ops.block_thomas import block_thomas
+
+
+def block_solve(L, D, U, b):
+    """Batched block-Thomas solve routed by block size: m <= 8 is the
+    ``block_thomas_small`` kernel (its plain form on CPU tensors), larger
+    blocks the plain level loop (``ops/block_thomas.block_thomas``), as the
+    JAX package's small_solve sends m > 8 to a library solve.  The route
+    is chosen by shape, never on a failure."""
+    if b.shape[-1] <= hk.BLOCK_SMALL_MAX:
+        return hk.block_thomas_small(L.contiguous(), D.contiguous(),
+                                     U.contiguous(), b.contiguous())
+    return block_thomas(L, D, U, b)
 
 
 def chain_shape(ncells: int, rows: np.ndarray, cols: np.ndarray,
@@ -88,4 +101,4 @@ class BlockTridiagTemplate:
         ``[..., ncol, nlev, dof]``."""
         L, D, U = self.assemble(vals)
         bb = b.reshape(b.shape[:-1] + (self.ncol, self.nlev, self.dof))
-        return block_thomas(L, D, U, bb)
+        return block_solve(L, D, U, bb)

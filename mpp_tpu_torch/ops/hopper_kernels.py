@@ -14,6 +14,15 @@ Each kernel sits beside its plain PyTorch version.  The first three
 * :func:`block_thomas2` — batched 2x2 block-tridiagonal solve, the TH
   Newton direction; replaces ``pallas_block_thomas2`` (l.289-408).
 
+``csrc/block_thomas_small_kernels.cu`` holds the block solve of the canopy
+and the block plans; it replaces no Pallas kernel but the JAX package's
+``lax.scan`` sweeps of ``block_thomas`` (``mpp_tpu/ops/block_thomas.py:
+22-122``):
+
+* :func:`block_thomas_small` — batched block-tridiagonal solve with m x m
+  blocks, 1 <= m <= 8, small_solve's pivoting inside each block; the
+  callers reach it through ``ops/block_structure.block_solve``.
+
 The SpMV family (``csrc/spmv_family_kernels.cu``) serves the public ops
 and the SpMV measurement harness (``tools/exp_spmv.py``):
 
@@ -67,7 +76,8 @@ from mpp_tpu_torch.ops.tridiag import tridiag_matvec
 
 #: kernel launches since the last reset, by kernel name
 LAUNCHES = {"thomas": 0, "tridiag_spmv": 0, "tridiag_spmv_mixed": 0,
-            "block_thomas2": 0, "tridiag_spmv_chain": 0,
+            "block_thomas2": 0, "block_thomas_small": 0,
+            "tridiag_spmv_chain": 0,
             "tridiag_jacobi_smooth": 0, "spmv_variant": 0, "spmv_packed": 0,
             "stream_ceiling": 0, "ilu0_factor": 0, "ilu0_apply": 0}
 
@@ -250,6 +260,67 @@ def block_thomas2(L, D, U, b):
                 None if cp is None else cp.data_ptr(), x.data_ptr(), ncol, n,
                 _stream(b))
     _launched("block_thomas2", rc)
+    return x
+
+
+#: the largest block :func:`block_thomas_small` takes
+BLOCK_SMALL_MAX = 8
+
+
+def _check_small_blocks(L, D, U, b):
+    """Raise ValueError unless b is ``[..., n, m]`` with 1 <= m <= 8 and
+    L, D, U ``[..., n, m, m]`` of b's leading dims, all contiguous tensors
+    of one dtype (f32 or f64) on one CPU or CUDA device."""
+    name = "block_thomas_small"
+    for a in (L, D, U, b):
+        if not isinstance(a, torch.Tensor):
+            raise ValueError(f"{name}: expected tensors, got {type(a)}")
+    if b.dim() < 2 or not 1 <= b.shape[-1] <= BLOCK_SMALL_MAX:
+        raise ValueError(f"{name}: b must be [..., n, m] with 1 <= m <= "
+                         f"{BLOCK_SMALL_MAX}, got {tuple(b.shape)}")
+    blk = tuple(b.shape) + (b.shape[-1],)
+    for a in (L, D, U):
+        if tuple(a.shape) != blk:
+            raise ValueError(f"{name}: blocks must be {blk}, got "
+                             f"{tuple(a.shape)}")
+    if b.dtype not in (torch.float32, torch.float64) or \
+            len({a.dtype for a in (L, D, U, b)}) != 1:
+        raise ValueError(f"{name}: all arrays must share one dtype, f32 or "
+                         f"f64; got {[a.dtype for a in (L, D, U, b)]}")
+    if len({a.device for a in (L, D, U, b)}) != 1:
+        raise ValueError(f"{name}: arrays on several devices")
+    if b.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {b.device}")
+    if not all(a.is_contiguous() for a in (L, D, U, b)):
+        raise ValueError(f"{name}: arrays must be contiguous")
+
+
+def block_thomas_small(L, D, U, b):
+    """Solve T x = b for batched block-tridiagonal T with m x m blocks,
+    1 <= m <= 8: blocks ``[..., n, m, m]`` (``L[..., 0]`` and ``U[..., n-1]``
+    unused), b and x ``[..., n, m]``, f32 or f64, any n; the leading dims
+    are the batch.  small_solve's contract inside each block (m = 2 the
+    adjugate, 3 <= m <= 8 partial pivoting), none across levels: block
+    diagonally dominant systems.  On the card one launch, within rounding
+    of :func:`ops.block_thomas.block_thomas` (not bit for bit)."""
+    _check_small_blocks(L, D, U, b)
+    if b.device.type == "cpu":
+        return block_thomas(L, D, U, b)
+    n, m = b.shape[-2], b.shape[-1]
+    x = torch.empty_like(b)
+    nsys = b.numel() // max(n * m, 1)
+    if nsys == 0 or n == 0:
+        return x
+    lib = _build.library()
+    # the scratch of Cp_k, k < n - 1 (the kernel strides it like D)
+    cp = torch.empty_like(D) if n > 1 else None
+    fn = lib.mpp_block_thomas_small_f64 if b.dtype == torch.float64 else \
+        lib.mpp_block_thomas_small_f32
+    with torch.cuda.device(b.device):
+        rc = fn(L.data_ptr(), D.data_ptr(), U.data_ptr(), b.data_ptr(),
+                None if cp is None else cp.data_ptr(), x.data_ptr(), nsys, n,
+                m, _stream(b))
+    _launched("block_thomas_small", rc)
     return x
 
 
