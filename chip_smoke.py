@@ -86,18 +86,23 @@ line is printed):
       factorization and apply one launch of its kernel, and no other
       kernel launched;
   (r) vsfm_vchannel at the reference size (20 x 10 x 30 = 6000 cells,
-      ncol=1, f64, 3 steps of 8640 s) through "petsc" on the card and on
-      the CPU and "direct" (block-Thomas, b = 200) on the card: both plans
-      converge, petsc card vs CPU within rtol 1e-9, petsc vs direct within
-      VCH_PLAN_PA; the card's ILU(0) one launch a factorization / apply;
+      ncol=1, f64, 3 steps of 8640 s) through "petsc" and "direct"
+      (block-Thomas, b = 200) on the card and on the CPU: both plans
+      converge, card vs CPU within rtol 1e-9 under each (direct at equal
+      Newton iterations), petsc vs direct within VCH_PLAN_PA; the card's
+      ILU(0) one launch a factorization / apply, block_thomas_large one
+      launch a direct Newton iteration; each plan's ms and host syncs a
+      step;
   (s) the 2-D (20 x 20) and 3-D (20 x 20 x 20) thermal MMS through
       compile_ksp("petsc") on the card and the CPU: GMRES converges, the
       solutions within rtol 1e-9 and their errors against the
       manufactured solution equal within 1e-9 relative;
   (t) run_heat_transport_1d (nz = 100, 2 steps, CompiledThermalEnthalpy)
       and run_vsfm_spac_campbell_problem(multi_goveqns=True) under "petsc"
-      and "direct" (the JAX package's rule picks block-Thomas there),
-      card against CPU within rtol 1e-9;
+      and "direct" (the JAX package's rule picks block-Thomas there, b =
+      40: block_thomas_large one launch a Newton iteration on the card),
+      card against CPU within rtol 1e-9 at equal Newton iterations; ms and
+      host syncs a step of its CAMP_STEPS steps;
   (u) the batched canopy pipeline (turbulence -> longwave -> LBL ->
       photosynthesis -> MLC, 93 levels; of the hand-written kernels
       block_thomas_small, one launch for the longwave solve and one for
@@ -225,19 +230,34 @@ line is printed):
       aligned), failing unless each form is reached in each
       dtype; each timed with its plain form; their launches in the
       kernels line are those counted on the paths above;
-  (z) the block_thomas_small kernel against its plain form
-      (ops/block_thomas.block_thomas) on the card: at the canopy's path
-      shapes (BTS_PATHS: [4096, 93, 3] f64, [4096, 93, 4] f32 and f64,
-      [8, 93, 3 / 4] f64; ms, device ms, plain ms, the bound and its
-      share of the device ms), at the
+  (z) the block-Thomas kernels against their plain form
+      (ops/block_thomas.block_thomas) on the card.  block_thomas_small:
+      at the canopy's path shapes (BTS_PATHS: [4096, 93, 3] f64, [4096,
+      93, 4] f32 and f64, [8, 93, 3 / 4] f64; the rule's form, ms, device
+      ms, plain ms, the bound and its share of the device ms), at the
       edges (every m = 1..8 at n in BTS_EDGE_N and B in BTS_EDGE_B, f64
       and f32, block diagonally dominant and row-swapping blocks (each D
-      block's rows rotated, its leading diagonal zero); the plain forms
-      run at the largest B, the kernel on the first B systems), and a NaN
-      in one system's D that reaches that system's x and no other's;
-      tolerances: f64 1e-12 of max |x|, f32 no farther from the plain f64
-      solve of the same values than twice the plain f32 solve; its
-      launches in the kernels line are those counted on (u) and (x4).
+      block's rows rotated, its
+      leading diagonal zero); the plain forms run at the largest B, the
+      kernel on the first B systems; failing unless the rule reached every
+      form in each dtype), and a NaN in one system's D that reaches that
+      system's x and no other's; tolerances: f64 1e-12 of max |x|, f32 no
+      farther from the plain f64 solve of the same values than twice the
+      plain f32 solve.  block_thomas_large: at the block plans' shapes
+      (BTL_PATHS: (r)'s [1, 30, 200] f64, (t)'s [1, 2, 40] f64, the 2-D
+      thermal MMS's [1, 20, 20] f64, the batched MLC at four tree types
+      [4096, 93, 10] f32 and f64; timed as above, the bound's operations
+      those of getrf + getrs (btl_ops) at PEAK_MATRIX_OPS_S), at the edges
+      (BTL_EDGE_M and the last m kept in shared memory and the first
+      past it, at BTL_EDGE_N levels and BTL_EDGE_B systems, cut as
+      BTL_DEEP_CUT says, f64 and f32, dominant and row-swapping), and
+      the NaN check; f64 within 1e-11 of max |x|, f32 by the same rule.
+      Beside every path row, one torch.linalg.solve of the assembled
+      dense matrix (the JAX package's dense plan; library_ms, on as many
+      systems as LIBRARY_DENSE_BYTES holds).  Their launches in the
+      kernels line are those counted on (u) and (x4), and on (r) and (t);
+      the plain level loop on a CUDA tensor, counted from (b) to here,
+      must read 0.
 
 Every kernel timing is read twice: ``ms``, CUDA events around back-to-back
 calls of the wrapper (host cost per call included), and ``device_ms``, the
@@ -260,7 +280,9 @@ must equal the card's factorizations and applies over every BatchedILU0,
 ilu_gmres.CARD_CALLS), the same for (v) and for (w)'s
 serial runs (its compiled celia1990 run is counted apart), and the ILU(0)
 pair is counted the same way over (q), (r), (s), (t), (x1) and (x4),
-reset just before (h) and read just after (i), reset just before (k)'s
+block_thomas_large around the card's "direct" steps of (r) and (t) (one
+launch a Newton iteration), reset just before (h) and read just after
+(i), reset just before (k)'s
 calls of the ops and read just after them, reset just before (l)'s
 harness run and read just after it, and reset just before each of
 (m)-(p) and read just after it, and reset just before (x2)'s and (x3)'s
@@ -309,6 +331,8 @@ TH_PLAN_BOUND = dict(P_Pa=4.07e-4, T_K=2.0e-7)
 # (r): vsfm_vchannel at the reference size; JAX's own test reads the two
 # plans 2.5e-5 Pa apart (tests/test_vsfm_compiled.py:45-47)
 VCH_NZ, VCH_DT, VCH_STEPS, VCH_PLAN_PA = 30, 8640.0, 3, 1e-3
+# (t): spac_campbell's steps (the JAX defaults: 24 of 3600 s)
+CAMP_STEPS, CAMP_DT = 24, 3600.0
 # (u): the canopy cells; CANOPY_CARD_CPU bounds (u3)'s card-vs-CPU gap
 # after 3 f64 substeps at 8 columns: the CPU tests hold the port against
 # the JAX package at these (4e-11 K and 5e-13 measured there,
@@ -398,9 +422,12 @@ TOLS = {"thomas": {"float64": 1e-12, "float32": 1e-5},
         "block_thomas2": {"float64": 1e-12, "float32": 2e-5},
         "ilu0_apply": {"float64": 1e-12, "float32": 1e-5}}
 # the H100 SXM's published peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s,
-# and operations/s outside the tensor cores
+# operations/s outside the tensor cores, and operations/s of matrix-shaped
+# work (block products, LU) in each type: f64 on the tensor cores (DMMA),
+# f32 outside them (the tensor cores' TF32 is another type)
 HBM_BYTES_S = 3.35e12
 PEAK_OPS_S = {"float64": 34e12, "float32": 67e12}
+PEAK_MATRIX_OPS_S = {"float64": 67e12, "float32": 67e12}
 _TRIDIAG = "mpp_tpu_torch/csrc/tridiag_kernels.cu"
 _ILU0 = "mpp_tpu_torch/csrc/ilu0_kernels.cu"
 _FAMILY = "mpp_tpu_torch/csrc/spmv_family_kernels.cu"
@@ -423,6 +450,8 @@ KERNELS = {
     "ilu0_factor": (_ILU0, "mpp_tpu/batched/ilu_gmres.py:140"),
     "ilu0_apply": (_ILU0, "mpp_tpu/batched/ilu_gmres.py:152,161"),
     "block_thomas_small": ("mpp_tpu_torch/csrc/block_thomas_small_kernels.cu",
+                           "mpp_tpu/ops/block_thomas.py:113,120"),
+    "block_thomas_large": ("mpp_tpu_torch/csrc/block_thomas_large_kernels.cu",
                            "mpp_tpu/ops/block_thomas.py:113,120"),
 }
 # harness variants behind each harness row of the kernels line; the first
@@ -493,6 +522,33 @@ BTS_EDGE_B = (1, 33, 4096)
 BTS_F64_REL, BTS_F32_FACTOR = 1e-12, 2.0
 # block_thomas_small's launches on each counted path (run_canopy, (x4))
 BTS_BY_PATH = {}
+# (z), block_thomas_large: its path shapes ((r)'s vchannel "direct",
+# (t)'s spac_campbell "direct", the 2-D thermal MMS's "direct" plan at
+# 20 x 20, the batched MLC at four tree types on the canopy's columns) and
+# the edges: BTL_EDGE_M blocks and each dtype's last block kept in shared
+# memory and the first past it, at BTL_EDGE_N levels and BTL_EDGE_B
+# systems, f64 and f32, dominant and row-swapping blocks (from
+# BTL_DEEP_CUT up, the deepest n on one dominant f64 system only, and
+# past BTL_DEEPEST_M not at all: 33 systems of 30 levels of 1024 x 1024
+# blocks are 25 GB in f64, and one takes ~12 s on one SM, past the
+# script's time budget); off-diagonal spread 0.5 /
+# sqrt(m), so the blocks stay diagonally dominant at every m; f64 within
+# BTL_F64_REL of max |x|, f32 by BTS_F32_FACTOR
+BTL_PATHS = (("vchannel_direct", 1, VCH_NZ, 200, "float64"),
+             ("spac_campbell_direct", 1, 2, 40, "float64"),
+             ("thermal_mms_2d_direct", 1, 20, 20, "float64"),
+             ("mlc_4_trees", CANOPY_NCAIR, CANOPY_NLEV, 10, "float32"),
+             ("mlc_4_trees", CANOPY_NCAIR, CANOPY_NLEV, 10, "float64"))
+BTL_EDGE_M = (9, 16, 33, 200, 512, 1024)
+BTL_EDGE_N = (1, 2, 30)
+BTL_EDGE_B = (1, 33)
+BTL_DEEP_CUT, BTL_DEEPEST_M = 512, 512
+BTL_F64_REL = 1e-11
+# block_thomas_large's launches on each counted path ((r), (t))
+BTL_BY_PATH = {}
+# the block solves' library yardstick: one torch.linalg.solve of the dense
+# T, on as many systems as fit this many bytes (T and its LU copy)
+LIBRARY_DENSE_BYTES = 6 << 30
 
 
 def fail(msg):
@@ -564,12 +620,13 @@ def uniform_soils(ncol, nz, dz):
                 area=np.ones(ncol))
 
 
-def bound(nbytes, ops, dtype):
+def bound(nbytes, ops, dtype, peaks=PEAK_OPS_S):
     """The least time [ms] the card could take: the larger of ``nbytes``
     over the HBM rate and ``ops`` over the peak rate of ``dtype``
-    ("float64" or "float32"); returns (ms, "bytes" or "operations")."""
+    ("float64" or "float32") in ``peaks``; returns (ms, "bytes" or
+    "operations")."""
     t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = ops / PEAK_OPS_S[dtype] * 1e3
+    t_ops = ops / peaks[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1710,12 +1767,13 @@ def run_th_petsc(torch, hk, mpp, comp_direct, X0_np, X1_direct):
 
 def run_vchannel(torch, hk):
     """Phase (r): vsfm_vchannel at the reference size under "petsc" (card
-    and CPU, the card's ILU(0) counted) and "direct" (card)."""
+    and CPU, the card's ILU(0) counted) and "direct" (card: block_thomas_
+    large launched once a Newton iteration, counted)."""
     from mpp_tpu_torch.constants import AuxVarKind, Var
     from mpp_tpu_torch.problems import vsfm_vchannel as vch
     P, info = {}, {}
     for plan, device in (("petsc", "cuda"), ("direct", "cuda"),
-                         ("petsc", "cpu")):
+                         ("petsc", "cpu"), ("direct", "cpu")):
         t0 = time.perf_counter()
         mpp = vch.run_vsfm_vchannel_problem(nz=VCH_NZ, nstep=0,
                                             use_compiled=True,
@@ -1730,6 +1788,7 @@ def run_vchannel(torch, hk):
         if counted:
             mark = ilu_mark(hk)
             inst = (comp._ilu, comp._ilu.factors, comp._ilu.applies)
+        btl0, syncs0 = hk.LAUNCHES["block_thomas_large"], comp.host_syncs
         t0 = time.perf_counter()
         reasons = []
         for istep in range(1, VCH_STEPS + 1):
@@ -1741,12 +1800,19 @@ def run_vchannel(torch, hk):
         if counted:
             ilu_since(hk, "vchannel_petsc", mark, steps=VCH_STEPS,
                       instance=inst)
+        btl = hk.LAUNCHES["block_thomas_large"] - btl0
         its = mpp.soe.cumulative_newton_iterations
+        if plan == "direct" and device == "cuda":
+            check(btl == its, f"(r) direct: block_thomas_large launched "
+                  f"{btl} times in {its} Newton iterations")
+            BTL_BY_PATH["vchannel_direct"] = btl
         P[plan, device] = mpp.get_data(AuxVarKind.INTERNAL, Var.PRESSURE)
         info[f"{plan}_{device}"] = dict(
             plan=comp.plan, block_size=comp.block_size, build_s=build_s,
             ms_per_step=ms, newton_iters=its, reasons=reasons,
-            host_syncs=comp.host_syncs, gmres_cycles=comp.gmres_cycles,
+            host_syncs=comp.host_syncs,
+            host_syncs_per_step=(comp.host_syncs - syncs0) / VCH_STEPS,
+            block_thomas_large_launches=btl, gmres_cycles=comp.gmres_cycles,
             gmres_cycles_per_newton_iter=comp.gmres_cycles / max(its, 1),
             ilu_levels=(None if comp._ilu is None else
                         [comp._ilu.levels_fwd, comp._ilu.levels_bwd]))
@@ -1757,12 +1823,17 @@ def run_vchannel(torch, hk):
           and info["direct_cuda"]["block_size"] == 200,
           f"(r): block size {info['direct_cuda']['block_size']}")
     rel = card_vs_cpu("(r) petsc P", P["petsc", "cuda"], P["petsc", "cpu"])
+    its = {d: info[f"direct_{d}"]["newton_iters"] for d in ("cuda", "cpu")}
+    check(its["cuda"] == its["cpu"], f"(r) direct: Newton iterations {its}")
+    rel_direct = card_vs_cpu("(r) direct P", P["direct", "cuda"],
+                             P["direct", "cpu"])
     gap = float(np.max(np.abs(P["petsc", "cuda"] - P["direct", "cuda"])))
     check(gap <= VCH_PLAN_PA, f"(r): petsc vs direct {gap:.3e} Pa > "
           f"{VCH_PLAN_PA:g}")
     print("vchannel " + json.dumps(dict(
         cells=int(P["petsc", "cuda"].size), dt=VCH_DT, steps=VCH_STEPS,
-        petsc_card_vs_cpu_max_rel=rel, petsc_vs_direct_max_abs_Pa=gap,
+        petsc_card_vs_cpu_max_rel=rel, direct_card_vs_cpu_max_rel=rel_direct,
+        petsc_vs_direct_max_abs_Pa=gap,
         **info)))
 
 
@@ -1795,9 +1866,11 @@ def run_thermal_mms_petsc(torch):
             build_and_step_s={d: out[d][1] for d in out})))
 
 
-def run_small_problems(torch):
+def run_small_problems(torch, hk):
     """Phase (t): run_heat_transport_1d through CompiledThermalEnthalpy and
-    the multi-GE spac_campbell under both plans, card against CPU."""
+    the multi-GE spac_campbell under both plans (its 24 steps timed, the
+    card's "direct" block solves counted: block_thomas_large at b = 40),
+    card against CPU."""
     from mpp_tpu_torch.constants import AuxVarKind, Var
     from mpp_tpu_torch.problems import th, vsfm_spac_campbell as camp
     res = {}
@@ -1818,9 +1891,25 @@ def run_small_problems(torch):
         for device in ("cuda", "cpu"):
             t0 = time.perf_counter()
             mpp = camp.run_vsfm_spac_campbell_problem(
-                multi_goveqns=True, use_compiled=True, linear_solver=plan,
-                device=device)
+                multi_goveqns=True, nstep=0, use_compiled=True,
+                linear_solver=plan, device=device)
             comp = mpp.soe.step_dt.__self__
+            sync(torch, device)
+            t1 = time.perf_counter()
+            btl0, syncs0 = hk.LAUNCHES["block_thomas_large"], comp.host_syncs
+            for istep in range(1, CAMP_STEPS + 1):
+                ok, reason = mpp.soe.step_dt(CAMP_DT, istep)
+                check(ok, f"(t) spac_campbell {plan} {device}: step {istep} "
+                      f"reason {reason}")
+            sync(torch, device)
+            step_ms = (time.perf_counter() - t1) * 1e3 / CAMP_STEPS
+            btl = hk.LAUNCHES["block_thomas_large"] - btl0
+            if plan == "direct" and device == "cuda":
+                its = mpp.soe.cumulative_newton_iterations
+                check(btl == its, f"(t) spac_campbell direct: "
+                      f"block_thomas_large launched {btl} times in {its} "
+                      "Newton iterations")
+                BTL_BY_PATH["spac_campbell_direct"] = btl
             # "direct" takes the JAX package's rule: block-Thomas where a
             # block size covers the pattern, else dense LU
             check((comp.plan == "petsc") == (plan == "petsc"),
@@ -1828,7 +1917,8 @@ def run_small_problems(torch):
             out[device] = (mpp.get_data(AuxVarKind.INTERNAL, Var.PRESSURE),
                            time.perf_counter() - t0,
                            mpp.soe.cumulative_newton_iterations, comp.plan,
-                           comp.block_size)
+                           comp.block_size, step_ms,
+                           (comp.host_syncs - syncs0) / CAMP_STEPS, btl)
         check(out["cuda"][2] == out["cpu"][2], f"(t) spac_campbell {plan}: "
               f"Newton iterations {out['cuda'][2]} vs {out['cpu'][2]}")
         res[f"spac_campbell_multi_{plan}"] = dict(
@@ -1836,28 +1926,29 @@ def run_small_problems(torch):
                 f"(t) spac_campbell {plan} P", out["cuda"][0],
                 out["cpu"][0]),
             s={d: out[d][1] for d in out}, newton_iters=out["cuda"][2],
-            plan=out["cuda"][3], block_size=out["cuda"][4])
+            plan=out["cuda"][3], block_size=out["cuda"][4],
+            ms_per_step={d: out[d][5] for d in out},
+            host_syncs_per_step={d: out[d][6] for d in out},
+            block_thomas_large_launches=out["cuda"][7])
     print("small_problems " + json.dumps(res))
 
 
 def count_plain_block_loops(hk):
     """Count the plain block-Thomas level loops run on CUDA tensors: the
-    names through which ``ops/block_structure.block_solve`` (m > 8) and
-    ``hopper_kernels.block_thomas_small`` (CPU tensors) reach it.  Returns
-    (the list of their b shapes, a function that restores the names)."""
-    from mpp_tpu_torch.ops import block_structure as bs
-    calls, saved = [], (hk.block_thomas, bs.block_thomas)
+    name through which ``hopper_kernels.block_thomas_small`` /
+    ``block_thomas_large`` / ``block_thomas2`` (CPU tensors) reach it, the
+    only callers of ``ops/block_structure.block_solve``'s routes.  Returns
+    (the list of their b shapes, a function that restores the name)."""
+    calls, saved = [], hk.block_thomas
 
-    def counted(fn):
-        def run(L, D, U, b):
-            if b.is_cuda:
-                calls.append(list(b.shape))
-            return fn(L, D, U, b)
-        return run
-    hk.block_thomas, bs.block_thomas = counted(saved[0]), counted(saved[1])
+    def counted(L, D, U, b):
+        if b.is_cuda:
+            calls.append(list(b.shape))
+        return saved(L, D, U, b)
+    hk.block_thomas = counted
 
     def restore():
-        hk.block_thomas, bs.block_thomas = saved
+        hk.block_thomas = saved
     return calls, restore
 
 
@@ -3302,22 +3393,23 @@ def ilu_kernel_checks(torch, hk):
     return rows, results
 
 
-def bts_systems(torch, B, n, m, seed, swap):
+def bts_systems(torch, B, n, m, seed, swap, spread=0.2):
     """(z)'s inputs, made on the card from ``seed``: block diagonally
     dominant random systems of ``B`` x ``n`` levels of m x m blocks, as
-    f32 values; returned in f32 and in f64 (the same values).  ``swap``:
-    each D block's rows rotated up by one and its leading diagonal zeroed,
-    so every level's small solve swaps rows (as tests/
-    test_torch_block_thomas_small.py's ``_system``)."""
+    f32 values; returned in f32 and in f64 (the same values).  Off-diagonal
+    entries of ``spread`` (0.5 / sqrt(m) for block_thomas_large), diagonals
+    2.5-3.5.  ``swap``: each D block's rows rotated up by one and its
+    leading diagonal zeroed, so every level's small solve swaps rows (as
+    tests/test_torch_block_thomas_small.py's ``_system``)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     shape = (B, n, m, m)
 
     def rand(*sh):
         return torch.randn(*sh, generator=g, device="cuda",
                            dtype=torch.float32)
-    L, U = 0.2 * rand(*shape), 0.2 * rand(*shape)
+    L, U = spread * rand(*shape), spread * rand(*shape)
     eye = torch.eye(m, device="cuda", dtype=torch.float32)
-    D = 0.2 * rand(*shape) + (2.5 + torch.rand(
+    D = spread * rand(*shape) + (2.5 + torch.rand(
         shape[:-1], generator=g, device="cuda"))[..., None] * eye
     if swap:
         D = torch.roll(D, -1, dims=-2).contiguous()
@@ -3346,9 +3438,9 @@ def bts_ops(m, n, B):
     return level * n * B
 
 
-def bts_hold(torch, label, got, plain64, plain32=None):
-    """Hold a block_thomas_small result: f64 (``plain32`` None) within
-    BTS_F64_REL of max |x| of the plain f64 solve; f32 no farther from the
+def bts_hold(torch, label, got, plain64, plain32=None, rel=BTS_F64_REL):
+    """Hold a block-Thomas kernel's result: f64 (``plain32`` None) within
+    ``rel`` of max |x| of the plain f64 solve; f32 no farther from the
     plain f64 solve of the same values than BTS_F32_FACTOR times the plain
     f32 solve is.  Both finite.  Returns (max |got - plain| in got's
     dtype, the tolerance in those units, max |x|)."""
@@ -3356,9 +3448,9 @@ def bts_hold(torch, label, got, plain64, plain32=None):
     check(bool(torch.isfinite(got).all()), f"{label}: non-finite output")
     scale = float(plain64.abs().max())
     if plain32 is None:
-        err, tol = float((got - plain64).abs().max()), BTS_F64_REL * scale
+        err, tol = float((got - plain64).abs().max()), rel * scale
         check(err <= tol, f"{label}: max |kernel - plain| {err:.3e} > "
-              f"{BTS_F64_REL:g} * {scale:.3e}")
+              f"{rel:g} * {scale:.3e}")
         return err, tol, scale
     own = float((plain32.double() - plain64).abs().max())
     far = float((got.double() - plain64).abs().max())
@@ -3368,12 +3460,82 @@ def bts_hold(torch, label, got, plain64, plain32=None):
     return float((got - plain32).abs().max()), BTS_F32_FACTOR * own, scale
 
 
+def dense_block_tridiag(torch, L, D, U):
+    """The block-tridiagonal T of ``[B, n, m, m]`` blocks as one dense
+    ``[B, n m, n m]`` matrix (the JAX package's dense plan's operand,
+    mpp_tpu/batched/vsfm_compiled.py:298; the port never builds it)."""
+    B, n, m = D.shape[0], D.shape[1], D.shape[2]
+    A = D.new_zeros(B, n, m, n, m)
+    A.diagonal(dim1=1, dim2=3).copy_(D.permute(0, 2, 3, 1))
+    if n > 1:
+        A[:, 1:, :, :-1].diagonal(dim1=1, dim2=3).copy_(
+            L[:, 1:].permute(0, 2, 3, 1))
+        A[:, :-1, :, 1:].diagonal(dim1=1, dim2=3).copy_(
+            U[:, :-1].permute(0, 2, 3, 1))
+    return A.view(B, n * m, n * m)
+
+
+def library_block_solve(torch, args, ref, *rows):
+    """The block solves' library yardstick: one torch.linalg.solve of the
+    dense T (dense_block_tridiag) with b, on the first systems whose T and
+    its LU copy fit LIBRARY_DENSE_BYTES (``library_systems``), held finite
+    and within 1e-9 (f64) / 1e-3 (f32) of max |x| of ``ref``; its ms (CUDA
+    events; the assembly outside) and device ms (queued) go into every row
+    of ``rows``."""
+    L, D, U, b = args
+    B, n, m = b.shape
+    per = 2 * (n * m) ** 2 * b.element_size()
+    nb = max(1, min(B, LIBRARY_DENSE_BYTES // per))
+    A = dense_block_tridiag(torch, L[:nb], D[:nb], U[:nb])
+    rhs = b[:nb].reshape(nb, n * m, 1)
+    call = partial(torch.linalg.solve, A, rhs)
+    y = call().view(nb, n, m)
+    scale = float(ref[:nb].abs().max())
+    err = float((y.double() - ref[:nb].double()).abs().max())
+    tol = (1e-9 if b.dtype == torch.float64 else 1e-3) * scale
+    check(bool(torch.isfinite(y).all()) and err <= tol,
+          f"library dense solve {[B, n, m]} {b.dtype}: {err:.3e} off the "
+          f"plain form (tolerance {tol:.3e})")
+    ms = time_cuda(torch, call, 3)
+    for row in rows:
+        row.update(library_ms=ms, library_systems=nb)
+    later(call, 3, *rows, key="library_device_ms")
+
+
+def btl_ops(m, n, B):
+    """Operations of B block_thomas_large solves of n levels, as LAPACK's
+    getrf + getrs count them: at levels 1..n-1 the products L_k [Cp_{k-1} |
+    dp_{k-1}] with their differences from [D_k | b_k] (2 m^2 (m + 1)); at
+    every level the LU of denom_k ((4 m^3 - 3 m^2 - m) / 6) and its solve
+    of m + 1 right-hand columns (1 at the last level; 2 m^2 - m a column);
+    at levels 0..n-2 the back substitution's dp_k - Cp_k x_{k+1} (2 m^2)."""
+    lu = (4 * m ** 3 - 3 * m ** 2 - m) // 6
+    cols = (n - 1) * (m + 1) + 1
+    return (n * lu + (n - 1) * (2 * m * m * (m + 1) + 2 * m * m)
+            + cols * (2 * m * m - m)) * B
+
+
+def block_row(kernel, path, args, err, tol, scale, ops, dt_name,
+              peaks=PEAK_OPS_S):
+    """A (z) path row: the error, the bytes (L, D, U and b read once, x
+    written once) and the bound (``ops`` over ``peaks``)."""
+    B, n, m = args[3].shape
+    elem = 8 if dt_name == "float64" else 4
+    nbytes = (3 * m * m + 2 * m) * n * B * elem
+    ms_b, by = bound(nbytes, ops, dt_name, peaks)
+    return dict(kernel=kernel, path=path, shape=[B, n, m], dtype=dt_name,
+                max_abs_err=err, tol=tol, max_abs_x=scale, bytes=nbytes,
+                bound_ms=ms_b, bound_by=by)
+
+
 def bts_kernel_checks(torch, hk):
     """Phase (z): block_thomas_small against its plain form on the card at
-    the canopy's path shapes (timed) and at the edges (every m at every n
-    of BTS_EDGE_N and batch of BTS_EDGE_B, f64 and f32, dominant and
-    row-swapping blocks); a NaN kept in its system.  Returns (the
-    kernel_check rows, the kernels line's entry: (u1)'s MLC shape)."""
+    the canopy's path shapes (timed, with the library yardstick) and at
+    the edges (every m at every n of BTS_EDGE_N and batch of BTS_EDGE_B,
+    f64 and f32, dominant and row-swapping blocks, the rule's form,
+    failing unless the rule reached every form in each dtype); a NaN kept
+    in its system.  Returns (the kernel_check rows, the kernels line's
+    entry: (u1)'s MLC shape)."""
     from mpp_tpu_torch.ops.block_thomas import block_thomas as plain
     t0 = time.perf_counter()
     rows, result = [], None
@@ -3385,21 +3547,19 @@ def bts_kernel_checks(torch, hk):
         kern = partial(hk.block_thomas_small, *args)
         label = f"block_thomas_small {path} {[B, n, m]} {dt_name}"
         err, tol, scale = bts_hold(torch, label, kern(), p64, p32)
-        elem = 8 if dt_name == "float64" else 4
-        nbytes = (3 * m * m + 2 * m) * n * B * elem
-        ms_b, by = bound(nbytes, bts_ops(m, n, B), dt_name)
-        row = dict(kernel="block_thomas_small", path=path, shape=[B, n, m],
-                   dtype=dt_name, max_abs_err=err, tol=tol, max_abs_x=scale,
+        row = block_row("block_thomas_small", path, args, err, tol, scale,
+                        bts_ops(m, n, B), dt_name)
+        row.update(form=hk.bts_form(m, args[3].dtype),
                    ms=time_cuda(torch, kern, 20),
-                   plain_ms=time_cuda(torch, partial(plain, *args), 3),
-                   bytes=nbytes, bound_ms=ms_b, bound_by=by,
-                   library_ms=None, library_device_ms=None)
+                   plain_ms=time_cuda(torch, partial(plain, *args), 3))
         rows.append(row)
         targets = [row]
         if path == "mlc" and dt_name == "float32":
             result = dict(row)
             targets.append(result)
         later(kern, 20, *targets)
+        library_block_solve(torch, args, p64 if p32 is None else p32,
+                            *targets)
     # a NaN in one system's D reaches that system's x and no other's
     _, (L, D, U, b) = bts_systems(torch, 4096, 93, 4, 11, False)
     D[5, 40, 2, 1] = float("nan")
@@ -3415,7 +3575,7 @@ def bts_kernel_checks(torch, hk):
     t1 = time.perf_counter()
     # the edges: the plain forms at the largest batch, the kernel at each
     # batch on the first B systems of the same values
-    worst = {}
+    worst, reached = {}, {"float64": set(), "float32": set()}
     for m in range(1, 9):
         for n in BTS_EDGE_N:
             for swap in ((False, True) if m > 1 else (False,)):
@@ -3426,6 +3586,7 @@ def bts_kernel_checks(torch, hk):
                     for dt_name, args, ref32 in (("float64", f64, None),
                                                  ("float32", f32, p32)):
                         got = hk.block_thomas_small(*(a[:B] for a in args))
+                        reached[dt_name].add(hk.bts_form(m, args[3].dtype))
                         label = (f"block_thomas_small {[B, n, m]} {dt_name}"
                                  f"{' swap' if swap else ''}")
                         err, tol, _ = bts_hold(
@@ -3438,8 +3599,108 @@ def bts_kernel_checks(torch, hk):
                                               shape=[B, n, m], swap=swap)
                 del got
                 del f32, f64, p64, p32
+    for dt_name, forms in reached.items():
+        check(forms == set(hk.BTS_FORMS), f"(z) {dt_name}: the rule reached "
+              f"the forms {sorted(forms)}, not {hk.BTS_FORMS}")
     print("block_thomas_small_edges " + json.dumps(dict(
         n=BTS_EDGE_N, B=BTS_EDGE_B, worst_err_over_tol=worst,
+        forms_reached={k: sorted(v) for k, v in reached.items()},
+        nan=nan_row, paths_s=t1 - t0, edges_s=time.perf_counter() - t1)))
+    return rows, result
+
+
+def btl_kernel_checks(torch, hk):
+    """Phase (z), block_thomas_large: against its plain form on the card at
+    BTL_PATHS (timed, with the library yardstick) and at the edges
+    (BTL_EDGE_M and each dtype's shared-memory edge, at BTL_EDGE_N levels
+    and BTL_EDGE_B systems, f64 and f32, dominant and row-swapping blocks);
+    a NaN kept in its system.  Returns (the kernel_check rows, the kernels
+    line's entry: (r)'s vchannel shape)."""
+    from mpp_tpu_torch.ops.block_thomas import block_thomas as plain
+    t0 = time.perf_counter()
+    rows, result = [], None
+    edge = {dt: hk.max_on_chip("block_thomas_large", getattr(torch, dt))
+            for dt in ("float64", "float32")}
+    for path, B, n, m, dt_name in BTL_PATHS:
+        f32, f64 = bts_systems(torch, B, n, m, 17 + m, False,
+                               spread=0.5 / m ** 0.5)
+        args = f64 if dt_name == "float64" else f32
+        p64 = plain(*f64)
+        p32 = None if dt_name == "float64" else plain(*f32)
+        kern = partial(hk.block_thomas_large, *args)
+        label = f"block_thomas_large {path} {[B, n, m]} {dt_name}"
+        err, tol, scale = bts_hold(torch, label, kern(), p64, p32,
+                                   rel=BTL_F64_REL)
+        reps = 20 if B > 1 or m < 100 else 5
+        row = block_row("block_thomas_large", path, args, err, tol, scale,
+                        btl_ops(m, n, B), dt_name, PEAK_MATRIX_OPS_S)
+        row.update(on_chip=m <= edge[dt_name], ms=time_cuda(torch, kern, reps),
+                   plain_ms=time_cuda(torch, partial(plain, *args), 3))
+        rows.append(row)
+        targets = [row]
+        if path == "vchannel_direct":
+            result = dict(row)
+            targets.append(result)
+        later(kern, reps, *targets)
+        library_block_solve(torch, args, p64 if p32 is None else p32,
+                            *targets)
+        del f32, f64, p64, p32
+    # a NaN in one system's D reaches that system's x and no other's
+    _, (L, D, U, b) = bts_systems(torch, 64, 20, 12, 13, False,
+                                  spread=0.5 / 12 ** 0.5)
+    D[5, 9, 2, 1] = float("nan")
+    got, ref = hk.block_thomas_large(L, D, U, b), plain(L, D, U, b)
+    keep = torch.arange(64, device="cuda") != 5
+    check(not bool(torch.isfinite(got[5]).all()),
+          "(z): the NaN of system 5 did not reach its x (large)")
+    err, _, _ = bts_hold(torch, "(z) NaN's neighbours (large)", got[keep],
+                         ref[keep], rel=BTL_F64_REL)
+    nan_row = dict(nan_system_nonfinite=int((~torch.isfinite(got[5]))
+                                            .sum()),
+                   plain_nonfinite=int((~torch.isfinite(ref[5])).sum()),
+                   others_max_abs_err=err)
+    t1 = time.perf_counter()
+    worst, cases = {}, 0
+    ms_all = sorted(set(BTL_EDGE_M) | {e + d for e in edge.values()
+                                       for d in (0, 1)})
+    for m in ms_all:
+        dts = [dt for dt, e in edge.items()
+               if m in BTL_EDGE_M or m in (e, e + 1)]
+        for n in BTL_EDGE_N:
+            # from BTL_DEEP_CUT up, the deepest n on one dominant f64 system,
+            # past BTL_DEEPEST_M not at all
+            deep = m >= BTL_DEEP_CUT and n == max(BTL_EDGE_N)
+            if deep and m > BTL_DEEPEST_M:
+                continue
+            Bs = (1,) if deep else BTL_EDGE_B
+            dts_n = [dt for dt in dts if dt == "float64" or not deep]
+            for swap in ((False,) if deep else (False, True)):
+                f32, f64 = bts_systems(torch, max(Bs), n, m, 1000 * m + n,
+                                       swap, spread=0.5 / m ** 0.5)
+                p64 = plain(*f64)
+                p32 = plain(*f32) if "float32" in dts_n else None
+                for B in Bs:
+                    for dt_name in dts_n:
+                        args = f64 if dt_name == "float64" else f32
+                        got = hk.block_thomas_large(*(a[:B] for a in args))
+                        label = (f"block_thomas_large {[B, n, m]} {dt_name}"
+                                 f"{' swap' if swap else ''}")
+                        err, tol, _ = bts_hold(
+                            torch, label, got, p64[:B],
+                            None if dt_name == "float64" else p32[:B],
+                            rel=BTL_F64_REL)
+                        cases += 1
+                        key = f"m{m} {dt_name}"
+                        share = err / tol if tol else 0.0
+                        if share >= worst.get(key, dict(share=-1))["share"]:
+                            worst[key] = dict(share=share, err=err, tol=tol,
+                                              shape=[B, n, m], swap=swap,
+                                              on_chip=m <= edge[dt_name])
+                        del got
+                del f32, f64, p64, p32
+    print("block_thomas_large_edges " + json.dumps(dict(
+        m=ms_all, n=BTL_EDGE_N, B=BTL_EDGE_B, deep_cut=BTL_DEEP_CUT,
+        max_on_chip=edge, cases=cases, worst_err_over_tol=worst,
         nan=nan_row, paths_s=t1 - t0, edges_s=time.perf_counter() - t1)))
     return rows, result
 
@@ -3466,6 +3727,8 @@ def main():
     print(f"build: {time.perf_counter() - t0:.3f} s (nvcc "
           f"{_build.build_seconds:.3f} s) -> {_build.library_path()}")
     print("ptxas " + json.dumps(ptxas_summary(_build.build_log)))
+    # the plain block-Thomas level loop on a CUDA tensor, over the whole run
+    plain_block_loops, restore_plain = count_plain_block_loops(hk)
 
     # (c) kernels against their plain versions
     results, checks = kernel_checks(torch, hk, tridiag)
@@ -3620,7 +3883,7 @@ def main():
     ilu_since(hk, "thermal_mms_petsc", mark)
     t_s = time.perf_counter()
     mark = ilu_mark(hk)
-    run_small_problems(torch)
+    run_small_problems(torch, hk)
     ilu_since(hk, "small_problems", mark, required=False)
     t_t = time.perf_counter()
     print("petsc_phases_s " + json.dumps(dict(
@@ -3668,22 +3931,34 @@ def main():
         r["launches"] = sum(r["launches_by_path"].values())
         results[name] = r
 
-    # (z): block_thomas_small against its plain form at the canopy's path
-    # shapes and the edges; its launches are those counted on (u) and (x4)
-    rows, results["block_thomas_small"] = bts_kernel_checks(torch, hk)
-    checks += rows
-    results["block_thomas_small"].update(
-        launches_by_path=dict(BTS_BY_PATH),
-        launches=sum(BTS_BY_PATH.values()),
-        path_rows=rows[:len(BTS_PATHS)])
+    # (z): block_thomas_small and block_thomas_large against their plain
+    # forms at the paths' shapes and the edges; their launches are those
+    # counted on (u) and (x4), and on (r) and (t)
+    for name, run, by_path, npaths in (
+            ("block_thomas_small", bts_kernel_checks, BTS_BY_PATH,
+             len(BTS_PATHS)),
+            ("block_thomas_large", btl_kernel_checks, BTL_BY_PATH,
+             len(BTL_PATHS))):
+        rows, results[name] = run(torch, hk)
+        checks += rows
+        results[name].update(launches_by_path=dict(by_path),
+                             launches=sum(by_path.values()),
+                             path_rows=rows[:npaths])
+    restore_plain()
+    check(not plain_block_loops, f"the plain block-Thomas level loop ran "
+          f"on the card at {plain_block_loops}")
+    print("plain_block_loops_on_card " + json.dumps(dict(
+        count=len(plain_block_loops), block_thomas_large_by_path=BTL_BY_PATH,
+        block_thomas_small_by_path=BTS_BY_PATH)))
 
     # the device times queued by (c)-(p) and (y), then the host-clock
     # readings of (d) and (c) again, after those profiler windows
     settle(torch)
-    bts = results["block_thomas_small"]
-    for r in (bts, *bts["path_rows"]):
-        r["bound_share"] = None if r["device_ms"] is None else \
-            r["bound_ms"] / r["device_ms"]
+    for name in ("block_thomas_small", "block_thomas_large"):
+        r0 = results[name]
+        for r in (r0, *r0["path_rows"]):
+            r["bound_share"] = None if r["device_ms"] is None else \
+                r["bound_ms"] / r["device_ms"]
     for r in checks:
         print("kernel_check " + json.dumps(r))
     for r in (esc_busy, thermal_busy, *th_busy, *canopy_busy,

@@ -19,7 +19,7 @@ over ``ncol`` independent copies of the problem (one row of the
   - block-tridiagonal over level-major blocks (the 3-media thermal
     problem at one column): ``ops/block_structure.BlockTridiagTemplate``
     and ``block_solve`` (the ``block_thomas_small`` kernel to block size
-    8, the plain sweep past it);
+    8, the ``block_thomas_large`` kernel past it);
   - otherwise, under ``linear_solver="petsc"``, the batched ILU(0) +
     GMRES(30) replica of the reference's KSP (``batched/ilu_gmres.py``;
     the 2-D and 3-D thermal MMS problems), else a dense

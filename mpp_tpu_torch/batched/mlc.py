@@ -7,9 +7,10 @@ coupled [T_air | q_air | T_sun... | T_shd...] system is block-tridiagonal
 when unknowns are grouped per canopy level — every coupling in the 4-block
 DMComposite fill (:333-455) stays within a level or reaches level k±1 —
 so the PETSc GMRES+ILU(0) solve becomes an exact batched block-Thomas
-sweep (``ops/block_structure.block_solve``: the ``block_thomas_small``
-kernel on the card; m = 4 at one tree), with canopy-air columns as the
-batch axis.
+sweep (``ops/block_structure.block_solve``: on the card the
+``block_thomas_small`` kernel to three tree types, m = 4 at one, and the
+``block_thomas_large`` kernel from four, m >= 10), with canopy-air
+columns as the batch axis.
 
 Block layout per level: m = 2 + 2*ntree rows
   row 0        = canopy-air temperature (Bonan eliminated-soil row at k=0)

@@ -24,7 +24,7 @@ over ``ncol`` independent copies of the problem (one row of the
     reference's inner solve (``batched/ilu_gmres.py``), "direct" by
     block-Thomas over level-major blocks (``ops/block_structure.
     block_solve``: the ``block_thomas_small`` kernel to block size 8, the
-    plain sweep past it) or a batched dense LU;
+    ``block_thomas_large`` kernel past it) or a batched dense LU;
   ``batched/th_compiled.py`` adds the 2x2 block-tridiagonal one;
 * PETSc SNES NEWTONLS + SNESLineSearchBT (cubic) + SNESConvergedDefault,
   batched with per-column masks, straggler compaction, and the

@@ -34,7 +34,8 @@ _D = ctypes.c_double
 #: ``c_double``; every launcher returns cudaError_t (the ``*_max_on_chip``
 #: and ``*_max_in_registers`` queries the deepest column a kernel keeps on
 #: chip, or in registers, for 4- or 8-byte values; ``mpp_ilu0_limit`` the
-#: ILU(0) forms' limits)
+#: ILU(0) forms' limits; ``mpp_block_thomas_small_scratch`` a launch's
+#: scratch values, a ``c_longlong``: RESTYPES)
 SIGNATURES = {
     "mpp_thomas_max_on_chip": (_I,),
     "mpp_thomas_f32": (_P,) * 6 + (_I, _I, _P),
@@ -45,8 +46,12 @@ SIGNATURES = {
     "mpp_block_thomas2_max_on_chip": (_I,),
     "mpp_block_thomas2_f32": (_P,) * 6 + (_I, _I, _P),
     "mpp_block_thomas2_f64": (_P,) * 6 + (_I, _I, _P),
-    "mpp_block_thomas_small_f32": (_P,) * 6 + (_I, _I, _I, _P),
-    "mpp_block_thomas_small_f64": (_P,) * 6 + (_I, _I, _I, _P),
+    "mpp_block_thomas_small_scratch": (_I, _I, _I, _I, _I),
+    "mpp_block_thomas_small_f32": (_P,) * 6 + (_I,) * 4 + (_P,),
+    "mpp_block_thomas_small_f64": (_P,) * 6 + (_I,) * 4 + (_P,),
+    "mpp_block_thomas_large_max_on_chip": (_I,),
+    "mpp_block_thomas_large_f32": (_P,) * 7 + (_I, _I, _I, _P),
+    "mpp_block_thomas_large_f64": (_P,) * 7 + (_I, _I, _I, _P),
     "mpp_tridiag_spmv_chain_max_in_registers": (_I,),
     "mpp_tridiag_spmv_chain_max_on_chip": (_I,),
     "mpp_tridiag_jacobi_smooth_max_in_registers": (_I,),
@@ -64,6 +69,9 @@ SIGNATURES = {
     "mpp_ilu0_apply_f32": (_P,) * 5 + (_I,) * 11 + (_P,),
     "mpp_ilu0_apply_f64": (_P,) * 5 + (_I,) * 11 + (_P,),
 }
+
+#: launchers and queries whose result is not a ``c_int``
+RESTYPES = {"mpp_block_thomas_small_scratch": ctypes.c_longlong}
 
 _LIB = None
 #: seconds the last build took (0.0 when the library was already built)
@@ -140,6 +148,6 @@ def library() -> ctypes.CDLL:
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
+            fn.restype = RESTYPES.get(name, ctypes.c_int)
         _LIB = lib
     return _LIB

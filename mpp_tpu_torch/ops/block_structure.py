@@ -16,19 +16,18 @@ import numpy as np
 import torch
 
 from mpp_tpu_torch.ops import hopper_kernels as hk
-from mpp_tpu_torch.ops.block_thomas import block_thomas
 
 
 def block_solve(L, D, U, b):
     """Batched block-Thomas solve routed by block size: m <= 8 is the
-    ``block_thomas_small`` kernel (its plain form on CPU tensors), larger
-    blocks the plain level loop (``ops/block_thomas.block_thomas``), as the
-    JAX package's small_solve sends m > 8 to a library solve.  The route
-    is chosen by shape, never on a failure."""
+    ``block_thomas_small`` kernel, larger blocks the ``block_thomas_large``
+    kernel (where the JAX package's small_solve calls ``linalg.solve``);
+    both run their plain form, ``ops/block_thomas.block_thomas``, on CPU
+    tensors.  The route is chosen by shape, never on a failure."""
+    L, D, U, b = (a.contiguous() for a in (L, D, U, b))
     if b.shape[-1] <= hk.BLOCK_SMALL_MAX:
-        return hk.block_thomas_small(L.contiguous(), D.contiguous(),
-                                     U.contiguous(), b.contiguous())
-    return block_thomas(L, D, U, b)
+        return hk.block_thomas_small(L, D, U, b)
+    return hk.block_thomas_large(L, D, U, b)
 
 
 def chain_shape(ncells: int, rows: np.ndarray, cols: np.ndarray,

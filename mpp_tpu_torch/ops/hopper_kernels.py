@@ -14,14 +14,18 @@ Each kernel sits beside its plain PyTorch version.  The first three
 * :func:`block_thomas2` — batched 2x2 block-tridiagonal solve, the TH
   Newton direction; replaces ``pallas_block_thomas2`` (l.289-408).
 
-``csrc/block_thomas_small_kernels.cu`` holds the block solve of the canopy
-and the block plans; it replaces no Pallas kernel but the JAX package's
-``lax.scan`` sweeps of ``block_thomas`` (``mpp_tpu/ops/block_thomas.py:
-22-122``):
+``csrc/block_thomas_small_kernels.cu`` and ``csrc/block_thomas_large_
+kernels.cu`` hold the block solve of the canopy and the block plans; they
+replace no Pallas kernel but the JAX package's ``lax.scan`` sweeps of
+``block_thomas`` (``mpp_tpu/ops/block_thomas.py:22-122``); the callers
+reach them through ``ops/block_structure.block_solve``, by block size:
 
 * :func:`block_thomas_small` — batched block-tridiagonal solve with m x m
-  blocks, 1 <= m <= 8, small_solve's pivoting inside each block; the
-  callers reach it through ``ops/block_structure.block_solve``.
+  blocks, 1 <= m <= 8, small_solve's pivoting inside each block, in one
+  of two forms (``BTS_FORMS``) that :func:`bts_form` picks by m and dtype.
+* :func:`block_thomas_large` — the same with m >= 9, each level's block
+  solve an LU with partial pivoting (small_solve's ``linalg.solve``
+  branch).
 
 The SpMV family (``csrc/spmv_family_kernels.cu``) serves the public ops
 and the SpMV measurement harness (``tools/exp_spmv.py``):
@@ -77,6 +81,7 @@ from mpp_tpu_torch.ops.tridiag import tridiag_matvec
 #: kernel launches since the last reset, by kernel name
 LAUNCHES = {"thomas": 0, "tridiag_spmv": 0, "tridiag_spmv_mixed": 0,
             "block_thomas2": 0, "block_thomas_small": 0,
+            "block_thomas_large": 0,
             "tridiag_spmv_chain": 0,
             "tridiag_jacobi_smooth": 0, "spmv_variant": 0, "spmv_packed": 0,
             "stream_ceiling": 0, "ilu0_factor": 0, "ilu0_apply": 0}
@@ -95,10 +100,11 @@ def max_on_chip(kernel, dtype, memory="shared"):
     ``dtype``: for "thomas" and "block_thomas2" with the carries in shared
     memory, for "tridiag_spmv_chain" and "tridiag_jacobi_smooth" with the
     bands, b and x in shared memory, or with ``memory="registers"`` in a
-    warp's registers (those two only).  Deeper columns need a global
-    scratch.  The launcher's own rule, read
-    from the library (built at first use) once per kernel, dtype and
-    memory.  (The ILU(0) kernels' limits: :func:`ilu0_limits`.)"""
+    warp's registers (those two only); for "block_thomas_large" the largest
+    block size m whose working matrix stays in shared memory.  Deeper
+    columns (larger blocks) need a global scratch.  The launcher's own
+    rule, read from the library (built at first use) once per kernel,
+    dtype and memory.  (The ILU(0) kernels' limits: :func:`ilu0_limits`.)"""
     key = (kernel, dtype, memory)
     if key not in _MAX_ON_CHIP:
         which = {"shared": "max_on_chip",
@@ -263,21 +269,46 @@ def block_thomas2(L, D, U, b):
     return x
 
 
-#: the largest block :func:`block_thomas_small` takes
+#: the largest block :func:`block_thomas_small` takes; the smallest
+#: :func:`block_thomas_large` takes
 BLOCK_SMALL_MAX = 8
+BLOCK_LARGE_MIN = BLOCK_SMALL_MAX + 1
+#: the forms of :func:`block_thomas_small` (csrc/block_thomas_small_kernels
+#: .cu): "thread", a system a thread, its level blocks streamed through a
+#: shared-memory ring, built to m = BTS_THREAD_BUILT in both dtypes (the
+#: kernel's kThreadMax), so that the threshold below can be measured again;
+#: "lanes", a system on m lanes of a warp, built to m = 8
+BTS_FORMS = ("thread", "lanes")
+BTS_THREAD_BUILT = 5
+#: the rule: the largest m that takes the thread form, by dtype, one
+#: threshold a dtype, from the forms' device times at the canopy's [4096,
+#: 93, m] on one H100 (``tools/resident_variants.py --bts-forms``, PERF.md
+#: section 6): the thread form wins at the canopy's m = 3 (f64) and m = 4
+#: (f32); at f32 m = 2, which no path solves, lanes read faster.  Tests
+#: and tools force a form by patching it.
+BTS_THREAD_MAX = {torch.float32: 5, torch.float64: 3}
 
 
-def _check_small_blocks(L, D, U, b):
-    """Raise ValueError unless b is ``[..., n, m]`` with 1 <= m <= 8 and
-    L, D, U ``[..., n, m, m]`` of b's leading dims, all contiguous tensors
-    of one dtype (f32 or f64) on one CPU or CUDA device."""
-    name = "block_thomas_small"
+def bts_form(m, dtype):
+    """The form of :func:`block_thomas_small` the rule picks for m x m
+    blocks in ``dtype``: "thread" to ``BTS_THREAD_MAX[dtype]``, "lanes"
+    past it."""
+    return "thread" if m <= BTS_THREAD_MAX[dtype] else "lanes"
+
+
+def _check_block_systems(name, L, D, U, b, m_lo, m_hi):
+    """Raise ValueError unless b is ``[..., n, m]`` with m_lo <= m (<= m_hi
+    unless None) and L, D, U ``[..., n, m, m]`` of b's leading dims, all
+    contiguous tensors of one dtype (f32 or f64) on one CPU or CUDA
+    device."""
     for a in (L, D, U, b):
         if not isinstance(a, torch.Tensor):
             raise ValueError(f"{name}: expected tensors, got {type(a)}")
-    if b.dim() < 2 or not 1 <= b.shape[-1] <= BLOCK_SMALL_MAX:
-        raise ValueError(f"{name}: b must be [..., n, m] with 1 <= m <= "
-                         f"{BLOCK_SMALL_MAX}, got {tuple(b.shape)}")
+    if b.dim() < 2 or b.shape[-1] < m_lo or \
+            (m_hi is not None and b.shape[-1] > m_hi):
+        span = f"{m_lo} <= m" + ("" if m_hi is None else f" <= {m_hi}")
+        raise ValueError(f"{name}: b must be [..., n, m] with {span}, got "
+                         f"{tuple(b.shape)}")
     blk = tuple(b.shape) + (b.shape[-1],)
     for a in (L, D, U):
         if tuple(a.shape) != blk:
@@ -301,9 +332,11 @@ def block_thomas_small(L, D, U, b):
     unused), b and x ``[..., n, m]``, f32 or f64, any n; the leading dims
     are the batch.  small_solve's contract inside each block (m = 2 the
     adjugate, 3 <= m <= 8 partial pivoting), none across levels: block
-    diagonally dominant systems.  On the card one launch, within rounding
-    of :func:`ops.block_thomas.block_thomas` (not bit for bit)."""
-    _check_small_blocks(L, D, U, b)
+    diagonally dominant systems.  On the card one launch in the form
+    :func:`bts_form` picks, within rounding of
+    :func:`ops.block_thomas.block_thomas` (not bit for bit)."""
+    name = "block_thomas_small"
+    _check_block_systems(name, L, D, U, b, 1, BLOCK_SMALL_MAX)
     if b.device.type == "cpu":
         return block_thomas(L, D, U, b)
     n, m = b.shape[-2], b.shape[-1]
@@ -312,15 +345,58 @@ def block_thomas_small(L, D, U, b):
     if nsys == 0 or n == 0:
         return x
     lib = _build.library()
-    # the scratch of Cp_k, k < n - 1 (the kernel strides it like D)
-    cp = torch.empty_like(D) if n > 1 else None
+    code = BTS_FORMS.index(bts_form(m, b.dtype))
+    size = lib.mpp_block_thomas_small_scratch(nsys, n, m, b.element_size(),
+                                              code)
+    scr = torch.empty(size, dtype=b.dtype, device=b.device) if size else None
     fn = lib.mpp_block_thomas_small_f64 if b.dtype == torch.float64 else \
         lib.mpp_block_thomas_small_f32
     with torch.cuda.device(b.device):
         rc = fn(L.data_ptr(), D.data_ptr(), U.data_ptr(), b.data_ptr(),
-                None if cp is None else cp.data_ptr(), x.data_ptr(), nsys, n,
-                m, _stream(b))
-    _launched("block_thomas_small", rc)
+                None if scr is None else scr.data_ptr(), x.data_ptr(), nsys,
+                n, m, code, _stream(b))
+    _launched(name, rc)
+    return x
+
+
+def block_thomas_large(L, D, U, b):
+    """Solve T x = b for batched block-tridiagonal T with m x m blocks,
+    m >= 9: blocks ``[..., n, m, m]`` (``L[..., 0]`` and ``U[..., n-1]``
+    unused), b and x ``[..., n, m]``, f32 or f64, any n; the leading dims
+    are the batch.  Each level's block solve is LU with partial pivoting
+    (the largest |entry|, ties to the lower row, a NaN the largest), none
+    across levels: block diagonally dominant systems.  On the card one
+    launch, a thread block a system, f64 arithmetic for either dtype, the
+    level's working matrix in shared memory to
+    ``max_on_chip("block_thomas_large", dtype)`` and in a global scratch
+    past it; within rounding of
+    :func:`ops.block_thomas.block_thomas` (``torch.linalg.solve`` a level,
+    not bit for bit)."""
+    name = "block_thomas_large"
+    _check_block_systems(name, L, D, U, b, BLOCK_LARGE_MIN, None)
+    if b.device.type == "cpu":
+        return block_thomas(L, D, U, b)
+    n, m = b.shape[-2], b.shape[-1]
+    x = torch.empty_like(b)
+    nsys = b.numel() // max(n * m, 1)
+    if nsys == 0 or n == 0:
+        return x
+    lib = _build.library()
+    # f64 scratches, the kernel's arithmetic in either dtype: the levels'
+    # [Cp_k | dp_k], k < n - 1, and the working matrices where they do not
+    # fit shared memory
+    f64 = dict(dtype=torch.float64, device=b.device)
+    cp = torch.empty(nsys * n * m * (m + 1), **f64) if n > 1 else None
+    ws = torch.empty(nsys * m * (2 * m + 1), **f64) \
+        if m > max_on_chip(name, b.dtype) else None
+    fn = lib.mpp_block_thomas_large_f64 if b.dtype == torch.float64 else \
+        lib.mpp_block_thomas_large_f32
+    with torch.cuda.device(b.device):
+        rc = fn(L.data_ptr(), D.data_ptr(), U.data_ptr(), b.data_ptr(),
+                None if cp is None else cp.data_ptr(),
+                None if ws is None else ws.data_ptr(), x.data_ptr(), nsys,
+                n, m, _stream(b))
+    _launched(name, rc)
     return x
 
 

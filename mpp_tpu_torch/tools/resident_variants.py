@@ -1,7 +1,10 @@
 """The SpMV chain and the Jacobi smoother against variant builds of
 themselves on one NVIDIA GPU, and their sweep loops counted in SASS; with
 ``--ilu``, the ILU(0) factor and apply of other checkouts against this
-one's.
+one's; with ``--bts``, their block_thomas_small against this one's; with
+``--paths``, two main paths through their entry points against this
+one's; with ``--bts-forms``, this checkout's block_thomas_small in each
+of its forms.
 
 A variant is this checkout's ``csrc/spmv_family_kernels.cu`` with the text
 edits of ``VARIANTS[name]``, in a copy of the package under
@@ -25,9 +28,38 @@ max |x| against its own plain forms, and is timed as above; where the
 caller finds the factor L2-cold ((q): GMRES's Krylov basis evicts it)
 also behind a 128 MB copy before each call (``cold``).
 
+``--bts`` times ``hopper_kernels.block_thomas_small`` instead, at
+BTS_CASES, the canopy's path shapes of ``chip_smoke.py`` (z) (the
+longwave's [4096, 93, 3] f64 and the MLC's [4096, 93, 4] f32 and f64):
+every tree draws the same systems (``chip_smoke.bts_systems``), holds its
+kernel to its own plain form (f64 within 1e-12 of max |x|; f32 no farther
+from the plain f64 solve than twice the plain f32 solve) and is timed as
+above, in the form its own rule picks.  A BTS_VARIANTS name
+(``loads_only``) adds a build of this checkout's block_thomas_small with
+that part of its time alone, timed but not held.
+
+``--bts-forms`` times this checkout's block_thomas_small in each form of
+``hk.BTS_FORMS`` at every m where the form is built, at BTS_FORM_SHAPE
+(the canopy's width and depth), f64 and f32, the form forced by patching
+the rule's threshold (``hk.BTS_THREAD_MAX``), each held to its plain form
+first as ``--bts`` holds it, in one process: the readings the rule's
+thresholds come from.
+
+``--paths`` times two main paths through their entry points, in the
+trees' turns as above (wall-clock ms, each ending in a synchronise):
+vsfm_vchannel's "direct" plan at ``chip_smoke.py`` (r)'s size (a warm
+problem of one step first, then a new one's VCH_STEPS steps; ms and host
+syncs a step, Newton iterations), and the canopy pipeline's staged f32
+substeps at (u1)'s width (``chip_smoke.run_canopy_timed``: one warm
+substep, PATH_CANOPY_SUBSTEPS timed, its gates held).
+
     python -m mpp_tpu_torch.tools.resident_variants [--tree NAME=ROOT ...]
         [TREE ...]                       # default: this and every variant
     python -m mpp_tpu_torch.tools.resident_variants --ilu --tree NAME=ROOT
+    python -m mpp_tpu_torch.tools.resident_variants --bts --tree NAME=ROOT
+        [this loads_only]
+    python -m mpp_tpu_torch.tools.resident_variants --bts-forms
+    python -m mpp_tpu_torch.tools.resident_variants --paths --tree NAME=ROOT
     python -m mpp_tpu_torch.tools.resident_variants --sass [--root ROOT]
         [--dump FILE]
 
@@ -52,6 +84,7 @@ _HERE = os.path.abspath(__file__)
 _PKG = os.path.dirname(os.path.dirname(_HERE))
 THIS = os.path.dirname(_PKG)
 SOURCE = os.path.join("csrc", "spmv_family_kernels.cu")
+BTS_SOURCE = os.path.join("csrc", "block_thomas_small_kernels.cu")
 
 #: name: [(text, replacement), ...] applied to SOURCE (every occurrence;
 #: each text must occur)
@@ -66,6 +99,18 @@ VARIANTS = {
     "ieee_div": [("constexpr bool kHoist = kJacobi && sizeof(T) == 4;",
                   "constexpr bool kHoist = false;")],
 }
+#: --bts: name: edits of BTS_SOURCE, a part of block_thomas_small's time
+#: (its results are not the solve and are not held): "loads_only", the
+#: thread form's copies and shared loads with a sum in place of its solve.
+#: (A solve on the first level's blocks repeated is no such part: the
+#: repeated blocks drift to values whose divisions take `/`'s slow path.)
+BTS_VARIANTS = {
+    "loads_only": [
+        ("    level_step<T, M>(lr, dr, ur, br, k == 0, k == n - 1, cpv, dpv);",
+         "#pragma unroll\n    for (int i = 0; i < M; ++i)\n"
+         "      dpv[i] = dpv[i] * T(0.5) + lr[i] + dr[i] + ur[i] + br[i];"),
+    ],
+}
 CASES = (("float64", 16384, 30), ("float32", 16384, 30),
          ("float64", 16384, 64), ("float32", 16384, 64),
          ("float32", 131072, 256))
@@ -76,33 +121,40 @@ ROUNDS = 2
 ILU_PATHS = (("th_petsc", 8192, True), ("celia1990", 1, False),
              ("th_manoli2014", 1, False), ("th_manoli2014_x10", 1, False),
              ("mlc_compiled", 1, False))
+#: --bts: (systems, levels, m, dtype)
+BTS_CASES = ((4096, 93, 3, "float64"), (4096, 93, 4, "float32"),
+             (4096, 93, 4, "float64"))
+#: --bts-forms: (systems, levels)
+BTS_FORM_SHAPE = (4096, 93)
+#: --paths: the canopy substeps timed
+PATH_CANOPY_SUBSTEPS = 4
 # opcodes counted on the hot path
 SASS_OPS = ("FADD", "FMUL", "FFMA", "DADD", "DMUL", "DFMA", "MUFU", "F2F",
             "FCHK", "FSEL", "SEL", "FSETP", "DSETP", "SHFL", "IMAD", "ISETP",
             "LOP3", "PLOP3", "LDL", "STL", "LDS", "STS", "LDG", "BRA")
 
 
-def variant_source(name):
-    """This checkout's SOURCE with VARIANTS[name] applied."""
-    with open(os.path.join(_PKG, SOURCE)) as f:
+def variant_source(name, source=SOURCE, variants=VARIANTS):
+    """This checkout's ``source`` with ``variants[name]`` applied."""
+    with open(os.path.join(_PKG, source)) as f:
         text = f.read()
-    for old, new in VARIANTS[name]:
+    for old, new in variants[name]:
         if old not in text:
-            raise ValueError(f"variant {name}: {old!r} not in {SOURCE}")
+            raise ValueError(f"variant {name}: {old!r} not in {source}")
         text = text.replace(old, new)
     return text
 
 
-def make_variant(name):
-    """A copy of this checkout's package with VARIANTS[name] applied;
-    returns the root that holds it."""
+def make_variant(name, source=SOURCE, variants=VARIANTS):
+    """A copy of this checkout's package with ``variants[name]`` applied
+    to ``source``; returns the root that holds it."""
     root = os.path.join(_PKG, "_build", "variants", name)
     pkg = os.path.join(root, "mpp_tpu_torch")
     shutil.rmtree(root, ignore_errors=True)
     shutil.copytree(_PKG, pkg, ignore=shutil.ignore_patterns(
         "_build", "__pycache__"))
-    with open(os.path.join(pkg, SOURCE), "w") as f:
-        f.write(variant_source(name))
+    with open(os.path.join(pkg, source), "w") as f:
+        f.write(variant_source(name, source, variants))
     return root
 
 
@@ -247,6 +299,124 @@ def time_ilu(data_path):
     return out
 
 
+def _bts_hold(torch, label, got, f32, f64):
+    """Raise unless ``got`` (the solve of f64's or f32's values) is finite
+    and holds to the plain form: f64 within 1e-12 of max |x|; f32 no
+    farther from the plain f64 solve than twice the plain f32 solve."""
+    from mpp_tpu_torch.ops.block_thomas import block_thomas as plain
+    p64 = plain(*f64)
+    far = float((got.double() - p64).abs().max())
+    if got.dtype == torch.float64:
+        ok = far <= 1e-12 * float(p64.abs().max())
+    else:
+        ok = far <= 2 * float((plain(*f32).double() - p64).abs().max())
+    if not (ok and bool(torch.isfinite(got).all())):
+        raise RuntimeError(f"block_thomas_small {label}: {far:.3e} off the "
+                           "plain form")
+
+
+def time_bts(held=True):
+    """{case: device ms} of block_thomas_small at BTS_CASES, in the tree
+    whose package is first on sys.path; with ``held`` fails unless each
+    holds to its plain form (a BTS_VARIANTS build is not held)."""
+    from functools import partial
+
+    import torch
+    from mpp_tpu_torch.ops import hopper_kernels as hk
+    if not torch.cuda.is_available():
+        raise RuntimeError("torch.cuda.is_available() is false")
+    systems = _chip_smoke().bts_systems
+    out = {}
+    for B, n, m, dt_name in BTS_CASES:
+        f32, f64 = systems(torch, B, n, m, 7 + m, False)
+        args = f64 if dt_name == "float64" else f32
+        case = f"[{B},{n},{m}] {dt_name}"
+        if held:
+            _bts_hold(torch, case, hk.block_thomas_small(*args), f32, f64)
+        # the wrapper's allocations launch nothing: every device record of
+        # a call is the kernel's
+        out[f"block_thomas_small {case}"] = _device_ms(
+            torch, partial(hk.block_thomas_small, *args))
+    return out
+
+
+def time_bts_forms():
+    """{case: device ms} of this checkout's block_thomas_small in each form
+    where it is built, at BTS_FORM_SHAPE and every m, f64 and f32, the
+    form forced through the rule's threshold; each held first."""
+    from functools import partial
+
+    import torch
+    from mpp_tpu_torch.ops import hopper_kernels as hk
+    if not torch.cuda.is_available():
+        raise RuntimeError("torch.cuda.is_available() is false")
+    systems = _chip_smoke().bts_systems
+    B, n = BTS_FORM_SHAPE
+    rule, out = hk.BTS_THREAD_MAX, {}
+    try:
+        for m in range(1, hk.BLOCK_SMALL_MAX + 1):
+            f32, f64 = systems(torch, B, n, m, 50 + m, m > 2)
+            for dt_name, args in (("float64", f64), ("float32", f32)):
+                picked = hk.bts_form(m, args[3].dtype)
+                for form in hk.BTS_FORMS:
+                    if form == "thread" and m > hk.BTS_THREAD_BUILT:
+                        continue
+                    top = hk.BTS_THREAD_BUILT if form == "thread" else 0
+                    hk.BTS_THREAD_MAX = {dt: top for dt in rule}
+                    case = f"{form} [{B},{n},{m}] {dt_name}"
+                    _bts_hold(torch, case, hk.block_thomas_small(*args),
+                              f32, f64)
+                    out[case + (" (rule)" if form == picked else "")] = \
+                        _device_ms(torch, partial(hk.block_thomas_small,
+                                                  *args))
+                    hk.BTS_THREAD_MAX = rule    # the next pick is the rule's
+    finally:
+        hk.BTS_THREAD_MAX = rule
+    return out
+
+
+def time_paths():
+    """{case: value} of (r)'s vchannel "direct" steps and (u1)'s f32 canopy
+    substeps on the card, in the tree whose package is first on sys.path,
+    through its entry points (this checkout's ``chip_smoke`` sizes and
+    helpers)."""
+    import torch
+    from mpp_tpu_torch.batched import canopy_pipeline as cp
+    from mpp_tpu_torch.ops import _build
+    from mpp_tpu_torch.ops import hopper_kernels as hk
+    from mpp_tpu_torch.problems import vsfm_vchannel as vch
+    if not torch.cuda.is_available():
+        raise RuntimeError("torch.cuda.is_available() is false")
+    cs = _chip_smoke()
+    _build.library()
+    out = {}
+    for steps in (1, cs.VCH_STEPS):        # a warm problem, then the timed
+        mpp = vch.run_vsfm_vchannel_problem(
+            nz=cs.VCH_NZ, nstep=0, use_compiled=True,
+            linear_solver="direct", device="cuda")
+        comp = mpp.soe.step_dt.__self__
+        torch.cuda.synchronize()
+        syncs0, t0 = comp.host_syncs, time.perf_counter()
+        for istep in range(1, steps + 1):
+            ok, reason = mpp.soe.step_dt(cs.VCH_DT, istep)
+            if not ok:
+                raise RuntimeError(f"vchannel direct: step {istep} reason "
+                                   f"{reason}")
+        torch.cuda.synchronize()
+    out["vchannel_direct ms_per_step"] = \
+        (time.perf_counter() - t0) * 1e3 / steps
+    out["vchannel_direct host_syncs_per_step"] = \
+        (comp.host_syncs - syncs0) / steps
+    out["vchannel_direct newton_iters"] = \
+        mpp.soe.cumulative_newton_iterations
+    _, _, row = cs.run_canopy_timed(torch, hk, cp, torch.float32,
+                                    PATH_CANOPY_SUBSTEPS, "u1_f32")
+    out["canopy_u1_f32 ms_per_substep"] = row["ms_per_substep"]
+    out["canopy_u1_f32 host_syncs_per_substep"] = \
+        row["host_syncs_per_substep"]
+    return out
+
+
 def _branch_target(ins, labels):
     """The target address of a BRA instruction, or None."""
     m = re.search(r"\bBRA\b[^;]*?(0x[0-9a-f]+|\.L_x_\d+)", ins)
@@ -361,7 +531,7 @@ def sass_sweeps(dump=None):
 
 
 def _child(mode, root, dump):
-    """Run ``mode`` ("time" or "sass"; "ilu" with the sparsities at
+    """Run ``mode`` ("time", "bts" or "sass"; "ilu" with the sparsities at
     ``dump``) on ``root``'s package in a process of its own; returns its
     JSON result."""
     cmd = [sys.executable, _HERE, "--child", mode, "--root", root]
@@ -380,13 +550,21 @@ def main(argv=None):
                     help="NAME=ROOT: another checkout, as it is")
     ap.add_argument("--sass", action="store_true")
     ap.add_argument("--ilu", action="store_true")
+    ap.add_argument("--bts", action="store_true")
+    ap.add_argument("--bts-forms", action="store_true")
+    ap.add_argument("--paths", action="store_true")
     ap.add_argument("--root", default=THIS)
     ap.add_argument("--dump")
-    ap.add_argument("--child", choices=("time", "sass", "ilu"))
+    ap.add_argument("--child", choices=("time", "sass", "ilu", "bts",
+                                        "bts_variant", "bts_forms",
+                                        "paths"))
     args = ap.parse_args(argv)
     if args.child:
         sys.path.insert(0, os.path.abspath(args.root))
         res = {"time": time_tree, "ilu": lambda: time_ilu(args.dump),
+               "bts": time_bts,
+               "bts_variant": lambda: time_bts(held=False),
+               "bts_forms": time_bts_forms, "paths": time_paths,
                "sass": lambda: sass_sweeps(args.dump)}[args.child]()
         print(json.dumps(res))
         return
@@ -399,24 +577,36 @@ def main(argv=None):
         print(json.dumps(dict(card=card(), root=args.root, sass=_child(
             "sass", os.path.abspath(args.root), args.dump))))
         return
+    if args.bts_forms:
+        print(json.dumps(dict(card=card(), bts_forms_device_ms=_child(
+            "bts_forms", THIS, None))))
+        return
     roots, mode, data = {}, "time", None
     for spec in args.tree:
         name, root = spec.split("=", 1)
         roots[name] = os.path.abspath(root)
     roots["this"] = THIS
-    for name in args.trees or ([] if args.ilu else list(VARIANTS)):
+    for name in args.trees or ([] if args.ilu or args.bts or args.paths
+                               else list(VARIANTS)):
         if name != "this":
-            roots[name] = make_variant(name)
+            roots[name] = make_variant(name, BTS_SOURCE, BTS_VARIANTS) \
+                if args.bts else make_variant(name)
     if args.ilu:
         mode = "ilu"
         data = os.path.join(_PKG, "_build", "ilu_sparsities.npz")
         os.makedirs(os.path.dirname(data), exist_ok=True)
         ilu_sparsities(data)
+    elif args.bts:
+        mode = "bts"
+    elif args.paths:
+        mode = "paths"
     order = list(roots)
     times = {name: [] for name in order}
     for k in range(ROUNDS):
         for name in (order + order[::-1]):
-            times[name].append(_child(mode, roots[name], data))
+            times[name].append(_child(
+                "bts_variant" if args.bts and name in BTS_VARIANTS else mode,
+                roots[name], data))
             print(f"{name} round {k}: {times[name][-1]}", flush=True)
     cases = list(times[order[0]][0])
     summary = {case: {name: sum(t[case] for t in times[name])
@@ -424,7 +614,8 @@ def main(argv=None):
                for case in cases}
     print(json.dumps(dict(card=card(), order=order,
                           runs_per_tree=2 * ROUNDS,
-                          mean_device_ms=summary)))
+                          **{"mean" if args.paths else "mean_device_ms":
+                             summary})))
 
 
 if __name__ == "__main__":
