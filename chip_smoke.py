@@ -248,10 +248,13 @@ line is printed):
       thermal MMS's [1, 20, 20] f64, the batched MLC at four tree types
       [4096, 93, 10] f32 and f64; timed as above, the bound's operations
       those of getrf + getrs (btl_ops) at PEAK_MATRIX_OPS_S), at the edges
-      (BTL_EDGE_M and the last m kept in shared memory and the first
-      past it, at BTL_EDGE_N levels and BTL_EDGE_B systems, cut as
-      BTL_DEEP_CUT says, f64 and f32, dominant and row-swapping), and
-      the NaN check; f64 within 1e-11 of max |x|, f32 by the same rule.
+      (BTL_EDGE_M and each form's last m kept in shared memory and the
+      first past it, at BTL_EDGE_N levels and BTL_EDGE_B systems, cut as
+      BTL_DEEP_CUT says, f64 and f32, dominant and row-swapping), each
+      shape in both forms (hk.BTL_FORMS, forced through the rule's
+      thresholds: "block", a thread block a system; "cluster", a cluster
+      of CTAs a system), the rule's form timed, and the NaN check in each
+      form; f64 within 1e-11 of max |x|, f32 by the same rule.
       Beside every path row, one torch.linalg.solve of the assembled
       dense matrix (the JAX package's dense plan; library_ms, on as many
       systems as LIBRARY_DENSE_BYTES holds).  Their launches in the
@@ -525,13 +528,15 @@ BTS_BY_PATH = {}
 # (z), block_thomas_large: its path shapes ((r)'s vchannel "direct",
 # (t)'s spac_campbell "direct", the 2-D thermal MMS's "direct" plan at
 # 20 x 20, the batched MLC at four tree types on the canopy's columns) and
-# the edges: BTL_EDGE_M blocks and each dtype's last block kept in shared
+# the edges, each in both forms (hk.BTL_FORMS): BTL_EDGE_M blocks (the
+# cluster form's panel edges at 16 / 32 / 64, its second panel a CTA at
+# 129, its 16 CTAs at 256) and each form's last block kept in shared
 # memory and the first past it, at BTL_EDGE_N levels and BTL_EDGE_B
 # systems, f64 and f32, dominant and row-swapping blocks (from
 # BTL_DEEP_CUT up, the deepest n on one dominant f64 system only, and
 # past BTL_DEEPEST_M not at all: 33 systems of 30 levels of 1024 x 1024
-# blocks are 25 GB in f64, and one takes ~12 s on one SM, past the
-# script's time budget); off-diagonal spread 0.5 /
+# blocks are 25 GB in f64, and the block form takes ~12 s on one SM at
+# one of them, past the script's time budget); off-diagonal spread 0.5 /
 # sqrt(m), so the blocks stay diagonally dominant at every m; f64 within
 # BTL_F64_REL of max |x|, f32 by BTS_F32_FACTOR
 BTL_PATHS = (("vchannel_direct", 1, VCH_NZ, 200, "float64"),
@@ -539,7 +544,7 @@ BTL_PATHS = (("vchannel_direct", 1, VCH_NZ, 200, "float64"),
              ("thermal_mms_2d_direct", 1, 20, 20, "float64"),
              ("mlc_4_trees", CANOPY_NCAIR, CANOPY_NLEV, 10, "float32"),
              ("mlc_4_trees", CANOPY_NCAIR, CANOPY_NLEV, 10, "float64"))
-BTL_EDGE_M = (9, 16, 33, 200, 512, 1024)
+BTL_EDGE_M = (9, 16, 32, 33, 64, 65, 129, 200, 256, 512, 1024)
 BTL_EDGE_N = (1, 2, 30)
 BTL_EDGE_B = (1, 33)
 BTL_DEEP_CUT, BTL_DEEPEST_M = 512, 512
@@ -3609,32 +3614,76 @@ def bts_kernel_checks(torch, hk):
     return rows, result
 
 
+def btl_on_chip_edges(hk):
+    """Each form's last block size kept in shared memory: the block form's
+    working matrix, the cluster form's tiles and panel slots (its plan's
+    ``on_chip``)."""
+    m = hk.BLOCK_LARGE_MIN
+    while hk.btl_cluster_plan(m + 1)["on_chip"]:
+        m += 1
+    return {"block": hk.btl_block_max_on_chip(), "cluster": m}
+
+
 def btl_kernel_checks(torch, hk):
-    """Phase (z), block_thomas_large: against its plain form on the card at
-    BTL_PATHS (timed, with the library yardstick) and at the edges
-    (BTL_EDGE_M and each dtype's shared-memory edge, at BTL_EDGE_N levels
-    and BTL_EDGE_B systems, f64 and f32, dominant and row-swapping blocks);
-    a NaN kept in its system.  Returns (the kernel_check rows, the kernels
-    line's entry: (r)'s vchannel shape)."""
+    """Phase (z), block_thomas_large: each form (hk.BTL_FORMS, forced
+    through the rule's thresholds) against the plain form on the card at
+    BTL_PATHS (the rule's form timed, with the library yardstick) and at
+    the edges (BTL_EDGE_M and each form's shared-memory edge, at BTL_EDGE_N
+    levels and BTL_EDGE_B systems, f64 and f32, dominant and row-swapping
+    blocks); a NaN kept in its system in each form; the cluster plan's
+    shared bytes and scratch those the launcher computes.  Returns (the
+    kernel_check rows, the kernels line's entry: (r)'s vchannel shape)."""
+    from mpp_tpu_torch.ops import _build
     from mpp_tpu_torch.ops.block_thomas import block_thomas as plain
+    from mpp_tpu_torch.tools.resident_variants import (force_btl_form,
+                                                       restore_btl_rule)
     t0 = time.perf_counter()
+    lib = _build.library()
+    check(hk.max_on_chip("block_thomas_large", torch.float64)
+          == hk.btl_block_max_on_chip(), "(z): the block form's on-chip "
+          "limit differs from the launcher's")
+    for m in sorted(set(BTL_EDGE_M) | {20, 40, 300, 4096}):
+        for ctas in (1, 2, 3, 8, 13, 16):
+            lay = hk.btl_cluster_layout(m, ctas)
+            check([lib.mpp_block_thomas_large_cluster_smem(m, ctas, 1),
+                   lib.mpp_block_thomas_large_cluster_smem(m, ctas, 0),
+                   lib.mpp_block_thomas_large_cluster_scratch(m, ctas)]
+                  == [lay["smem_on_chip"], lay["smem_off_chip"],
+                      lay["big"]], f"(z): the cluster layout at m {m}, "
+                  f"{ctas} CTAs differs from the launcher's")
+
+    def forced(form, args):
+        rule = force_btl_form(hk, form)
+        try:
+            return hk.block_thomas_large(*args)
+        finally:
+            restore_btl_rule(hk, rule)
+
     rows, result = [], None
-    edge = {dt: hk.max_on_chip("block_thomas_large", getattr(torch, dt))
-            for dt in ("float64", "float32")}
     for path, B, n, m, dt_name in BTL_PATHS:
         f32, f64 = bts_systems(torch, B, n, m, 17 + m, False,
                                spread=0.5 / m ** 0.5)
         args = f64 if dt_name == "float64" else f32
         p64 = plain(*f64)
         p32 = None if dt_name == "float64" else plain(*f32)
+        held = {}
+        for form in hk.BTL_FORMS:
+            label = f"block_thomas_large {form} {path} {[B, n, m]} {dt_name}"
+            err, tol, scale = bts_hold(torch, label, forced(form, args), p64,
+                                       p32, rel=BTL_F64_REL)
+            held[form] = dict(max_abs_err=err, tol=tol)
+        plan = hk.btl_launch(B, n, m, args[3].dtype)
         kern = partial(hk.block_thomas_large, *args)
-        label = f"block_thomas_large {path} {[B, n, m]} {dt_name}"
-        err, tol, scale = bts_hold(torch, label, kern(), p64, p32,
-                                   rel=BTL_F64_REL)
         reps = 20 if B > 1 or m < 100 else 5
-        row = block_row("block_thomas_large", path, args, err, tol, scale,
-                        btl_ops(m, n, B), dt_name, PEAK_MATRIX_OPS_S)
-        row.update(on_chip=m <= edge[dt_name], ms=time_cuda(torch, kern, reps),
+        row = block_row("block_thomas_large", path, args,
+                        held[plan["form"]]["max_abs_err"],
+                        held[plan["form"]]["tol"], scale, btl_ops(m, n, B),
+                        dt_name, PEAK_MATRIX_OPS_S)
+        row.update(form=plan["form"], ctas=plan["ctas"], forms_held=held,
+                   on_chip=(m <= hk.btl_block_max_on_chip()
+                            if plan["form"] == "block"
+                            else hk.btl_cluster_plan(m)["on_chip"]),
+                   ms=time_cuda(torch, kern, reps),
                    plain_ms=time_cuda(torch, partial(plain, *args), 3))
         rows.append(row)
         targets = [row]
@@ -3645,27 +3694,30 @@ def btl_kernel_checks(torch, hk):
         library_block_solve(torch, args, p64 if p32 is None else p32,
                             *targets)
         del f32, f64, p64, p32
-    # a NaN in one system's D reaches that system's x and no other's
-    _, (L, D, U, b) = bts_systems(torch, 64, 20, 12, 13, False,
-                                  spread=0.5 / 12 ** 0.5)
-    D[5, 9, 2, 1] = float("nan")
-    got, ref = hk.block_thomas_large(L, D, U, b), plain(L, D, U, b)
-    keep = torch.arange(64, device="cuda") != 5
-    check(not bool(torch.isfinite(got[5]).all()),
-          "(z): the NaN of system 5 did not reach its x (large)")
-    err, _, _ = bts_hold(torch, "(z) NaN's neighbours (large)", got[keep],
-                         ref[keep], rel=BTL_F64_REL)
-    nan_row = dict(nan_system_nonfinite=int((~torch.isfinite(got[5]))
-                                            .sum()),
-                   plain_nonfinite=int((~torch.isfinite(ref[5])).sum()),
-                   others_max_abs_err=err)
+    # a NaN in one system's D reaches that system's x and no other's, in
+    # each form
+    nan_rows = {}
+    for form, (B, n, m) in (("block", (64, 20, 12)), ("cluster", (5, 6, 70))):
+        _, (L, D, U, b) = bts_systems(torch, B, n, m, 13, False,
+                                      spread=0.5 / m ** 0.5)
+        D[3, n // 2, m // 2, 1] = float("nan")
+        got, ref = forced(form, (L, D, U, b)), plain(L, D, U, b)
+        keep = torch.arange(B, device="cuda") != 3
+        check(not bool(torch.isfinite(got[3]).all()),
+              f"(z): the NaN of system 3 did not reach its x ({form})")
+        err, _, _ = bts_hold(torch, f"(z) NaN's neighbours ({form})",
+                             got[keep], ref[keep], rel=BTL_F64_REL)
+        nan_rows[form] = dict(
+            shape=[B, n, m],
+            nan_system_nonfinite=int((~torch.isfinite(got[3])).sum()),
+            plain_nonfinite=int((~torch.isfinite(ref[3])).sum()),
+            others_max_abs_err=err)
     t1 = time.perf_counter()
     worst, cases = {}, 0
+    edge = btl_on_chip_edges(hk)
     ms_all = sorted(set(BTL_EDGE_M) | {e + d for e in edge.values()
                                        for d in (0, 1)})
     for m in ms_all:
-        dts = [dt for dt, e in edge.items()
-               if m in BTL_EDGE_M or m in (e, e + 1)]
         for n in BTL_EDGE_N:
             # from BTL_DEEP_CUT up, the deepest n on one dominant f64 system,
             # past BTL_DEEPEST_M not at all
@@ -3673,35 +3725,37 @@ def btl_kernel_checks(torch, hk):
             if deep and m > BTL_DEEPEST_M:
                 continue
             Bs = (1,) if deep else BTL_EDGE_B
-            dts_n = [dt for dt in dts if dt == "float64" or not deep]
+            dts = ("float64",) if deep else ("float64", "float32")
             for swap in ((False,) if deep else (False, True)):
                 f32, f64 = bts_systems(torch, max(Bs), n, m, 1000 * m + n,
                                        swap, spread=0.5 / m ** 0.5)
                 p64 = plain(*f64)
-                p32 = plain(*f32) if "float32" in dts_n else None
+                p32 = plain(*f32) if "float32" in dts else None
                 for B in Bs:
-                    for dt_name in dts_n:
+                    for dt_name in dts:
                         args = f64 if dt_name == "float64" else f32
-                        got = hk.block_thomas_large(*(a[:B] for a in args))
-                        label = (f"block_thomas_large {[B, n, m]} {dt_name}"
-                                 f"{' swap' if swap else ''}")
-                        err, tol, _ = bts_hold(
-                            torch, label, got, p64[:B],
-                            None if dt_name == "float64" else p32[:B],
-                            rel=BTL_F64_REL)
-                        cases += 1
-                        key = f"m{m} {dt_name}"
-                        share = err / tol if tol else 0.0
-                        if share >= worst.get(key, dict(share=-1))["share"]:
-                            worst[key] = dict(share=share, err=err, tol=tol,
-                                              shape=[B, n, m], swap=swap,
-                                              on_chip=m <= edge[dt_name])
-                        del got
+                        for form in hk.BTL_FORMS:
+                            got = forced(form, [a[:B] for a in args])
+                            label = (f"block_thomas_large {form} {[B, n, m]} "
+                                     f"{dt_name}{' swap' if swap else ''}")
+                            err, tol, _ = bts_hold(
+                                torch, label, got, p64[:B],
+                                None if dt_name == "float64" else p32[:B],
+                                rel=BTL_F64_REL)
+                            cases += 1
+                            key = f"{form} m{m} {dt_name}"
+                            share = err / tol if tol else 0.0
+                            if share >= worst.get(key, dict(share=-1))[
+                                    "share"]:
+                                worst[key] = dict(share=share, err=err,
+                                                  tol=tol, shape=[B, n, m],
+                                                  swap=swap)
+                            del got
                 del f32, f64, p64, p32
     print("block_thomas_large_edges " + json.dumps(dict(
         m=ms_all, n=BTL_EDGE_N, B=BTL_EDGE_B, deep_cut=BTL_DEEP_CUT,
         max_on_chip=edge, cases=cases, worst_err_over_tol=worst,
-        nan=nan_row, paths_s=t1 - t0, edges_s=time.perf_counter() - t1)))
+        nan=nan_rows, paths_s=t1 - t0, edges_s=time.perf_counter() - t1)))
     return rows, result
 
 

@@ -35,7 +35,8 @@ _D = ctypes.c_double
 #: and ``*_max_in_registers`` queries the deepest column a kernel keeps on
 #: chip, or in registers, for 4- or 8-byte values; ``mpp_ilu0_limit`` the
 #: ILU(0) forms' limits; ``mpp_block_thomas_small_scratch`` a launch's
-#: scratch values, a ``c_longlong``: RESTYPES)
+#: scratch values and ``mpp_block_thomas_large_cluster_*`` the cluster
+#: form's shared bytes and scratch values, each a ``c_longlong``: RESTYPES)
 SIGNATURES = {
     "mpp_thomas_max_on_chip": (_I,),
     "mpp_thomas_f32": (_P,) * 6 + (_I, _I, _P),
@@ -50,8 +51,10 @@ SIGNATURES = {
     "mpp_block_thomas_small_f32": (_P,) * 6 + (_I,) * 4 + (_P,),
     "mpp_block_thomas_small_f64": (_P,) * 6 + (_I,) * 4 + (_P,),
     "mpp_block_thomas_large_max_on_chip": (_I,),
-    "mpp_block_thomas_large_f32": (_P,) * 7 + (_I, _I, _I, _P),
-    "mpp_block_thomas_large_f64": (_P,) * 7 + (_I, _I, _I, _P),
+    "mpp_block_thomas_large_cluster_smem": (_I, _I, _I),
+    "mpp_block_thomas_large_cluster_scratch": (_I, _I),
+    "mpp_block_thomas_large_f32": (_P,) * 7 + (_I,) * 5 + (_P,),
+    "mpp_block_thomas_large_f64": (_P,) * 7 + (_I,) * 5 + (_P,),
     "mpp_tridiag_spmv_chain_max_in_registers": (_I,),
     "mpp_tridiag_spmv_chain_max_on_chip": (_I,),
     "mpp_tridiag_jacobi_smooth_max_in_registers": (_I,),
@@ -71,7 +74,9 @@ SIGNATURES = {
 }
 
 #: launchers and queries whose result is not a ``c_int``
-RESTYPES = {"mpp_block_thomas_small_scratch": ctypes.c_longlong}
+RESTYPES = {"mpp_block_thomas_small_scratch": ctypes.c_longlong,
+            "mpp_block_thomas_large_cluster_smem": ctypes.c_longlong,
+            "mpp_block_thomas_large_cluster_scratch": ctypes.c_longlong}
 
 _LIB = None
 #: seconds the last build took (0.0 when the library was already built)

@@ -21,9 +21,13 @@ from mpp_tpu_torch.ops import hopper_kernels as hk
 def block_solve(L, D, U, b):
     """Batched block-Thomas solve routed by block size: m <= 8 is the
     ``block_thomas_small`` kernel, larger blocks the ``block_thomas_large``
-    kernel (where the JAX package's small_solve calls ``linalg.solve``);
-    both run their plain form, ``ops/block_thomas.block_thomas``, on CPU
-    tensors.  The route is chosen by shape, never on a failure."""
+    kernel (where the JAX package's small_solve calls ``linalg.solve``),
+    which takes one of two forms by shape (``hopper_kernels.btl_form``): a
+    thread block a system for many systems or narrow blocks, a
+    thread-block cluster a system for a few wide ones (vchannel's b =
+    200).  Both kernels run their plain form, ``ops/block_thomas.
+    block_thomas``, on CPU tensors.  Every route is chosen by shape, never
+    on a failure."""
     L, D, U, b = (a.contiguous() for a in (L, D, U, b))
     if b.shape[-1] <= hk.BLOCK_SMALL_MAX:
         return hk.block_thomas_small(L, D, U, b)

@@ -24,8 +24,11 @@ reach them through ``ops/block_structure.block_solve``, by block size:
   blocks, 1 <= m <= 8, small_solve's pivoting inside each block, in one
   of two forms (``BTS_FORMS``) that :func:`bts_form` picks by m and dtype.
 * :func:`block_thomas_large` — the same with m >= 9, each level's block
-  solve an LU with partial pivoting (small_solve's ``linalg.solve``
-  branch).
+  solve an elimination with partial pivoting (small_solve's
+  ``linalg.solve`` branch), in one of two forms (``BTL_FORMS``) that
+  :func:`btl_form` picks by shape: a thread block a system, or a
+  thread-block cluster a system with the working matrix split over its
+  CTAs' shared memory (:func:`btl_cluster_plan`).
 
 The SpMV family (``csrc/spmv_family_kernels.cu``) serves the public ops
 and the SpMV measurement harness (``tools/exp_spmv.py``):
@@ -359,43 +362,183 @@ def block_thomas_small(L, D, U, b):
     return x
 
 
+#: the forms of :func:`block_thomas_large` (csrc/block_thomas_large_kernels
+#: .cu): "block", a thread block a system (many systems, narrow blocks);
+#: "cluster", a thread-block cluster a system, the level's working matrix
+#: split by column tiles over its CTAs' shared memory (few wide systems)
+BTL_FORMS = ("block", "cluster")
+#: the cluster form's panel width, panel slots a CTA and warps a CTA (the
+#: kernel's kPanel, kSlots, kClusterWarps), and CTAs a system:
+#: BTL_CLUSTER_CTAS (the portable limit) where the blocks have that many
+#: panels, fewer where they have fewer, more (to BTL_CLUSTER_MAX_CTAS, the
+#: non-portable limit) where the working matrix needs them to stay on chip
+#: (7 read 3 % faster than 8 at m = 200, 13 slower; the tests cover 8)
+BTL_PANEL = 16
+BTL_SLOTS = 3
+BTL_CLUSTER_WARPS = 8
+BTL_CLUSTER_CTAS = 8
+BTL_CLUSTER_MAX_CTAS = 16
+#: the most dynamic shared memory a CTA takes on Hopper (the kernels'
+#: mpp::kOnChipBytes)
+ON_CHIP_BYTES = 227 * 1024
+#: the rule: the cluster form for blocks of at least BTL_CLUSTER_MIN_M at
+#: most BTL_CLUSTER_MAX_SYSTEMS systems, or at most
+#: BTL_CLUSTER_MAX_SYSTEMS_WIDE where the block form's working matrix is off
+#: chip (m > btl_block_max_on_chip()); the block form otherwise.  From the
+#: forms' device times on one H100 (``tools/resident_variants.py
+#: --btl-forms``, PERF.md section 6): one system, the block form wins to m
+#: = 40 ([1, 2, 40], [1, 20, 20] too), the cluster form from m = 48 (at m =
+#: 16, which no path solves, the cluster form reads faster); at m = 64 the
+#: block form wins from 33 systems (a cluster of 4 CTAs a system, 132
+#: CTAs), at m = 200 the cluster form up to the 132 systems measured.
+#: Tests and tools force a form by patching these.
+BTL_CLUSTER_MIN_M = 48
+BTL_CLUSTER_MAX_SYSTEMS = 8
+BTL_CLUSTER_MAX_SYSTEMS_WIDE = 132
+
+
+def _up8(v):
+    return (v + 7) // 8 * 8
+
+
+def btl_block_smem(m, on_chip):
+    """The block form's dynamic shared bytes at m x m blocks (the kernel's
+    block_smem): W (m x (2m + 1) f64) when on chip, three f64 vectors and
+    two int vectors of m."""
+    return ((m * (2 * m + 1) if on_chip else 0) + 3 * m) * 8 + 2 * m * 4
+
+
+def btl_block_max_on_chip():
+    """The largest m whose working matrix the block form keeps in shared
+    memory (the kernel's max_on_chip; 119)."""
+    m = 1
+    while btl_block_smem(m + 1, True) <= ON_CHIP_BYTES:
+        m += 1
+    return m
+
+
+def btl_cluster_layout(m, ctas):
+    """The cluster form's layout at m x m blocks and ``ctas`` CTAs a system
+    (the kernel's ClusterLayout): ``panels`` of BTL_PANEL columns, at most
+    ``panels_a_cta`` a CTA, the W tile's row stride ``ld`` (the CTA's
+    denominator columns, then its X columns, each padded to 8, plus one),
+    ``big`` (the tile and BTL_SLOTS panel slots, f64 values), and the
+    dynamic shared bytes with ``big`` on chip (``smem_on_chip``) or in the
+    global scratch (``smem_off_chip``)."""
+    m8 = _up8(m)
+    panels = -(-m // BTL_PANEL)
+    npc = -(-panels // ctas)
+    a8 = npc * BTL_PANEL
+    ld = a8 + _up8(npc * BTL_PANEL + 1) + 1
+    rows = -(-m // ctas)
+    slot = m8 * (BTL_PANEL + 1) + 2 * BTL_PANEL
+    big = m8 * ld + BTL_SLOTS * slot
+    dbl = BTL_PANEL * ld + 3 * m8 + 2 * rows + 4 * BTL_CLUSTER_WARPS + \
+        BTL_PANEL
+    ints = 2 * m8
+    return dict(ctas=ctas, panels=panels, panels_a_cta=npc, ld=ld, big=big,
+                smem_on_chip=(big + dbl) * 8 + ints * 4,
+                smem_off_chip=dbl * 8 + ints * 4)
+
+
+def btl_cluster_plan(m):
+    """The cluster form's launch at m x m blocks: the fewest CTAs from
+    min(BTL_CLUSTER_CTAS, panels) up to min(BTL_CLUSTER_MAX_CTAS, panels)
+    whose shares of the working matrix fit shared memory (``on_chip``
+    True, no scratch), else the most CTAs with the tiles in a global
+    scratch of ``scratch`` f64 values a CTA; None where not even that
+    fits.  Adds ``on_chip``, ``smem`` and ``scratch`` to the layout."""
+    panels = -(-m // BTL_PANEL)
+    lo = min(BTL_CLUSTER_CTAS, panels)
+    hi = max(lo, min(BTL_CLUSTER_MAX_CTAS, panels))
+    for ctas in range(lo, hi + 1):
+        lay = btl_cluster_layout(m, ctas)
+        if lay["smem_on_chip"] <= ON_CHIP_BYTES:
+            return dict(lay, on_chip=True, smem=lay["smem_on_chip"],
+                        scratch=0)
+    lay = btl_cluster_layout(m, hi)
+    if lay["smem_off_chip"] > ON_CHIP_BYTES:
+        return None
+    return dict(lay, on_chip=False, smem=lay["smem_off_chip"],
+                scratch=lay["big"])
+
+
+def btl_form(nsys, m, dtype):
+    """The form of :func:`block_thomas_large` the rule picks for ``nsys``
+    systems of m x m blocks in ``dtype`` (both forms work in f64, so the
+    thresholds serve both dtypes): "cluster" for m >= BTL_CLUSTER_MIN_M at
+    most BTL_CLUSTER_MAX_SYSTEMS systems, or BTL_CLUSTER_MAX_SYSTEMS_WIDE
+    where the block form's working matrix is off chip (and where the
+    cluster plan exists), "block" otherwise.  By shape alone; monotone:
+    fewer systems or wider blocks never leave the cluster form."""
+    most = BTL_CLUSTER_MAX_SYSTEMS_WIDE if m > btl_block_max_on_chip() \
+        else BTL_CLUSTER_MAX_SYSTEMS
+    if m >= BTL_CLUSTER_MIN_M and nsys <= max(most, BTL_CLUSTER_MAX_SYSTEMS) \
+            and btl_cluster_plan(m) is not None:
+        return "cluster"
+    return "block"
+
+
+def btl_launch(nsys, n, m, dtype):
+    """The launch of :func:`block_thomas_large` at ``nsys`` systems of n
+    levels of m x m blocks in ``dtype``: the rule's ``form`` and its code,
+    ``ctas`` a system (0 for the block form), and the f64 scratch values:
+    ``cp`` (the levels' [Cp_k | dp_k], k < n - 1) and ``ws`` (the working
+    matrices where the form keeps them off chip).  ValueError for a form
+    not in BTL_FORMS."""
+    form = btl_form(nsys, m, dtype)
+    if form not in BTL_FORMS:
+        raise ValueError(f"block_thomas_large: form {form!r} not in "
+                         f"{BTL_FORMS}")
+    cp = nsys * n * m * (m + 1) if n > 1 else 0
+    if form == "cluster":
+        plan = btl_cluster_plan(m)
+        ctas, ws = plan["ctas"], nsys * plan["ctas"] * plan["scratch"]
+    else:
+        ctas = 0
+        ws = nsys * m * (2 * m + 1) if m > btl_block_max_on_chip() else 0
+    return dict(form=form, code=BTL_FORMS.index(form), ctas=ctas, cp=cp,
+                ws=ws)
+
+
 def block_thomas_large(L, D, U, b):
     """Solve T x = b for batched block-tridiagonal T with m x m blocks,
     m >= 9: blocks ``[..., n, m, m]`` (``L[..., 0]`` and ``U[..., n-1]``
     unused), b and x ``[..., n, m]``, f32 or f64, any n; the leading dims
-    are the batch.  Each level's block solve is LU with partial pivoting
-    (the largest |entry|, ties to the lower row, a NaN the largest), none
-    across levels: block diagonally dominant systems.  On the card one
-    launch, a thread block a system, f64 arithmetic for either dtype, the
-    level's working matrix in shared memory to
-    ``max_on_chip("block_thomas_large", dtype)`` and in a global scratch
-    past it; within rounding of
-    :func:`ops.block_thomas.block_thomas` (``torch.linalg.solve`` a level,
-    not bit for bit)."""
+    are the batch.  Each level's block solve eliminates with partial
+    pivoting (the largest |entry| among the rows not yet pivoted, ties to
+    the lower row, a NaN the largest: LU's pivots), none across levels:
+    block diagonally dominant systems.  On the card one launch in the form
+    :func:`btl_form` picks by shape (:func:`btl_launch`): "block", a thread
+    block a system, the level's working matrix in shared memory to
+    :func:`btl_block_max_on_chip` and in a global scratch past it; or
+    "cluster", a thread-block cluster a system (:func:`btl_cluster_plan`),
+    the working matrix split over its CTAs' shared memory, its panel
+    updates on the f64 tensor cores.  f64 arithmetic for either dtype;
+    within rounding of :func:`ops.block_thomas.block_thomas`
+    (``torch.linalg.solve`` a level, not bit for bit).  A refused launch
+    raises; no form gives way to the other."""
     name = "block_thomas_large"
     _check_block_systems(name, L, D, U, b, BLOCK_LARGE_MIN, None)
+    n, m = b.shape[-2], b.shape[-1]
+    nsys = b.numel() // max(n * m, 1)
+    plan = btl_launch(nsys, n, m, b.dtype)
     if b.device.type == "cpu":
         return block_thomas(L, D, U, b)
-    n, m = b.shape[-2], b.shape[-1]
     x = torch.empty_like(b)
-    nsys = b.numel() // max(n * m, 1)
     if nsys == 0 or n == 0:
         return x
     lib = _build.library()
-    # f64 scratches, the kernel's arithmetic in either dtype: the levels'
-    # [Cp_k | dp_k], k < n - 1, and the working matrices where they do not
-    # fit shared memory
     f64 = dict(dtype=torch.float64, device=b.device)
-    cp = torch.empty(nsys * n * m * (m + 1), **f64) if n > 1 else None
-    ws = torch.empty(nsys * m * (2 * m + 1), **f64) \
-        if m > max_on_chip(name, b.dtype) else None
+    cp = torch.empty(plan["cp"], **f64) if plan["cp"] else None
+    ws = torch.empty(plan["ws"], **f64) if plan["ws"] else None
     fn = lib.mpp_block_thomas_large_f64 if b.dtype == torch.float64 else \
         lib.mpp_block_thomas_large_f32
     with torch.cuda.device(b.device):
         rc = fn(L.data_ptr(), D.data_ptr(), U.data_ptr(), b.data_ptr(),
                 None if cp is None else cp.data_ptr(),
                 None if ws is None else ws.data_ptr(), x.data_ptr(), nsys,
-                n, m, _stream(b))
+                n, m, plan["code"], plan["ctas"], _stream(b))
     _launched(name, rc)
     return x
 

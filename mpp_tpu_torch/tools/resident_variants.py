@@ -1,10 +1,11 @@
 """The SpMV chain and the Jacobi smoother against variant builds of
 themselves on one NVIDIA GPU, and their sweep loops counted in SASS; with
 ``--ilu``, the ILU(0) factor and apply of other checkouts against this
-one's; with ``--bts``, their block_thomas_small against this one's; with
-``--paths``, two main paths through their entry points against this
-one's; with ``--bts-forms``, this checkout's block_thomas_small in each
-of its forms.
+one's; with ``--bts`` / ``--btl``, their block_thomas_small /
+block_thomas_large against this one's; with ``--paths``, three main paths
+through their entry points against this one's; with ``--bts-forms`` /
+``--btl-forms``, this checkout's block_thomas_small / block_thomas_large
+in each of its forms.
 
 A variant is this checkout's ``csrc/spmv_family_kernels.cu`` with the text
 edits of ``VARIANTS[name]``, in a copy of the package under
@@ -45,13 +46,33 @@ the rule's threshold (``hk.BTS_THREAD_MAX``), each held to its plain form
 first as ``--bts`` holds it, in one process: the readings the rule's
 thresholds come from.
 
-``--paths`` times two main paths through their entry points, in the
+``--btl`` times ``hopper_kernels.block_thomas_large`` instead, at
+``chip_smoke.BTL_PATHS`` ((r)'s [1, 30, 200] f64, (t)'s [1, 2, 40], the 2-D
+MMS's [1, 20, 20], the 4-tree MLC's [4096, 93, 10] f32 and f64): every tree
+draws the same systems (``chip_smoke.bts_systems``, off-diagonal spread
+0.5 / sqrt(m)), holds its kernel to its own plain form (f64 within 1e-11
+of max |x|; f32 no farther from the plain f64 solve than twice the plain
+f32 solve) and is timed as above, in the form its own rule picks.  A
+BTL_VARIANTS name adds a build of this checkout's block_thomas_large with
+one part of its work taken out, timed but not held: where the time goes.
+
+``--btl-forms`` times this checkout's block_thomas_large in each form of
+``hk.BTL_FORMS`` at BTL_FORM_CASES (one system at m = 16-256 and at the
+block plans' shapes, 2-132 systems at m = 20, 64 and 200, the MLC's
+[4096, 93, 10]), f64, the form forced
+by patching the rule's thresholds, each held to its plain form first as
+``--btl`` holds it, in one process: the readings the rule's thresholds
+come from.
+
+``--paths`` times three main paths through their entry points, in the
 trees' turns as above (wall-clock ms, each ending in a synchronise):
 vsfm_vchannel's "direct" plan at ``chip_smoke.py`` (r)'s size (a warm
 problem of one step first, then a new one's VCH_STEPS steps; ms and host
-syncs a step, Newton iterations), and the canopy pipeline's staged f32
-substeps at (u1)'s width (``chip_smoke.run_canopy_timed``: one warm
-substep, PATH_CANOPY_SUBSTEPS timed, its gates held).
+syncs a step, Newton iterations), spac_campbell's multi-GE "direct" plan
+as (t) runs it (a warm problem of one step, then CAMP_STEPS steps), and
+the canopy pipeline's staged f32 substeps at (u1)'s width
+(``chip_smoke.run_canopy_timed``: one warm substep, PATH_CANOPY_SUBSTEPS
+timed, its gates held).
 
     python -m mpp_tpu_torch.tools.resident_variants [--tree NAME=ROOT ...]
         [TREE ...]                       # default: this and every variant
@@ -59,6 +80,9 @@ substep, PATH_CANOPY_SUBSTEPS timed, its gates held).
     python -m mpp_tpu_torch.tools.resident_variants --bts --tree NAME=ROOT
         [this loads_only]
     python -m mpp_tpu_torch.tools.resident_variants --bts-forms
+    python -m mpp_tpu_torch.tools.resident_variants --btl --tree NAME=ROOT
+        [this no_search ...]
+    python -m mpp_tpu_torch.tools.resident_variants --btl-forms
     python -m mpp_tpu_torch.tools.resident_variants --paths --tree NAME=ROOT
     python -m mpp_tpu_torch.tools.resident_variants --sass [--root ROOT]
         [--dump FILE]
@@ -85,6 +109,7 @@ _PKG = os.path.dirname(os.path.dirname(_HERE))
 THIS = os.path.dirname(_PKG)
 SOURCE = os.path.join("csrc", "spmv_family_kernels.cu")
 BTS_SOURCE = os.path.join("csrc", "block_thomas_small_kernels.cu")
+BTL_SOURCE = os.path.join("csrc", "block_thomas_large_kernels.cu")
 
 #: name: [(text, replacement), ...] applied to SOURCE (every occurrence;
 #: each text must occur)
@@ -111,6 +136,40 @@ BTS_VARIANTS = {
          "      dpv[i] = dpv[i] * T(0.5) + lr[i] + dr[i] + ur[i] + br[i];"),
     ],
 }
+#: --btl: name: edits of BTL_SOURCE, each taking one part of
+#: block_thomas_large's work out (its results are not the solve and are not
+#: held): "no_search", the pivot of step j is row j (no search of the
+#: pivot keys; the diagonally dominant systems need no pivoting, so the
+#: rest runs as it does); "no_update", the block form's column steps
+#: eliminate nothing and the cluster form's panels update no trailing
+#: column; "no_products", no level's L_k [Cp_{k-1} | dp_{k-1}] (denom_k =
+#: D_k).
+BTL_VARIANTS = {
+    "no_search": [
+        ("const int p = find_pivot(W, ld, j, pstep, m, j);",
+         "const int p = j;"),
+        ("        const int p =\n"
+         "            pivot_of(lane < kClusterWarps ? slot_k[lane] : 0ull,\n"
+         "                     lane < kClusterWarps\n"
+         "                         ? static_cast<int>(slot_k[kClusterWarps + "
+         "lane])\n                         : INT_MAX);",
+         "        const int p = j;"),
+    ],
+    "no_update": [
+        ("      for (int i0 = ty; i0 < m; i0 += 4 * TY) {",
+         "      for (int i0 = m; i0 < m; i0 += 4 * TY) {"),
+        ("      for (int rb = warp; rb < m8 / 8; rb += kClusterWarps) {\n"
+         "        const int row = rb * 8 + g8;\n        C a[kPanel / 4];",
+         "      for (int rb = m8; rb < m8 / 8; rb += kClusterWarps) {\n"
+         "        const int row = rb * 8 + g8;\n        C a[kPanel / 4];"),
+    ],
+    "no_products": [
+        ("            acc = fma(static_cast<C>(Li[q]), "
+         "W[piv[q] * ld + m + c], acc);", "            acc += C(0);"),
+        ("          for (int q0 = 0; q0 < m; q0 += 16) {",
+         "          for (int q0 = m; q0 < m; q0 += 16) {"),
+    ],
+}
 CASES = (("float64", 16384, 30), ("float32", 16384, 30),
          ("float64", 16384, 64), ("float32", 16384, 64),
          ("float32", 131072, 256))
@@ -126,6 +185,15 @@ BTS_CASES = ((4096, 93, 3, "float64"), (4096, 93, 4, "float32"),
              (4096, 93, 4, "float64"))
 #: --bts-forms: (systems, levels)
 BTS_FORM_SHAPE = (4096, 93)
+#: --btl-forms: (systems, levels, m), f64
+BTL_FORM_CASES = tuple((1, 10, m) for m in (16, 20, 24, 32, 40, 48, 64, 96,
+                                            128, 200, 256)) + \
+    ((1, 2, 40), (1, 20, 20), (1, 30, 200)) + \
+    tuple((B, 10, m) for m in (20, 64, 200) for B in (2, 8, 33, 132)) + \
+    ((4096, 93, 10),)
+#: --btl-forms: the preferred CTAs a cluster tried besides the plan's own
+#: (``hk.BTL_CLUSTER_CTAS``) at the single systems of m >= 128
+BTL_FORM_CTAS = (4, 16)
 #: --paths: the canopy substeps timed
 PATH_CANOPY_SUBSTEPS = 4
 # opcodes counted on the hot path
@@ -299,20 +367,24 @@ def time_ilu(data_path):
     return out
 
 
-def _bts_hold(torch, label, got, f32, f64):
+def _block_hold(torch, name, rel, label, got, f32, f64):
     """Raise unless ``got`` (the solve of f64's or f32's values) is finite
-    and holds to the plain form: f64 within 1e-12 of max |x|; f32 no
+    and holds to the plain form: f64 within ``rel`` of max |x|; f32 no
     farther from the plain f64 solve than twice the plain f32 solve."""
     from mpp_tpu_torch.ops.block_thomas import block_thomas as plain
     p64 = plain(*f64)
     far = float((got.double() - p64).abs().max())
     if got.dtype == torch.float64:
-        ok = far <= 1e-12 * float(p64.abs().max())
+        ok = far <= rel * float(p64.abs().max())
     else:
         ok = far <= 2 * float((plain(*f32).double() - p64).abs().max())
     if not (ok and bool(torch.isfinite(got).all())):
-        raise RuntimeError(f"block_thomas_small {label}: {far:.3e} off the "
-                           "plain form")
+        raise RuntimeError(f"{name} {label}: {far:.3e} off the plain form")
+
+
+def _bts_hold(torch, label, got, f32, f64):
+    """:func:`_block_hold` for block_thomas_small (f64 within 1e-12)."""
+    _block_hold(torch, "block_thomas_small", 1e-12, label, got, f32, f64)
 
 
 def time_bts(held=True):
@@ -375,11 +447,112 @@ def time_bts_forms():
     return out
 
 
+def _btl_hold(torch, label, got, f32, f64):
+    """:func:`_block_hold` for block_thomas_large (f64 within 1e-11)."""
+    _block_hold(torch, "block_thomas_large", 1e-11, label, got, f32, f64)
+
+
+def _btl_systems(torch, B, n, m, seed):
+    """(f32, f64) systems as chip_smoke (z) draws them for the large
+    kernel."""
+    return _chip_smoke().bts_systems(torch, B, n, m, seed, False,
+                                     spread=0.5 / m ** 0.5)
+
+
+def time_btl(held=True):
+    """{case: device ms} of block_thomas_large at chip_smoke's BTL_PATHS,
+    in the tree whose package is first on sys.path, in the form its rule
+    picks; with ``held`` fails unless each holds to its plain form (a
+    BTL_VARIANTS build is not held)."""
+    from functools import partial
+
+    import torch
+    from mpp_tpu_torch.ops import hopper_kernels as hk
+    if not torch.cuda.is_available():
+        raise RuntimeError("torch.cuda.is_available() is false")
+    out = {}
+    for path, B, n, m, dt_name in _chip_smoke().BTL_PATHS:
+        f32, f64 = _btl_systems(torch, B, n, m, 17 + m)
+        args = f64 if dt_name == "float64" else f32
+        case = f"{path} [{B},{n},{m}] {dt_name}"
+        if held:
+            _btl_hold(torch, case, hk.block_thomas_large(*args), f32, f64)
+        out[f"block_thomas_large {case}"] = _device_ms(
+            torch, partial(hk.block_thomas_large, *args))
+    return out
+
+
+def force_btl_form(hk, form):
+    """Patch the rule's thresholds so that :func:`hk.btl_form` picks
+    ``form`` at every shape the cluster plan covers; returns the
+    thresholds for :func:`restore_btl_rule`."""
+    rule = (hk.BTL_CLUSTER_MIN_M, hk.BTL_CLUSTER_MAX_SYSTEMS,
+            hk.BTL_CLUSTER_MAX_SYSTEMS_WIDE)
+    big = 1 << 30
+    (hk.BTL_CLUSTER_MIN_M, hk.BTL_CLUSTER_MAX_SYSTEMS,
+     hk.BTL_CLUSTER_MAX_SYSTEMS_WIDE) = (0, big, big) if form == "cluster" \
+        else (big, -1, -1)
+    return rule
+
+
+def restore_btl_rule(hk, rule):
+    """Put back the thresholds :func:`force_btl_form` returned."""
+    (hk.BTL_CLUSTER_MIN_M, hk.BTL_CLUSTER_MAX_SYSTEMS,
+     hk.BTL_CLUSTER_MAX_SYSTEMS_WIDE) = rule
+
+
+def time_btl_forms():
+    """{case: device ms} of this checkout's block_thomas_large in each form
+    at BTL_FORM_CASES (f64), the form forced through the rule's thresholds;
+    each held first; the rule's own pick tagged."""
+    from functools import partial
+
+    import torch
+    from mpp_tpu_torch.ops import hopper_kernels as hk
+    if not torch.cuda.is_available():
+        raise RuntimeError("torch.cuda.is_available() is false")
+    out = {}
+    for B, n, m in BTL_FORM_CASES:
+        f32, f64 = _btl_systems(torch, B, n, m, 60 + m + B)
+        picked = hk.btl_form(B, m, torch.float64)
+        for form in hk.BTL_FORMS:
+            rule = force_btl_form(hk, form)
+            try:
+                ctas = hk.btl_launch(B, n, m, torch.float64)["ctas"]
+                case = f"{form} [{B},{n},{m}] float64" + \
+                    (f" ctas {ctas}" if ctas else "")
+                _btl_hold(torch, case, hk.block_thomas_large(*f64), f32, f64)
+                out[case + (" (rule)" if form == picked else "")] = \
+                    _device_ms(torch, partial(hk.block_thomas_large, *f64),
+                               name="btl_")
+            finally:
+                restore_btl_rule(hk, rule)
+        if B == 1 and m >= 128:
+            pref = hk.BTL_CLUSTER_CTAS
+            rule = force_btl_form(hk, "cluster")
+            try:
+                for want in BTL_FORM_CTAS:
+                    hk.BTL_CLUSTER_CTAS = want
+                    ctas = hk.btl_launch(B, n, m, torch.float64)["ctas"]
+                    case = f"cluster [{B},{n},{m}] float64 ctas {ctas} " \
+                        f"(preferred {want})"
+                    _btl_hold(torch, case, hk.block_thomas_large(*f64), f32,
+                              f64)
+                    out[case] = _device_ms(
+                        torch, partial(hk.block_thomas_large, *f64),
+                        name="btl_")
+            finally:
+                hk.BTL_CLUSTER_CTAS = pref
+                restore_btl_rule(hk, rule)
+        del f32, f64
+    return out
+
+
 def time_paths():
-    """{case: value} of (r)'s vchannel "direct" steps and (u1)'s f32 canopy
-    substeps on the card, in the tree whose package is first on sys.path,
-    through its entry points (this checkout's ``chip_smoke`` sizes and
-    helpers)."""
+    """{case: value} of (r)'s vchannel "direct" steps, (t)'s spac_campbell
+    "direct" steps and (u1)'s f32 canopy substeps on the card, in the tree
+    whose package is first on sys.path, through its entry points (this
+    checkout's ``chip_smoke`` sizes and helpers)."""
     import torch
     from mpp_tpu_torch.batched import canopy_pipeline as cp
     from mpp_tpu_torch.ops import _build
@@ -408,6 +581,26 @@ def time_paths():
     out["vchannel_direct host_syncs_per_step"] = \
         (comp.host_syncs - syncs0) / steps
     out["vchannel_direct newton_iters"] = \
+        mpp.soe.cumulative_newton_iterations
+    from mpp_tpu_torch.problems import vsfm_spac_campbell as camp
+    for steps in (1, cs.CAMP_STEPS):       # a warm problem, then the timed
+        mpp = camp.run_vsfm_spac_campbell_problem(
+            multi_goveqns=True, nstep=0, use_compiled=True,
+            linear_solver="direct", device="cuda")
+        comp = mpp.soe.step_dt.__self__
+        torch.cuda.synchronize()
+        syncs0, t0 = comp.host_syncs, time.perf_counter()
+        for istep in range(1, steps + 1):
+            ok, reason = mpp.soe.step_dt(cs.CAMP_DT, istep)
+            if not ok:
+                raise RuntimeError(f"spac_campbell direct: step {istep} "
+                                   f"reason {reason}")
+        torch.cuda.synchronize()
+    out["spac_campbell_direct ms_per_step"] = \
+        (time.perf_counter() - t0) * 1e3 / steps
+    out["spac_campbell_direct host_syncs_per_step"] = \
+        (comp.host_syncs - syncs0) / steps
+    out["spac_campbell_direct newton_iters"] = \
         mpp.soe.cumulative_newton_iterations
     _, _, row = cs.run_canopy_timed(torch, hk, cp, torch.float32,
                                     PATH_CANOPY_SUBSTEPS, "u1_f32")
@@ -552,11 +745,14 @@ def main(argv=None):
     ap.add_argument("--ilu", action="store_true")
     ap.add_argument("--bts", action="store_true")
     ap.add_argument("--bts-forms", action="store_true")
+    ap.add_argument("--btl", action="store_true")
+    ap.add_argument("--btl-forms", action="store_true")
     ap.add_argument("--paths", action="store_true")
     ap.add_argument("--root", default=THIS)
     ap.add_argument("--dump")
     ap.add_argument("--child", choices=("time", "sass", "ilu", "bts",
-                                        "bts_variant", "bts_forms",
+                                        "bts_variant", "bts_forms", "btl",
+                                        "btl_variant", "btl_forms",
                                         "paths"))
     args = ap.parse_args(argv)
     if args.child:
@@ -564,7 +760,9 @@ def main(argv=None):
         res = {"time": time_tree, "ilu": lambda: time_ilu(args.dump),
                "bts": time_bts,
                "bts_variant": lambda: time_bts(held=False),
-               "bts_forms": time_bts_forms, "paths": time_paths,
+               "bts_forms": time_bts_forms, "btl": time_btl,
+               "btl_variant": lambda: time_btl(held=False),
+               "btl_forms": time_btl_forms, "paths": time_paths,
                "sass": lambda: sass_sweeps(args.dump)}[args.child]()
         print(json.dumps(res))
         return
@@ -581,16 +779,22 @@ def main(argv=None):
         print(json.dumps(dict(card=card(), bts_forms_device_ms=_child(
             "bts_forms", THIS, None))))
         return
+    if args.btl_forms:
+        print(json.dumps(dict(card=card(), btl_forms_device_ms=_child(
+            "btl_forms", THIS, None))))
+        return
     roots, mode, data = {}, "time", None
     for spec in args.tree:
         name, root = spec.split("=", 1)
         roots[name] = os.path.abspath(root)
     roots["this"] = THIS
-    for name in args.trees or ([] if args.ilu or args.bts or args.paths
-                               else list(VARIANTS)):
+    for name in args.trees or ([] if args.ilu or args.bts or args.btl
+                               or args.paths else list(VARIANTS)):
         if name != "this":
             roots[name] = make_variant(name, BTS_SOURCE, BTS_VARIANTS) \
-                if args.bts else make_variant(name)
+                if args.bts else make_variant(name, BTL_SOURCE,
+                                              BTL_VARIANTS) \
+                if args.btl else make_variant(name)
     if args.ilu:
         mode = "ilu"
         data = os.path.join(_PKG, "_build", "ilu_sparsities.npz")
@@ -598,15 +802,18 @@ def main(argv=None):
         ilu_sparsities(data)
     elif args.bts:
         mode = "bts"
+    elif args.btl:
+        mode = "btl"
     elif args.paths:
         mode = "paths"
     order = list(roots)
     times = {name: [] for name in order}
     for k in range(ROUNDS):
         for name in (order + order[::-1]):
-            times[name].append(_child(
-                "bts_variant" if args.bts and name in BTS_VARIANTS else mode,
-                roots[name], data))
+            variant = (args.bts and name in BTS_VARIANTS) or \
+                (args.btl and name in BTL_VARIANTS)
+            times[name].append(_child(mode + "_variant" if variant else mode,
+                                      roots[name], data))
             print(f"{name} round {k}: {times[name][-1]}", flush=True)
     cases = list(times[order[0]][0])
     summary = {case: {name: sum(t[case] for t in times[name])

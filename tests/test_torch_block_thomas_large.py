@@ -175,6 +175,201 @@ def test_block_solve_never_runs_the_plain_loop_itself(monkeypatch):
     assert seen == ["small", "large"]
 
 
+# ---- the route by shape and the cluster form's plan (host side) ------------
+
+#: the block plans' and the MLC's shapes (chip_smoke.BTL_PATHS) and the form
+#: the rule gives each
+PATH_FORMS = (((1, 30, 200), torch.float64, "cluster"),
+              ((1, 2, 40), torch.float64, "block"),
+              ((1, 20, 20), torch.float64, "block"),
+              ((4096, 93, 10), torch.float32, "block"),
+              ((4096, 93, 10), torch.float64, "block"))
+
+
+@pytest.mark.parametrize("shape,dtype,form", PATH_FORMS,
+                         ids=[f"{s}-{str(d)[6:]}" for s, d, _ in PATH_FORMS])
+def test_rule_picks_the_form_at_every_path_shape(shape, dtype, form):
+    """As the forms' device times at these shapes have it (``resident_
+    variants.py --btl-forms``): the cluster form at vchannel's one system
+    of b = 200, the block form at spac_campbell's one system of b = 40,
+    the 2-D MMS's of b = 20 and the MLC's 4096 systems."""
+    nsys, n, m = shape
+    assert hk.btl_form(nsys, m, dtype) == form
+    plan = hk.btl_launch(nsys, n, m, dtype)
+    assert plan["form"] == form and plan["code"] == hk.BTL_FORMS.index(form)
+    assert (plan["ctas"] > 0) == (form == "cluster")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_rule_is_monotone_in_systems_and_block_size(dtype):
+    """Fewer systems or wider blocks never leave the cluster form (within
+    the blocks the cluster plan covers); its edges: m 47 / 48 at one
+    system, 8 / 9 systems at m = 119, 132 / 133 past it."""
+    assert hk.btl_form(1, 47, dtype) == "block"
+    assert hk.btl_form(1, 48, dtype) == "cluster"
+    assert hk.btl_form(8, 119, dtype) == "cluster"
+    assert hk.btl_form(9, 119, dtype) == "block"
+    assert hk.btl_form(132, 120, dtype) == "cluster"
+    assert hk.btl_form(133, 120, dtype) == "block"
+    systems = (1, 2, 4, 8, 16, 33, 132, 528, 4096)
+    sizes = [m for m in range(hk.BLOCK_LARGE_MIN, 1025)
+             if hk.btl_cluster_plan(m) is not None]
+    assert sizes[-1] == 1024
+    for m in sizes[::7] + [sizes[-1]]:
+        picks = [hk.btl_form(B, m, dtype) == "cluster" for B in systems]
+        assert picks == sorted(picks, reverse=True), (m, picks)
+    for B in systems:
+        picks = [hk.btl_form(B, m, dtype) == "cluster" for m in sizes]
+        assert picks == sorted(picks), (B, picks)
+
+
+@pytest.mark.parametrize("form", ["block", "cluster"])
+def test_forced_form_is_the_wrapper_launch(monkeypatch, form):
+    """Tests and tools force a form by patching the rule's thresholds; the
+    launch then takes it (on the CPU the wrapper still runs the plain
+    form)."""
+    big = 1 << 30
+    for name, value in zip(("BTL_CLUSTER_MIN_M", "BTL_CLUSTER_MAX_SYSTEMS",
+                            "BTL_CLUSTER_MAX_SYSTEMS_WIDE"),
+                           (0, big, big) if form == "cluster"
+                           else (big, -1, -1)):
+        monkeypatch.setattr(hk, name, value)
+    for nsys, n, m in ((1, 30, 200), (4096, 93, 10), (33, 2, 9)):
+        plan = hk.btl_launch(nsys, n, m, torch.float64)
+        assert plan["form"] == form
+        assert plan["code"] == hk.BTL_FORMS.index(form)
+        want = hk.btl_cluster_plan(m)["ctas"] if form == "cluster" else 0
+        assert plan["ctas"] == want
+    got, ref = _both(_system((2,), 3, 12, seed=410),
+                     through=hk.block_thomas_large)
+    np.testing.assert_allclose(got, ref, rtol=1e-10, atol=1e-12)
+
+
+def test_unknown_form_raises(monkeypatch):
+    monkeypatch.setattr(hk, "btl_form", lambda nsys, m, dtype: "bogus")
+    with pytest.raises(ValueError, match="bogus"):
+        hk.btl_launch(1, 2, 20, torch.float64)
+    L, D, U, b = (torch.as_tensor(a) for a in _system((1,), 2, 20, 411))
+    with pytest.raises(ValueError, match="bogus"):
+        hk.block_thomas_large(L, D, U, b)
+
+
+def _owners(m, ctas):
+    """The cluster form's column ownership as the kernel computes it:
+    panel g (16 columns) to CTA g % ctas, X's column j with denom's, the
+    rhs (column m) to the CTA of panel m // 16; {cta: (denom columns, X
+    columns)}."""
+    own = {r: ([], []) for r in range(ctas)}
+    for j in range(m):
+        r = (j // hk.BTL_PANEL) % ctas
+        own[r][0].append(j)
+        own[r][1].append(j)
+    own[(m // hk.BTL_PANEL) % ctas][1].append(m)
+    return own
+
+
+@pytest.mark.parametrize("m", [9, 16, 17, 31, 32, 33, 40, 64, 65, 119, 120,
+                               200, 256, 257, 300, 512, 1024])
+def test_cluster_plan_splits_the_columns(m):
+    """Every CTA of the plan holds at least one panel; its columns fit its
+    tile (panels_a_cta panels, the X part one more for the rhs); the tiles
+    partition W's 2m + 1 columns; on-chip plans fit a CTA's shared
+    memory, the rest a global scratch of the layout's size."""
+    plan = hk.btl_cluster_plan(m)
+    ctas, panels = plan["ctas"], plan["panels"]
+    assert panels == -(-m // hk.BTL_PANEL)
+    assert 1 <= ctas <= min(panels, hk.BTL_CLUSTER_MAX_CTAS)
+    assert plan["panels_a_cta"] == -(-panels // ctas)
+    own = _owners(m, ctas)
+    cap = plan["panels_a_cta"] * hk.BTL_PANEL
+    for r, (den, xs) in own.items():
+        assert 0 < len(den) <= cap and len(xs) <= cap + 1
+        assert plan["ld"] > 2 * cap and plan["ld"] % 2 == 1
+    assert sorted(j for d, _ in own.values() for j in d) == list(range(m))
+    assert sorted(j for _, x in own.values() for j in x) == \
+        list(range(m + 1))
+    assert plan["smem"] <= hk.ON_CHIP_BYTES
+    if plan["on_chip"]:
+        assert plan["scratch"] == 0
+        assert plan["smem"] == plan["smem_on_chip"]
+    else:
+        assert plan["scratch"] == plan["big"] > 0
+        assert plan["smem_on_chip"] > hk.ON_CHIP_BYTES
+        assert ctas == min(panels, hk.BTL_CLUSTER_MAX_CTAS)
+
+
+def test_cluster_plan_takes_the_fewest_ctas_that_fit():
+    """From the preferred count (fewer where m has fewer panels) up: the
+    first count whose tiles fit shared memory; 8 CTAs at (r)'s m = 200,
+    16 at m = 256, the scratch from m = 300 on, none past the small
+    arrays' room."""
+    assert hk.btl_cluster_plan(200)["ctas"] == 8
+    assert hk.btl_cluster_plan(200)["on_chip"]
+    assert hk.btl_cluster_plan(40)["ctas"] == 3
+    assert hk.btl_cluster_plan(256)["ctas"] == 16
+    assert not hk.btl_cluster_plan(300)["on_chip"]
+    assert hk.btl_cluster_plan(6000) is None
+    for m in (20, 64, 130, 200, 256):
+        plan = hk.btl_cluster_plan(m)
+        lo = min(hk.BTL_CLUSTER_CTAS, plan["panels"])
+        for fewer in range(lo, plan["ctas"]):
+            assert hk.btl_cluster_layout(m, fewer)["smem_on_chip"] > \
+                hk.ON_CHIP_BYTES
+
+
+def test_block_form_limit_and_scratch_sizes():
+    assert hk.btl_block_max_on_chip() == 119
+    assert hk.btl_block_smem(119, True) <= hk.ON_CHIP_BYTES < \
+        hk.btl_block_smem(120, True)
+    plan = hk.btl_launch(4096, 93, 10, torch.float32)
+    assert (plan["cp"], plan["ws"]) == (4096 * 93 * 10 * 11, 0)
+    plan = hk.btl_launch(200, 2, 120, torch.float64)
+    assert plan["form"] == "block" and plan["ws"] == 200 * 120 * 241
+    assert hk.btl_launch(1, 1, 200, torch.float64)["cp"] == 0
+    plan = hk.btl_launch(2, 3, 512, torch.float64)
+    assert plan["form"] == "cluster"
+    assert plan["ws"] == 2 * plan["ctas"] * hk.btl_cluster_plan(512)["big"]
+
+
+# ---- the measurement tool's block_thomas_large modes -----------------------
+
+@pytest.mark.parametrize("mode", [["--btl"], ["--btl-forms"]],
+                         ids=["btl", "btl_forms"])
+def test_measurement_modes_refuse_to_run_without_cuda(monkeypatch, mode):
+    from mpp_tpu_torch.tools import resident_variants as rv
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        rv.main(mode + ["--tree", "parent=."])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_measurement_hold_accepts_plain_and_refuses_a_wrong_x(dtype):
+    """The tool's gate: the plain solve holds; one off by 1e-9 of max |x|
+    (f64) or 1e-3 (f32) does not."""
+    from mpp_tpu_torch.tools import resident_variants as rv
+    f64 = [torch.as_tensor(a) for a in _system((3,), 4, 12, seed=96,
+                                               swap=True)]
+    f32 = [a.float() for a in f64]
+    args = f64 if dtype == torch.float64 else f32
+    x = tbt.block_thomas(*args)
+    rv._btl_hold(torch, "plain", x, f32, f64)
+    bad = x.clone()
+    bad[1, 2, 3] += (1e-9 if dtype == torch.float64 else 1e-3) * \
+        float(x.abs().max())
+    with pytest.raises(RuntimeError, match="off the plain form"):
+        rv._btl_hold(torch, "perturbed", bad, f32, f64)
+
+
+def test_measurement_variants_apply_to_the_source():
+    """Every BTL_VARIANTS edit finds its text in the kernel's source."""
+    from mpp_tpu_torch.tools import resident_variants as rv
+    base = open(rv.os.path.join(rv._PKG, rv.BTL_SOURCE)).read()
+    for name in rv.BTL_VARIANTS:
+        assert rv.variant_source(name, rv.BTL_SOURCE, rv.BTL_VARIANTS) != base
+
+
 # ---- on the card: the kernel against its plain form -----------------------
 
 def _need_card():
@@ -224,6 +419,87 @@ def test_kernel_shared_memory_edge_on_gpu():
     _need_card()
     assert hk.max_on_chip("block_thomas_large", torch.float64) == 119
     assert hk.max_on_chip("block_thomas_large", torch.float32) == 119
+
+
+@pytest.fixture
+def force_form(monkeypatch):
+    """Force block_thomas_large's form by patching the rule's
+    thresholds."""
+    def force(form):
+        big = 1 << 30
+        for name, value in zip(("BTL_CLUSTER_MIN_M",
+                                "BTL_CLUSTER_MAX_SYSTEMS",
+                                "BTL_CLUSTER_MAX_SYSTEMS_WIDE"),
+                               (0, big, big) if form == "cluster"
+                               else (big, -1, -1)):
+            monkeypatch.setattr(hk, name, value)
+    return force
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("swap", [False, True], ids=["dominant", "swap"])
+@pytest.mark.parametrize("n", [1, 2, 30])
+@pytest.mark.parametrize("m", [9, 31, 32, 33, 64, 65, 119, 120, 200, 256])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("form", ["block", "cluster"])
+def test_each_form_matches_plain_on_gpu(force_form, form, dtype, m, n, swap):
+    """On the card, each form forced: the panel edges (31 / 32 / 33, 64 /
+    65), the block form's shared-memory edge (119 / 120), (r)'s b = 200
+    and m = 256 (16 CTAs), at 1, 2 and 33 systems."""
+    _need_card()
+    force_form(form)
+    sys_np = _system((33,), n, m, seed=900 + m + n, swap=swap)
+    assert hk.btl_launch(33, n, m, dtype)["form"] == form
+    for B in (1, 2, 33):
+        _hold_on_card([a[:B] for a in sys_np], dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [300, 512])
+def test_cluster_form_with_its_tiles_in_the_scratch_on_gpu(force_form, m):
+    """Past the cluster's shared memory (the plan's on_chip False)."""
+    _need_card()
+    force_form("cluster")
+    assert not hk.btl_cluster_plan(m)["on_chip"]
+    for dtype in (torch.float64, torch.float32):
+        _hold_on_card(_system((2,), 3, m, seed=950 + m, swap=True), dtype)
+
+
+@pytest.mark.cuda
+def test_cluster_layout_matches_the_launcher_on_gpu():
+    """The plan's shared bytes and scratch values are the launcher's."""
+    _need_card()
+    from mpp_tpu_torch.ops import _build
+    lib = _build.library()
+    for m in (9, 20, 64, 119, 200, 256, 300, 1024, 4096):
+        for ctas in (1, 2, 3, 8, 13, 16):
+            lay = hk.btl_cluster_layout(m, ctas)
+            assert lib.mpp_block_thomas_large_cluster_smem(m, ctas, 1) == \
+                lay["smem_on_chip"]
+            assert lib.mpp_block_thomas_large_cluster_smem(m, ctas, 0) == \
+                lay["smem_off_chip"]
+            assert lib.mpp_block_thomas_large_cluster_scratch(m, ctas) == \
+                lay["big"]
+
+
+@pytest.mark.cuda
+def test_cluster_form_keeps_a_nan_in_its_system_on_gpu(force_form):
+    """Under the cluster form, a NaN in one system's D reaches that
+    system's x and no other's."""
+    _need_card()
+    force_form("cluster")
+    L, D, U, b = _system((5,), 6, 70, seed=701)
+    D[3, 2, 40, 7] = np.nan
+    t = [torch.as_tensor(a, device="cuda") for a in (L, D, U, b)]
+    got = hk.block_thomas_large(*t)
+    ref = tbt.block_thomas(*t)
+    hk.reset_launches()
+    assert not bool(torch.isfinite(got[3]).all())
+    keep = torch.arange(5, device="cuda") != 3
+    assert bool(torch.isfinite(got[keep]).all())
+    scale = float(ref[keep].abs().max())
+    assert float((got[keep] - ref[keep]).abs().max()) <= 1e-11 * scale
 
 
 @pytest.mark.cuda
