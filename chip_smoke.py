@@ -83,8 +83,9 @@ line is printed):
       the first step's state within TH_PLAN_BOUND of (h)'s direct one, and
       a 64-column f64 step on the card equal to the CPU's (Newton
       iterations, reasons, X within rtol 1e-9); every ILU(0)
-      factorization and apply one launch of its kernel, and no other
-      kernel launched;
+      factorization and apply and every GMRES inner step and cycle one
+      launch of its kernel (gmres_update as many as the stepper's GMRES
+      cycles), and no other kernel launched;
   (r) vsfm_vchannel at the reference size (20 x 10 x 30 = 6000 cells,
       ncol=1, f64, 3 steps of 8640 s) through "petsc" and "direct"
       (block-Thomas, b = 200) on the card and on the CPU: both plans
@@ -260,7 +261,30 @@ line is printed):
       systems as LIBRARY_DENSE_BYTES holds).  Their launches in the
       kernels line are those counted on (u) and (x4), and on (r) and (t);
       the plain level loop on a CUDA tensor, counted from (b) to here,
-      must read 0.
+      must read 0;
+  (z2) the GMRES kernels against their plain forms
+      (hopper_kernels.gmres_arnoldi_plain / gmres_update_plain) on the
+      card, each in both forms (hk.GMRES_FORMS, forced through the rule's
+      thresholds: "warp", a warp a column; "cluster", a thread-block
+      cluster a column) and both dtypes, at steps 0, m // 2 and m - 1 and
+      the update after each: at the Krylov paths' shapes (GMRES_PATHS:
+      (q)'s [8192, 128], (r)'s [1, 6000], (w1)'s [1, 100], (x1)'s [1, 500]
+      and [1, 5000], (v3)'s [1, 95232]; m = 30; the rule's form in f64
+      timed at j = 0, 15 and 29 and the update: ms, device ms, plain ms,
+      the plain step's two torch.bmm device ms, the bound) and at the
+      edges (GMRES_EDGES: n = 1, 2, 31, 32, 33, 1000, each side of the
+      rule's thresholds, m = 1, 4, 30, the serial engine's m = 30 past n
+      = 8 and 20 with a column whose w is 0 (hlast == 0), inputs not
+      16-byte aligned); the card's V past row j + 1 NaN (never read);
+      columns converging at the step, converged before it and done in an
+      earlier cycle; a NaN in one column's w that stays in its column;
+      f64 within 1e-12 and f32 within 1e-5 of max |.| (V_{j+1} times its
+      amplification ||w|| / hlast, cs and sn absolutely), mj, found, its,
+      done and the flags equal; failing unless each form is reached in
+      each dtype and the rule picks both at the edges; and one 30-step
+      cycle at (q) through gmres_cycles (31 ILU(0) applies, 30 steps, one
+      update): its ms, device ms and device activities.  Their launches
+      in the kernels line are those counted on (q)-(x).
 
 Every kernel timing is read twice: ``ms``, CUDA events around back-to-back
 calls of the wrapper (host cost per call included), and ``device_ms``, the
@@ -276,6 +300,10 @@ the cell's device-busy share (the "step_device" lines).  A device reading
 that no whole profiler window gives is null, not measured, with a
 "device_time_short" line (see device_time); no gate reads one.
 
+On every Krylov path ((q)-(x)) the ILU(0) and GMRES launches are held to
+ilu_gmres.CARD_CALLS, the solver's own counts of factorizations, applies,
+inner steps and cycles on the card (ilu_since), and the steps and cycles
+to no more than the applies.
 The launch counters are reset just before (d) and read just after (e),
 reset just before (u) and read just after it (all zero but
 block_thomas_small, two a substep, and the ILU(0) pair, whose launches
@@ -433,6 +461,7 @@ PEAK_OPS_S = {"float64": 34e12, "float32": 67e12}
 PEAK_MATRIX_OPS_S = {"float64": 67e12, "float32": 67e12}
 _TRIDIAG = "mpp_tpu_torch/csrc/tridiag_kernels.cu"
 _ILU0 = "mpp_tpu_torch/csrc/ilu0_kernels.cu"
+_GMRES = "mpp_tpu_torch/csrc/gmres_kernels.cu"
 _FAMILY = "mpp_tpu_torch/csrc/spmv_family_kernels.cu"
 # name in the kernels line: (source, file:line of the TPU kernel's
 # pl.pallas_call), in the order of PERF.md's table
@@ -456,6 +485,10 @@ KERNELS = {
                            "mpp_tpu/ops/block_thomas.py:113,120"),
     "block_thomas_large": ("mpp_tpu_torch/csrc/block_thomas_large_kernels.cu",
                            "mpp_tpu/ops/block_thomas.py:113,120"),
+    # no pl.pallas_call: the JAX package's GMRES fori_loops (the Arnoldi
+    # step with its Givens loop; the back substitution in the while_loop)
+    "gmres_arnoldi": (_GMRES, "mpp_tpu/batched/ilu_gmres.py:244,258"),
+    "gmres_update": (_GMRES, "mpp_tpu/batched/ilu_gmres.py:269,283"),
 }
 # harness variants behind each harness row of the kernels line; the first
 # is the row's representative (its times and error)
@@ -554,6 +587,33 @@ BTL_BY_PATH = {}
 # the block solves' library yardstick: one torch.linalg.solve of the dense
 # T, on as many systems as fit this many bytes (T and its LU copy)
 LIBRARY_DENSE_BYTES = 6 << 30
+# (z2): the GMRES kernels against their plain forms at the Krylov paths'
+# shapes ((path, columns, rows): (q)'s TH columns, (r)'s vchannel, (w1)'s
+# celia1990, (x1)'s th_manoli2014 at scale 1 and 10, (v3)'s CompiledMLC at
+# 256 columns; m = min(30, n)) and at the edges (GMRES_EDGES: (label,
+# columns, rows, m, skewed): rows about a warp, the form rule's thresholds,
+# m = 1 / 4 / 30, the serial engine's Krylov dimension past n with a column
+# whose w is 0 (hlast == 0), inputs not 16-byte aligned), each in both
+# forms and both dtypes, at steps 0, m // 2 and m - 1 and the update; the
+# card's V past row j + 1 NaN (never read); columns converged at the step,
+# converged before it (found, mj = j) and done in an earlier cycle; a NaN
+# in one column's w that stays in its column.  f64 V, H, cs, sn and g
+# within 1e-12 of max |.|, f32 1e-5; mj, found, its, done and the flags
+# equal
+GMRES_PATHS = (("th_petsc", TH_NCOL, 2 * TH_NH), ("vchannel_petsc", 1, 6000),
+               ("celia1990_serial", 1, W1_CELIA["nz"]),
+               ("th_manoli2014", 1, 500), ("th_manoli2014_x10", 1, 5000),
+               ("mlc_compiled", 1, 95232))
+GMRES_EDGES = (("n1_m1", 33, 1, 1, False), ("n2_m2", 33, 2, 2, False),
+               ("n31_m4", 33, 31, 4, False), ("n32", 9, 32, 30, False),
+               ("n33", 9, 33, 30, False), ("n1000", 5, 1000, 30, False),
+               ("cols63_n128", 63, 128, 30, False),
+               ("cols64_n128", 64, 128, 30, False),
+               ("cols64_n129", 64, 129, 30, False),
+               ("restart_past_n8", 3, 8, 30, False),
+               ("restart_past_n20", 3, 20, 30, False),
+               ("misaligned", 9, 33, 30, True))
+GMRES_TOL = {"float64": 1e-12, "float32": 1e-5}
 
 
 def fail(msg):
@@ -837,39 +897,52 @@ def device_time(torch, fn, reps, tries=6, with_count=False, windows=1,
 
 
 def ilu_mark(hk):
-    """The ILU(0) counters now: the kernels' launches, and the card's
-    factorizations / applies over every BatchedILU0."""
+    """The Krylov counters now: the kernels' launches, and the card's
+    ILU(0) factorizations / applies over every BatchedILU0 and GMRES inner
+    steps / cycles over every gmres_cycles."""
     from mpp_tpu_torch.batched.ilu_gmres import CARD_CALLS
     return dict(hk.LAUNCHES), dict(CARD_CALLS)
 
 
+#: the kernel behind each count of ilu_gmres.CARD_CALLS
+CARD_KERNELS = {"factor": "ilu0_factor", "apply": "ilu0_apply",
+                "arnoldi": "gmres_arnoldi", "update": "gmres_update"}
+
+
 def ilu_since(hk, path, mark, only_ilu=False, required=True, steps=None,
               instance=None, also=()):
-    """Fail unless every ILU(0) factorization and apply on the card since
-    ``mark`` was one launch of its kernel (and, ``required``, there was one
-    of each at least); with ``only_ilu`` unless no other kernel but those
-    named in ``also`` launched;
-    with ``instance`` = (a BatchedILU0, its factors and applies at the
-    mark) unless its counters moved as far.  Records the launches under
-    ``path`` (per step with ``steps``) and returns them."""
+    """Fail unless every ILU(0) factorization and apply and every GMRES
+    inner step and cycle on the card since ``mark`` was one launch of its
+    kernel (and, ``required``, there was one of each at least), and unless
+    the GMRES steps and cycles took no more than the applies (one a step,
+    one a later cycle's residual, one a solve's first); with ``only_ilu``
+    unless no other kernel but those named in ``also`` launched; with
+    ``instance`` = (a BatchedILU0, its factors and applies at the mark)
+    unless its counters moved as far.  Records the launches under ``path``
+    (per step with ``steps``) and returns them."""
     (l0, c0), (l1, c1) = mark, ilu_mark(hk)
     calls = {k: c1[k] - c0[k] for k in c1}
-    launched = {k: l1[f"ilu0_{k}"] - l0[f"ilu0_{k}"] for k in c1}
-    check(launched == calls, f"{path}: ILU(0) launches {launched} against "
-          f"the card's factorizations / applies {calls}")
+    launched = {k: l1[CARD_KERNELS[k]] - l0[CARD_KERNELS[k]] for k in c1}
+    check(launched == calls, f"{path}: ILU(0) / GMRES launches {launched} "
+          f"against the card's factorizations / applies / steps / cycles "
+          f"{calls}")
     check(not required or min(calls.values()) > 0,
-          f"{path}: no ILU(0) factorization or apply on the card: {calls}")
+          f"{path}: no ILU(0) factorization, apply, GMRES step or cycle on "
+          f"the card: {calls}")
+    check(calls["arnoldi"] + calls["update"] <= calls["apply"],
+          f"{path}: GMRES steps and cycles {calls} past the applies")
     if instance is not None:
         ilu, f0, a0 = instance
         moved = {"factor": ilu.factors - f0, "apply": ilu.applies - a0}
-        check(moved == launched, f"{path}: BatchedILU0 counted {moved}, "
-              f"the kernels launched {launched}")
+        check(moved == {k: launched[k] for k in moved},
+              f"{path}: BatchedILU0 counted {moved}, the kernels launched "
+              f"{launched}")
     if only_ilu:
         rest = {k: l1[k] - l0[k] for k in l1
-                if not k.startswith("ilu0_") and k not in also
+                if k not in CARD_KERNELS.values() and k not in also
                 and l1[k] != l0[k]}
-        check(not rest, f"{path}: launched kernels off the ILU(0) pair: "
-              f"{rest}")
+        check(not rest, f"{path}: launched kernels off the ILU(0) / GMRES "
+              f"kernels: {rest}")
     row = dict(path=path, launches=launched)
     if steps:
         row["per_step"] = {k: v / steps for k, v in launched.items()}
@@ -1697,13 +1770,16 @@ def run_th_petsc(torch, hk, mpp, comp_direct, X0_np, X1_direct):
         torch, comp, X0_np, torch.float64, TH_PETSC_STEPS, "cuda", TH_NCOL)
     launches = dict(hk.LAUNCHES)
     per_step = TH_PETSC_STEPS + 1
-    ilu_since(hk, "th_petsc", mark, only_ilu=True, steps=per_step,
-              instance=inst)
+    krylov = ilu_since(hk, "th_petsc", mark, only_ilu=True, steps=per_step,
+                       instance=inst)
     counts = dict(factors_per_step=ilu.factors / per_step,
                   applies_per_step=ilu.applies / per_step)
     check(launches["block_thomas2"] == 0,
           f"(q): block_thomas2 launched {launches['block_thomas2']} times")
     check(comp.gmres_cycles > 0, "(q): no GMRES cycle ran")
+    check(krylov["update"] == comp.gmres_cycles, f"(q): gmres_update "
+          f"launched {krylov['update']} times in {comp.gmres_cycles} GMRES "
+          "cycles")
     bad = comp.gmres_unconverged()
     check(bad == 0, f"(q): {bad} (column, solve) GMRES runs unconverged")
     nh = comp.nh
@@ -1803,8 +1879,11 @@ def run_vchannel(torch, hk):
         sync(torch, device)
         ms = (time.perf_counter() - t0) / VCH_STEPS * 1e3
         if counted:
-            ilu_since(hk, "vchannel_petsc", mark, steps=VCH_STEPS,
-                      instance=inst)
+            krylov = ilu_since(hk, "vchannel_petsc", mark, steps=VCH_STEPS,
+                               instance=inst)
+            check(krylov["update"] == comp.gmres_cycles, f"(r) petsc: "
+                  f"gmres_update launched {krylov['update']} times in "
+                  f"{comp.gmres_cycles} GMRES cycles")
         btl = hk.LAUNCHES["block_thomas_large"] - btl0
         its = mpp.soe.cumulative_newton_iterations
         if plan == "direct" and device == "cuda":
@@ -3759,7 +3838,317 @@ def btl_kernel_checks(torch, hk):
     return rows, result
 
 
+ARNOLDI_ARGS = ("V", "H", "cs", "sn", "g", "w", "tol", "mj", "found",
+                "done", "flags")
+UPDATE_ARGS = ("V", "H", "g", "mj", "found", "done", "x", "its", "flags")
+
+
+def gmres_state(torch, hk, ncol, n, m, j, dt_name, seed, zero_w=False,
+                nan_col=None, clean=False):
+    """A cycle's state before inner step j on the card (the wrappers'
+    arguments, with w, x and its), drawn with numpy: the steps before j
+    run through the plain form on random vectors from a unit V_0, V zero
+    past row j.  Columns 0 mod 4 (every column where j >= n - 1) converge
+    at step j (tol 2 |g_j|), 1 mod 4
+    converged before it (found, mj = j), 2 mod 4 are done (with ``clean``
+    none: every column runs, none converges); with ``zero_w`` the last
+    column's w is 0 (hlast == 0), with ``nan_col`` one entry of that
+    column's w is NaN."""
+    rng = np.random.default_rng(seed)
+    dev = dict(dtype=getattr(torch, dt_name), device="cuda")
+
+    def draw(*shape):
+        return torch.as_tensor(rng.standard_normal(shape), **dev)
+    b = draw(ncol, n)
+    V = torch.zeros(ncol, m + 1, n, **dev)
+    H = torch.zeros(ncol, m + 1, m, **dev)
+    cs, sn = torch.zeros(ncol, m, **dev), torch.zeros(ncol, m, **dev)
+    g = torch.zeros(ncol, m + 1, **dev)
+    V[:, 0] = b / b.norm(dim=-1, keepdim=True)
+    g[:, 0] = torch.as_tensor(rng.uniform(0.5, 2.0, ncol), **dev)
+    tiny = torch.full((ncol,), 1e-30, **dev)
+    mj = torch.full((ncol,), m, dtype=torch.int64, device="cuda")
+    found = torch.zeros(ncol, dtype=torch.bool, device="cuda")
+    done = torch.zeros_like(found)
+    flags = torch.ones(3, dtype=torch.bool, device="cuda")
+    for i in range(j):
+        hk.gmres_arnoldi_plain(V, H, cs, sn, g, draw(ncol, n), tiny, mj,
+                               found, done, flags, i)
+    tol = tiny
+    if not clean:
+        idx = torch.arange(ncol, device="cuda")
+        # past the breakdown (V's rows 0..j span the space) w' is rounding
+        # noise, and whether it is exactly 0 (so g_{j+1} too) differs
+        # between two sums: every column converges there
+        tol = torch.where((idx % 4 == 0) | (j >= n - 1), 2 * g[:, j].abs(),
+                          tiny)
+        found |= idx % 4 == 1
+        mj = torch.where(idx % 4 == 1, j, mj)
+        done |= idx % 4 == 2
+    w = draw(ncol, n)
+    if zero_w:
+        w[-1] = 0.0
+    if nan_col is not None:
+        w[nan_col, n // 2] = float("nan")
+    return dict(V=V, H=H, cs=cs, sn=sn, g=g, w=w, tol=tol, mj=mj,
+                found=found, done=done, flags=flags, x=draw(ncol, n),
+                its=torch.as_tensor(rng.integers(0, 9, ncol),
+                                    device="cuda"))
+
+
+def gmres_err(torch, label, got, ref, tol, keep, scale=None, amp=None):
+    """Fail unless ``got`` is finite and within ``tol`` of ``scale`` (max
+    |ref|, or at least ``scale``) of ``ref`` over the columns ``keep`` (a
+    bool mask of the leading axis), each column's bound times its ``amp``;
+    returns (max |got - ref|, the scale, the largest error over its
+    bound)."""
+    got, ref = got[keep], ref[keep]
+    if not ref.numel():
+        return 0.0, 0.0, 0.0
+    check(bool(torch.isfinite(got).all()), f"{label}: non-finite output")
+    big = max(float(ref.abs().max()), scale or 0.0)
+    err = (got - ref).abs().reshape(ref.shape[0], -1).amax(dim=1).double()
+    lim = tol * big * (1.0 if amp is None else amp[keep])
+    over = float((err / lim).max()) if big else float(err.max()) * 1e300
+    check(over <= 1.0, f"{label}: max |kernel - plain| {float(err.max()):.3e}"
+          f" past {tol:g} * {big:.3e} (amplified up to "
+          f"{1.0 if amp is None else float(amp[keep].max()):.3e})")
+    return float(err.max()), big, over
+
+
+def gmres_hold(torch, hk, label, st, j, dt_name, skew=False, nan_col=None):
+    """gmres_arnoldi at step j and then gmres_update (mj <= j + 1, as after
+    a step that ends the cycle), on a copy of ``st`` whose V past row j + 1
+    is NaN (misaligned with ``skew``), against the plain forms on ``st``.
+    V_{j+1} = w' / hlast holds within the tolerance times ||w|| / hlast
+    (at least 1, hlast at least (j + 2) unit roundoffs of ||w||: the
+    division amplifies w''s rounding, which the two forms' sums make
+    differently; where hlast is at w's rounding level the direction is
+    rounding noise in both), cs and sn within it absolutely
+    (they are a cosine and a sine), H, g and x of max |.|.  Returns (the
+    largest error over its bound, the step's and the update's largest
+    absolute errors)."""
+    tol = GMRES_TOL[dt_name]
+    ncol = st["V"].shape[0]
+    keep = torch.ones(ncol, dtype=torch.bool, device="cuda")
+    if nan_col is not None:
+        keep[nan_col] = False
+    Vd, wd = st["V"].double(), st["w"].double()
+    wp = wd - torch.bmm(torch.bmm(Vd, wd[:, :, None]).transpose(1, 2),
+                        Vd)[:, 0]
+    hl, wn = wp.norm(dim=-1), wd.norm(dim=-1)
+    # hlast is known to (j + 2) roundings of ||w|| at best
+    unit = torch.finfo(st["V"].dtype).eps / 2
+    amp = torch.where(wn > 0, wn / torch.maximum(hl, unit * (j + 2) * wn),
+                      torch.ones_like(wn)).clamp(min=1.0)
+    ref = {k: v.clone() for k, v in st.items()}
+    card = {k: (misaligned(torch, v) if skew else v.clone())
+            for k, v in st.items()}
+    card["V"][:, j + 2:] = float("nan")
+    hk.gmres_arnoldi_plain(*(ref[k] for k in ARNOLDI_ARGS), j)
+    hk.gmres_arnoldi(*(card[k] for k in ARNOLDI_ARGS), j)
+    torch.cuda.synchronize()
+    over, err_step = 0.0, 0.0
+    for name, part, scale, a in (
+            ("V", lambda t: t[:, j + 1], None, amp),
+            ("H", lambda t: t[:, :, j], None, None),
+            ("cs", lambda t: t[:, j], 1.0, None),
+            ("sn", lambda t: t[:, j], 1.0, None),
+            ("g", lambda t: t[:, :j + 2], None, None)):
+        e, _, o = gmres_err(torch, f"gmres_arnoldi {label} j={j} {name}",
+                            part(card[name]), part(ref[name]), tol, keep,
+                            scale, a)
+        over, err_step = max(over, o), max(err_step, e)
+    for name in ("mj", "found", "flags"):
+        check(torch.equal(card[name], ref[name]), f"gmres_arnoldi {label} "
+              f"j={j}: {name} {card[name].tolist()[:8]} against the plain "
+              f"form's {ref[name].tolist()[:8]}")
+    if nan_col is not None:
+        check(bool(torch.isnan(card["V"][nan_col, j + 1]).all()),
+              f"gmres_arnoldi {label}: the NaN left its column's V")
+    for d in (card, ref):
+        d["mj"].clamp_(max=j + 1)
+        d["flags"][2] = False
+    hk.gmres_update_plain(*(ref[k] for k in UPDATE_ARGS))
+    hk.gmres_update(*(card[k] for k in UPDATE_ARGS))
+    torch.cuda.synchronize()
+    err_update, _, o = gmres_err(torch, f"gmres_update {label} j={j} x",
+                                 card["x"], ref["x"], tol, keep)
+    for name in ("its", "done", "flags"):
+        check(torch.equal(card[name], ref[name]), f"gmres_update {label} "
+              f"j={j}: {name} against the plain form's")
+    return max(over, o), err_step, err_update
+
+
+def gmres_force(hk, form):
+    """Force the GMRES kernels' form by patching the rule's thresholds;
+    returns the rule to restore."""
+    rule = (hk.GMRES_WARP_MAX_N, hk.GMRES_WARP_MIN_COLS)
+    hk.GMRES_WARP_MAX_N = 10 ** 9 if form == "warp" else 0
+    hk.GMRES_WARP_MIN_COLS = 10 ** 9
+    return rule
+
+
+def gmres_work(kernel, st, j, m, elem):
+    """(bytes, operations) of one launch at ``st``: a step moves V's rows
+    0..j and w (read once), V_{j+1} and H's column (written once), and
+    does ~(4 (j + 1) + 3) n flops a column; the update of the columns not
+    done reads V's rows < mj, H's mj x mj block, g, and x (read and
+    written), ~2 mj n + mj^2 flops."""
+    ncol, _, n = st["V"].shape
+    if kernel == "gmres_arnoldi":
+        return (((j + 3) * n + m + 1) * ncol * elem,
+                (4 * (j + 1) + 3) * n * ncol)
+    mjs = st["mj"][~st["done"]].double()
+    return (int(float((mjs * n + mjs * mjs + mjs + 2 * n).sum()) * elem),
+            int(float((2 * mjs * n + mjs * mjs).sum())))
+
+
+def gmres_kernel_checks(torch, hk):
+    """Phase (z2): both GMRES kernels against their plain forms on the card
+    at the Krylov paths' shapes (GMRES_PATHS; the rule's form in f64 timed
+    at steps 0, 15 and 29 and the update, with the plain step and its two
+    torch.bmm) and at the edges (GMRES_EDGES), in both forms and both
+    dtypes; and one 30-step cycle at (q) through gmres_cycles (its device
+    activities).  Returns (the kernel_check rows, the kernels line's
+    entries: (q)'s step at j = 15 and its update, the cycle's row)."""
+    from mpp_tpu_torch.batched import ilu_gmres as ig
+    t0 = time.perf_counter()
+    rows, reached = [], {}
+    paths = {p for p, _, _ in GMRES_PATHS}
+    cases = [(p, c, n, min(30, n), False, None, False)
+             for p, c, n in GMRES_PATHS] + \
+        [(lab, c, n, m, sk, 1 if c > 1 else None, lab.startswith("restart"))
+         for lab, c, n, m, sk in GMRES_EDGES]
+    for label, ncol, n, m, skew, nan_col, zero_w in cases:
+        for dt_name in ("float64", "float32"):
+            dtype = getattr(torch, dt_name)
+            worst, errs = {}, {}
+            for j in sorted({0, m // 2, m - 1}):
+                st = gmres_state(torch, hk, ncol, n, m, j, dt_name,
+                                 seed=ncol + n + m + j, zero_w=zero_w,
+                                 nan_col=nan_col)
+                for form in hk.GMRES_FORMS:
+                    rule = gmres_force(hk, form)
+                    try:
+                        got = gmres_hold(torch, hk, f"{label} {form}", st, j,
+                                         dt_name, skew, nan_col)
+                    finally:
+                        hk.GMRES_WARP_MAX_N, hk.GMRES_WARP_MIN_COLS = rule
+                    worst[form] = max(worst.get(form, 0.0), got[0])
+                    errs[j, form] = got[1:]
+                    reached.setdefault(dt_name, set()).add(form)
+                del st
+                if label in paths and dt_name == "float64":
+                    rows += gmres_path_rows(
+                        torch, hk, label, ncol, n, m, j,
+                        errs[j, hk.gmres_form(ncol, n, m, dtype)])
+            print("gmres_check " + json.dumps(dict(
+                case=label, shape=[ncol, n], m=m, dtype=dt_name,
+                misaligned=skew, nan_col=nan_col, zero_w=zero_w,
+                rule_form=hk.gmres_form(ncol, n, m, dtype),
+                worst_err_over_bound=worst)))
+            torch.cuda.empty_cache()
+    for dt_name, forms in reached.items():
+        check(forms == set(hk.GMRES_FORMS), f"(z2) {dt_name}: forms "
+              f"{sorted(forms)}")
+    edges = {hk.gmres_form(c, n, m, torch.float64)
+             for _, c, n, m, _ in GMRES_EDGES}
+    check(edges == set(hk.GMRES_FORMS), f"(z2): the rule picks only {edges} "
+          "at the edges")
+    results = {}
+    for r in rows:
+        if r["path"] == "th_petsc" and r.get("j") in (15, None):
+            results.setdefault(r["kernel"], r)
+    cycle = gmres_cycle_row(torch, hk, ig)
+    cycle["phase_s"] = time.perf_counter() - t0
+    return rows, results, cycle
+
+
+def gmres_path_rows(torch, hk, path, ncol, n, m, j, errs):
+    """The timed rows of the rule's form at a path shape in f64, on a state
+    where every column runs and none converges: the step at j (and at j =
+    m - 1 the update after it, on a copy of its own that one step left,
+    so that no repeated step converges a column the update then skips),
+    each with its ms (CUDA events), queued device ms, bound, plain ms and
+    (``errs``) the largest absolute error of its hold; the step's beside
+    the device ms of its plain form's two torch.bmm (the reference in the
+    library column)."""
+    st = gmres_state(torch, hk, ncol, n, m, j, "float64", seed=n + j,
+                     clean=True)
+    plan = hk.gmres_plan(ncol, n, m, torch.float64)
+    after = {k: v.clone() for k, v in st.items()}
+    hk.gmres_arnoldi(*(after[k] for k in ARNOLDI_ARGS), j)
+    plain = {k: v.clone() for k, v in st.items()}
+    V, w = plain["V"], plain["w"]
+    h = torch.bmm(V, w[:, :, None])[..., 0]
+
+    def bmms():
+        torch.bmm(V, w[:, :, None])
+        torch.bmm(h[:, None, :], V)
+    calls = [("gmres_arnoldi", st,
+              partial(hk.gmres_arnoldi, *(st[k] for k in ARNOLDI_ARGS), j),
+              partial(hk.gmres_arnoldi_plain,
+                      *(plain[k] for k in ARNOLDI_ARGS), j), errs[0])]
+    if j == m - 1:
+        plain_after = {k: v.clone() for k, v in after.items()}
+        calls.append(("gmres_update", after,
+                      partial(hk.gmres_update,
+                              *(after[k] for k in UPDATE_ARGS)),
+                      partial(hk.gmres_update_plain,
+                              *(plain_after[k] for k in UPDATE_ARGS)),
+                      errs[1]))
+    out = []
+    for kernel, state, call, plain_call, err in calls:
+        nbytes, ops = gmres_work(kernel, state, j, m, 8)
+        bms, by = bound(nbytes, ops, "float64")
+        row = dict(kernel=kernel, path=path, shape=[ncol, n], m=m,
+                   dtype="float64", form=plan["form"], ctas=plan["ctas"],
+                   threads=plan["threads"], ms=time_cuda(torch, call, 10),
+                   plain_ms=time_cuda(torch, plain_call, 2),
+                   library_ms=None, bytes=nbytes, ops=ops, bound_ms=bms,
+                   bound_by=by, max_abs_err=err)
+        if kernel == "gmres_arnoldi":
+            row["j"] = j
+            later(bmms, 10, row, key="plain_bmm_device_ms")
+        later(call, 10, row)
+        out.append(row)
+    check(not bool(after["done"].any()), f"(z2) {path}: a column of the "
+          "update's timing state converged")
+    return out
+
+
+def gmres_cycle_row(torch, hk, ig):
+    """One GMRES(30) cycle at (q)'s sparsity and columns through
+    gmres_cycles (ILU(0), tolerances no column reaches): its ms (CUDA
+    events) and, queued, its device time and device activities."""
+    ilu = ILU_AT["th_petsc"]
+    data, b = (torch.as_tensor(a, device="cuda")
+               for a in ilu_systems(ilu, TH_NCOL, seed=17))
+    mv = ig.make_ell_matvec(ilu.indptr, ilu.indices)
+    f = ilu.factor(data)
+
+    def cycle():
+        return ig.gmres_cycles(mv, data, b, ilu, f, rtol=0.0, atol=0.0,
+                               maxcycles=1)
+    mark = dict(hk.LAUNCHES)
+    x, k, done, its = cycle()
+    launched = {n: hk.LAUNCHES[n] - mark[n] for n in mark
+                if hk.LAUNCHES[n] != mark[n]}
+    check(k == 1 and bool((its == 30).all()) and not bool(done.any()),
+          f"(z2) cycle at (q): {k} cycles, inner iterations {its[:4]}")
+    check(launched == {"ilu0_apply": 31, "gmres_arnoldi": 30,
+                       "gmres_update": 1},
+          f"(z2) cycle at (q): launched {launched}")
+    row = dict(path="th_petsc", shape=[TH_NCOL, ilu.n], m=30,
+               launches=launched, ms=time_cuda(torch, cycle, 3))
+    later(cycle, 1, row, key="device_ms", count_key="device_activities",
+          windows=2)
+    return row
+
+
 def main():
+    t_main = time.perf_counter()
     here = os.path.dirname(os.path.abspath(__file__))
     check(os.path.isdir(os.path.join(here, "mpp_tpu_torch")),
           "mpp_tpu_torch/ not found beside chip_smoke.py: run it from the "
@@ -3998,6 +4387,20 @@ def main():
         results[name].update(launches_by_path=dict(by_path),
                              launches=sum(by_path.values()),
                              path_rows=rows[:npaths])
+    # (z2): the GMRES kernels against their plain forms at the Krylov
+    # paths' shapes and the edges; their launches are those counted on the
+    # paths (q)-(x), one an inner step or a cycle on the card
+    rows, gmres_results, gmres_cycle = gmres_kernel_checks(torch, hk)
+    checks += rows
+    for name, r in gmres_results.items():
+        key = "arnoldi" if name == "gmres_arnoldi" else "update"
+        r["launches_by_path"] = {p: row["launches"][key]
+                                 for p, row in ILU_BY_PATH.items()}
+        r["launches_per_step"] = {p: row["per_step"][key]
+                                  for p, row in ILU_BY_PATH.items()
+                                  if "per_step" in row}
+        r["launches"] = sum(r["launches_by_path"].values())
+        results[name] = r
     restore_plain()
     check(not plain_block_loops, f"the plain block-Thomas level loop ran "
           f"on the card at {plain_block_loops}")
@@ -4015,6 +4418,7 @@ def main():
                 r["bound_ms"] / r["device_ms"]
     for r in checks:
         print("kernel_check " + json.dumps(r))
+    print("gmres_cycle " + json.dumps(gmres_cycle))
     for r in (esc_busy, thermal_busy, *th_busy, *canopy_busy,
               *mlc_busy):
         r["device_busy"] = None if r["step_device_ms"] is None \
@@ -4026,6 +4430,9 @@ def main():
         eager_ms={name: [ms, time_cuda(torch, kern, 50)]
                   for name, (kern, ms) in AGAIN.items()})))
 
+    print("chip_smoke_s " + json.dumps(dict(
+        s=time.perf_counter() - t_main,
+        gmres_phase_s=gmres_cycle["phase_s"])))
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = results[name]

@@ -28,12 +28,20 @@ stops at, so the port replicates it with a batch axis of columns.
   mj-truncated correction.  The cycle loop and the Arnoldi loop are
   Python loops; their predicates (any column left, every column found or
   done in an earlier cycle) are read on the host through the caller's
-  counted ``sync``.  The Arnoldi loop stops once every column has
-  converged: the steps JAX still runs then change no column's truncated
-  correction.
+  counted ``sync``, one read a step and one a cycle.  The Arnoldi loop
+  stops once every column has converged: the steps JAX still runs then
+  change no column's truncated correction.  An inner step (after the
+  matvec and the preconditioner apply) is one ``hopper_kernels.
+  gmres_arnoldi`` call and a cycle's end one ``gmres_update`` call: on the
+  card one launch each, which also writes the loop predicate the sync
+  reads (Gram-Schmidt, the Givens rotations, the back substitution and the
+  bookkeeping in ``csrc/gmres_kernels.cu``, the basis made once a solve);
+  on the CPU their plain forms, the eager ops over a basis zero-filled
+  every cycle.  ``CARD_CALLS`` counts the steps and cycles on the card.
 
-GMRES is plain PyTorch.  The JAX package computes ILU(0) and GMRES with
-``lax.scan``, ``fori_loop`` and ``while_loop``, outside any Pallas kernel.
+Of the JAX package's ``lax.scan``, ``fori_loop`` and ``while_loop``s
+(outside any Pallas kernel), the ILU(0) sweeps and GMRES's inner step and
+cycle update run as hand-written kernels on the card.
 """
 from __future__ import annotations
 
@@ -45,9 +53,11 @@ from mpp_tpu_torch.ops import hopper_kernels as hk
 # PETSc's cap on GMRES cycles as the port's solves run them
 MAXCYCLES = 100
 
-#: factorizations and applies on CUDA tensors over every BatchedILU0: each is
-#: one launch of its kernel (hopper_kernels.LAUNCHES)
-CARD_CALLS = {"factor": 0, "apply": 0}
+#: on CUDA tensors: factorizations and applies over every BatchedILU0, and
+#: GMRES inner steps and cycles over every gmres_cycles; each is one launch
+#: of its kernel (hopper_kernels.LAUNCHES: ilu0_factor, ilu0_apply,
+#: gmres_arnoldi, gmres_update)
+CARD_CALLS = {"factor": 0, "apply": 0, "arnoldi": 0, "update": 0}
 
 
 def _count(t, which):
@@ -246,18 +256,6 @@ def _colnorm(A):
     return torch.sqrt(torch.sum(A * A, dim=-1))
 
 
-def _hypot(x1, x2):
-    """jnp.hypot's formula: hi * sqrt(1 + (lo/hi)^2), inf if either leg
-    is +inf."""
-    x1, x2 = torch.abs(x1), torch.abs(x2)
-    inf = torch.isposinf(x1) | torch.isposinf(x2)
-    hi, lo = torch.maximum(x1, x2), torch.minimum(x1, x2)
-    z = hi == 0
-    q = lo / torch.where(z, 1.0, hi)
-    x = torch.where(z, hi, hi * torch.sqrt(1 + q * q))
-    return torch.where(inf, torch.inf, x)
-
-
 def gmres_cycles(matvec, data, b, ilu: BatchedILU0 = None, pc_data=None,
                  rtol=1e-5, atol=1e-50, restart=30, maxcycles=MAXCYCLES,
                  sync=None, full_restart=False, maxiter=None):
@@ -272,7 +270,6 @@ def gmres_cycles(matvec, data, b, ilu: BatchedILU0 = None, pc_data=None,
     sync = sync or _host_sync
     ncol, n = b.shape
     m = restart if full_restart else min(restart, n)
-    dtype = b.dtype
     pc = None if ilu is None else ilu.prepare(pc_data)
 
     def M(r):
@@ -284,75 +281,40 @@ def gmres_cycles(matvec, data, b, ilu: BatchedILU0 = None, pc_data=None,
     tol = torch.clamp_min(rtol * rnorm0, atol)
     done = rnorm0 <= tol
     its = torch.zeros(ncol, dtype=torch.int64, device=b.device)
-    ar = torch.arange(m + 1, device=b.device)
+    # the loop predicates as the kernels write them: [every column found
+    # or done after an even / odd inner step, a column left after a cycle]
+    flags = torch.ones(3, dtype=torch.bool, device=b.device)
+    left = torch.any(~done)
+    ws = None
     k = 0
     capped = False
-    while k < maxcycles and not capped and sync(torch.any(~done)):
+    while k < maxcycles and not capped and sync(left):
         # the first cycle's residual is r0 itself (x is still zero)
         r = r0 if k == 0 else M(b - matvec(data, x))
+        ws = hk.gmres_workspace(b, m, ws)
+        V, H, cs, sn, g = ws
         beta = _colnorm(r)
-        already = beta <= tol
-        V = b.new_zeros((ncol, m + 1, n))
+        found = beta <= tol
         V[:, 0] = r / torch.where(beta == 0, 1.0, beta)[:, None]
-        H = b.new_zeros((ncol, m + 1, m))
-        cs = b.new_zeros((ncol, m))
-        sn = b.new_zeros((ncol, m))
-        g = b.new_zeros((ncol, m + 1))
         g[:, 0] = beta
-        mj = torch.where(already, 0, m)
-        found = already
+        mj = torch.where(found, 0, m)
         for j in range(m):
-            w = M(matvec(data, V[:, j]))
-            # classical Gram-Schmidt over the full V: its unset rows are
-            # zero, so the contraction equals V[:j+1] w
-            h = torch.bmm(V, w[:, :, None])[..., 0]
-            w = w - torch.bmm(h[:, None, :], V)[:, 0]
-            hlast = _colnorm(w)
-            V[:, j + 1] = w / torch.where(hlast == 0, 1.0, hlast)[:, None]
-            col = torch.where(ar == j + 1, hlast[:, None], h)
-            for i in range(j):
-                a, bb = col[:, i], col[:, i + 1]
-                t = cs[:, i] * a + sn[:, i] * bb
-                nxt = -sn[:, i] * a + cs[:, i] * bb
-                col[:, i] = t
-                col[:, i + 1] = nxt
-            cj, cj1 = col[:, j].clone(), col[:, j + 1].clone()
-            d = _hypot(cj, cj1)
-            z = d == 0
-            dd = torch.where(z, 1.0, d)
-            c = torch.where(z, 1.0, cj / dd)
-            s = torch.where(z, 0.0, cj1 / dd)
-            col[:, j] = c * cj + s * cj1
-            col[:, j + 1] = 0.0
-            cs[:, j] = c
-            sn[:, j] = s
-            gj = g[:, j].clone()
-            g[:, j + 1] = -s * gj
-            g[:, j] = c * gj
-            H[:, :, j] = col
-            conv = torch.abs(g[:, j + 1]) <= tol
-            mj = torch.where(~found & conv, j + 1, mj)
-            found = found | conv
+            w = M(matvec(data, V[:, j])).contiguous()
             # a column still running has taken k*m + j + 1 inner steps
-            if maxiter is not None and k * m + j + 1 >= maxiter:
-                mj = torch.where(found, mj, j + 1)
+            cap = maxiter is not None and k * m + j + 1 >= maxiter
+            _count(b, "arnoldi")
+            hk.gmres_arnoldi(V, H, cs, sn, g, w, tol, mj, found, done, flags,
+                             j, cap)
+            if cap:
                 capped = True
                 break
             # columns done in an earlier cycle keep x whatever this one
             # computes for them, so they do not hold the loop
-            if j + 1 < m and sync(torch.all(found | done)):
+            if j + 1 < m and sync(flags[j % 2]):
                 break
-        # mj-truncated back-substitution: y_k = 0 for k >= mj
-        y = b.new_zeros((ncol, m))
-        for jrow in range(m - 1, -1, -1):
-            num = g[:, jrow] - torch.sum(H[:, jrow, :m] * y, dim=-1)
-            hjj = H[:, jrow, jrow]
-            yi = num / torch.where(hjj == 0, 1.0, hjj)
-            y[:, jrow] = torch.where(jrow < mj, yi, 0.0)
-        dx = torch.bmm(y[:, None, :], V[:, :m])[:, 0]
-        x = torch.where(done[:, None], x, x + dx)
-        its = torch.where(done, its, its + mj)
-        done = done | found
+        _count(b, "update")
+        hk.gmres_update(V, H, g, mj, found, done, x, its, flags)
+        left = flags[2]
         k += 1
     return x, k, done, its
 

@@ -35,8 +35,9 @@ _D = ctypes.c_double
 #: and ``*_max_in_registers`` queries the deepest column a kernel keeps on
 #: chip, or in registers, for 4- or 8-byte values; ``mpp_ilu0_limit`` the
 #: ILU(0) forms' limits; ``mpp_block_thomas_small_scratch`` a launch's
-#: scratch values and ``mpp_block_thomas_large_cluster_*`` the cluster
-#: form's shared bytes and scratch values, each a ``c_longlong``: RESTYPES)
+#: scratch values, ``mpp_block_thomas_large_cluster_*`` the cluster
+#: form's shared bytes and scratch values and ``mpp_gmres_smem`` a GMRES
+#: launch's shared bytes, each a ``c_longlong``: RESTYPES)
 SIGNATURES = {
     "mpp_thomas_max_on_chip": (_I,),
     "mpp_thomas_f32": (_P,) * 6 + (_I, _I, _P),
@@ -71,12 +72,18 @@ SIGNATURES = {
     "mpp_ilu0_factor_f64": (_P,) * 4 + (_I,) * 11 + (_P,),
     "mpp_ilu0_apply_f32": (_P,) * 5 + (_I,) * 11 + (_P,),
     "mpp_ilu0_apply_f64": (_P,) * 5 + (_I,) * 11 + (_P,),
+    "mpp_gmres_smem": (_I,) * 5,
+    "mpp_gmres_arnoldi_f32": (_P,) * 11 + (_I,) * 9 + (_P,),
+    "mpp_gmres_arnoldi_f64": (_P,) * 11 + (_I,) * 9 + (_P,),
+    "mpp_gmres_update_f32": (_P,) * 9 + (_I,) * 7 + (_P,),
+    "mpp_gmres_update_f64": (_P,) * 9 + (_I,) * 7 + (_P,),
 }
 
 #: launchers and queries whose result is not a ``c_int``
 RESTYPES = {"mpp_block_thomas_small_scratch": ctypes.c_longlong,
             "mpp_block_thomas_large_cluster_smem": ctypes.c_longlong,
-            "mpp_block_thomas_large_cluster_scratch": ctypes.c_longlong}
+            "mpp_block_thomas_large_cluster_scratch": ctypes.c_longlong,
+            "mpp_gmres_smem": ctypes.c_longlong}
 
 _LIB = None
 #: seconds the last build took (0.0 when the library was already built)

@@ -64,6 +64,21 @@ kernel's form (staged or streamed) from the schedule's widths and the
 kernels' shared-memory limits (:func:`ilu0_limits`); the plain forms walk
 the same parts in lockstep.
 
+The GMRES pair (``csrc/gmres_kernels.cu``) serves every Krylov caller
+through ``batched/ilu_gmres.gmres_cycles``, one launch an inner step and one
+a cycle; it replaces no Pallas kernel but the JAX package's ``fori_loop``s
+of GMRES(m) (``mpp_tpu/batched/ilu_gmres.py:225-281``):
+
+* :func:`gmres_arnoldi` — an inner step: classical Gram-Schmidt, the new
+  basis vector, the Givens rotations of the Hessenberg column, the residual
+  estimate and the columns it converges.
+* :func:`gmres_update` — a cycle's end: the truncated back substitution, the
+  correction of x and the done-column bookkeeping.
+
+Both write the host's loop predicates into a device word (``flags``), so
+the caller's sync reads it with no eager op between; each takes one of two
+forms (``GMRES_FORMS``) that :func:`gmres_form` picks by shape.
+
 Dispatch rule: a CPU tensor runs the plain version (``ops/tridiag.py``,
 ``ops/block_thomas.py``, the ``*_plain`` functions here);
 a CUDA tensor launches the kernel, building it at first use
@@ -87,7 +102,8 @@ LAUNCHES = {"thomas": 0, "tridiag_spmv": 0, "tridiag_spmv_mixed": 0,
             "block_thomas_large": 0,
             "tridiag_spmv_chain": 0,
             "tridiag_jacobi_smooth": 0, "spmv_variant": 0, "spmv_packed": 0,
-            "stream_ceiling": 0, "ilu0_factor": 0, "ilu0_apply": 0}
+            "stream_ceiling": 0, "ilu0_factor": 0, "ilu0_apply": 0,
+            "gmres_arnoldi": 0, "gmres_update": 0}
 
 
 def reset_launches():
@@ -867,3 +883,312 @@ def ilu0_apply(f, b, sched):
     _ilu0_launch(name, sched, b, B, fn, (f.data_ptr(), b.data_ptr(),
                                          x.data_ptr()), (sched.n, sched.nnz))
     return x
+
+
+# ---- GMRES(m): the Arnoldi step and the cycle update ----------------------
+
+#: the forms of :func:`gmres_arnoldi` / :func:`gmres_update`
+#: (csrc/gmres_kernels.cu): "warp", a warp a column, GMRES_WARP_COLS columns
+#: a block (many short columns); "cluster", a thread-block cluster a
+#: column, its rows split over the CTAs (few long columns)
+GMRES_FORMS = ("warp", "cluster")
+#: the kernels' kWarpCols, kCtaThreads and kMaxCluster
+GMRES_WARP_COLS = 4
+GMRES_CTA_THREADS = 512
+GMRES_CLUSTER_MAX = 16
+#: rows of a column a CTA of the cluster form takes (ceil(n / this) CTAs,
+#: to GMRES_CLUSTER_MAX): of 512, 1024, 2048, 4096 and 8192, 512 read
+#: fastest at one column of 2048 and 6000 rows (10.2 / 10.7 us a step
+#: against 17.5 / 20.7 at 2048), all but 8192 alike at 95232; the form
+#: rule's grid was read at 512 (256 read 1 us faster at one column: PERF.md
+#: open question 16)
+GMRES_CTA_ELEMS = 512
+#: the rule: the warp form for columns of at most GMRES_WARP_MAX_N rows, or
+#: of at most GMRES_WARP_MAX_N_WIDE rows from GMRES_WARP_MIN_COLS columns;
+#: the cluster form otherwise.  From the forms' device times on one H100
+#: (``tools/resident_variants.py --gmres-forms``, PERF.md row 15; a cycle
+#: weighed as 30 steps and an update): the warp form wins at 32 rows at
+#: every width (1-8192 columns), the cluster form at 100 rows of one
+#: column and from 512 rows at every width (8192 columns too); at 128 rows
+#: the two tie to 16 columns and the warp form wins from 64 ((q)'s [8192,
+#: 128]: 125.8 against 131.2 us a step, 185.6 against 244.9 an update).
+#: Tests and tools force a form by patching these.
+GMRES_WARP_MAX_N = 32
+GMRES_WARP_MAX_N_WIDE = 128
+GMRES_WARP_MIN_COLS = 64
+
+
+def gmres_smem(kernel, form, m, threads, elem):
+    """Dynamic shared bytes of a launch (the kernels' smem_bytes): kernel
+    "arnoldi" or "update", form "warp" or "cluster" (``threads`` a CTA),
+    ``elem`` bytes a value."""
+    if form == "warp":
+        values = GMRES_WARP_COLS * (3 * m + 2 if kernel == "arnoldi"
+                                    else m * m + m)
+    elif kernel == "arnoldi":
+        nw = threads // 32
+        values = (m + 1) * nw + (m + 1) + (m + 2) + 2 + 2 * m
+    else:
+        values = m * m + m
+    return values * elem
+
+
+def _gmres_fits(form, m, threads, elem):
+    return max(gmres_smem(k, form, m, threads, elem)
+               for k in ("arnoldi", "update")) <= ON_CHIP_BYTES
+
+
+def gmres_form(ncol, n, m, dtype):
+    """The form of :func:`gmres_arnoldi` / :func:`gmres_update` the rule
+    picks for ``ncol`` columns of ``n`` rows, Krylov dimension ``m``, in
+    ``dtype``: "warp" for columns of at most GMRES_WARP_MAX_N rows, or of
+    at most GMRES_WARP_MAX_N_WIDE from GMRES_WARP_MIN_COLS columns, where
+    its shared memory holds m; else "cluster".  By shape alone; monotone:
+    more columns or fewer rows never leave the warp form."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    short = n <= GMRES_WARP_MAX_N or \
+        (n <= GMRES_WARP_MAX_N_WIDE and ncol >= GMRES_WARP_MIN_COLS)
+    if short and _gmres_fits("warp", m, 32 * GMRES_WARP_COLS, elem):
+        return "warp"
+    return "cluster"
+
+
+def gmres_plan(ncol, n, m, dtype):
+    """The launch of both GMRES kernels at ``ncol`` columns of ``n`` rows,
+    Krylov dimension ``m``, in ``dtype``: the rule's ``form`` and its
+    ``code``, and for the cluster form ``ctas`` a column (ceil(n /
+    GMRES_CTA_ELEMS), 1 to GMRES_CLUSTER_MAX), ``chunk`` rows a CTA and
+    ``threads`` a CTA (the chunk rounded up to warps, at most
+    GMRES_CTA_THREADS).  ValueError where m outgrows shared memory."""
+    form = gmres_form(ncol, n, m, dtype)
+    if form == "warp":
+        ctas, chunk, threads = 0, 0, 32 * GMRES_WARP_COLS
+    else:
+        ctas = max(1, min(GMRES_CLUSTER_MAX, -(-n // GMRES_CTA_ELEMS), n))
+        chunk = -(-n // ctas)
+        threads = min(GMRES_CTA_THREADS, max(32, -(-chunk // 32) * 32))
+    elem = torch.empty((), dtype=dtype).element_size()
+    if not _gmres_fits(form, m, threads, elem):
+        raise ValueError(f"gmres: Krylov dimension {m} outgrows shared "
+                         f"memory in {dtype}")
+    return dict(form=form, code=GMRES_FORMS.index(form), ctas=ctas,
+                chunk=chunk, threads=threads)
+
+
+def gmres_workspace(b, m, ws=None):
+    """A cycle's basis V ``[ncol, m + 1, n]``, Hessenberg H ``[ncol, m + 1,
+    m]``, rotations cs, sn ``[ncol, m]`` and g ``[ncol, m + 1]`` in the
+    dtype and device of ``b [ncol, n]``: zero-filled for every cycle on the
+    CPU (the plain forms contract the whole basis, its unset rows zero),
+    made once a solve on the card, unfilled (the kernels read only what the
+    cycle wrote); ``ws`` the last cycle's."""
+    if ws is not None and b.device.type != "cpu":
+        return ws
+    ncol, n = b.shape
+    make = b.new_zeros if b.device.type == "cpu" else b.new_empty
+    return (make((ncol, m + 1, n)), make((ncol, m + 1, m)), make((ncol, m)),
+            make((ncol, m)), make((ncol, m + 1)))
+
+
+def _colnorm(A):
+    return torch.sqrt(torch.sum(A * A, dim=-1))
+
+
+def _hypot(x1, x2):
+    """jnp.hypot's formula: hi * sqrt(1 + (lo/hi)^2), inf if either leg
+    is +inf."""
+    x1, x2 = torch.abs(x1), torch.abs(x2)
+    inf = torch.isposinf(x1) | torch.isposinf(x2)
+    hi, lo = torch.maximum(x1, x2), torch.minimum(x1, x2)
+    z = hi == 0
+    q = lo / torch.where(z, 1.0, hi)
+    x = torch.where(z, hi, hi * torch.sqrt(1 + q * q))
+    return torch.where(inf, torch.inf, x)
+
+
+def _check_gmres(name, V, arrays):
+    """Raise ValueError unless V is a contiguous ``[ncol, m + 1, n]`` f32 /
+    f64 tensor (ncol, n, m >= 1) and each of ``arrays`` (label: (tensor,
+    shape function of (ncol, n, m), kind: "float" V's dtype, "int64" or
+    "bool")) has its shape and kind, all contiguous on V's CPU or CUDA
+    device; returns (ncol, n, m)."""
+    for label, a in (("V", V), *((k, t) for k, (t, _, _) in arrays.items())):
+        if not isinstance(a, torch.Tensor):
+            raise ValueError(f"{name}: {label} must be a tensor, got "
+                             f"{type(a)}")
+    if V.dim() != 3 or V.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"{name}: V must be a [ncol, m + 1, n] f32 or f64 "
+                         f"tensor, got {tuple(V.shape)} {V.dtype}")
+    ncol, m, n = V.shape[0], V.shape[1] - 1, V.shape[2]
+    if ncol < 1 or n < 1 or m < 1:
+        raise ValueError(f"{name}: V {tuple(V.shape)} needs ncol, n and m "
+                         ">= 1")
+    kinds = {"float": V.dtype, "int64": torch.int64, "bool": torch.bool}
+    for label, (a, shape, kind) in arrays.items():
+        want = tuple(shape(ncol, n, m))
+        if tuple(a.shape) != want:
+            raise ValueError(f"{name}: {label} must be {want}, got "
+                             f"{tuple(a.shape)}")
+        if a.dtype != kinds[kind]:
+            raise ValueError(f"{name}: {label} must be {kinds[kind]}, got "
+                             f"{a.dtype}")
+    for label, a in (("V", V), *((k, t) for k, (t, _, _) in arrays.items())):
+        if a.device != V.device:
+            raise ValueError(f"{name}: {label} on {a.device}, V on "
+                             f"{V.device}")
+        if not a.is_contiguous():
+            raise ValueError(f"{name}: {label} must be contiguous")
+    if V.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {V.device}")
+    return ncol, n, m
+
+
+def _arnoldi_arrays(H, cs, sn, g, w, tol, mj, found, done, flags):
+    return {"H": (H, lambda c, n, m: (c, m + 1, m), "float"),
+            "cs": (cs, lambda c, n, m: (c, m), "float"),
+            "sn": (sn, lambda c, n, m: (c, m), "float"),
+            "g": (g, lambda c, n, m: (c, m + 1), "float"),
+            "w": (w, lambda c, n, m: (c, n), "float"),
+            "tol": (tol, lambda c, n, m: (c,), "float"),
+            "mj": (mj, lambda c, n, m: (c,), "int64"),
+            "found": (found, lambda c, n, m: (c,), "bool"),
+            "done": (done, lambda c, n, m: (c,), "bool"),
+            "flags": (flags, lambda c, n, m: (3,), "bool")}
+
+
+def gmres_arnoldi_plain(V, H, cs, sn, g, w, tol, mj, found, done, flags, j,
+                        cap=False):
+    """Plain version of :func:`gmres_arnoldi`: the port's eager step, with
+    V's rows past j + 1 zero (the contraction runs over the whole basis)."""
+    m = H.shape[-1]
+    ar = torch.arange(m + 1, device=V.device)
+    # classical Gram-Schmidt over the full V: its unset rows are zero, so
+    # the contraction equals V[:j+1] w
+    h = torch.bmm(V, w[:, :, None])[..., 0]
+    w = w - torch.bmm(h[:, None, :], V)[:, 0]
+    hlast = _colnorm(w)
+    V[:, j + 1] = w / torch.where(hlast == 0, 1.0, hlast)[:, None]
+    col = torch.where(ar == j + 1, hlast[:, None], h)
+    for i in range(j):
+        a, bb = col[:, i], col[:, i + 1]
+        t = cs[:, i] * a + sn[:, i] * bb
+        nxt = -sn[:, i] * a + cs[:, i] * bb
+        col[:, i] = t
+        col[:, i + 1] = nxt
+    cj, cj1 = col[:, j].clone(), col[:, j + 1].clone()
+    d = _hypot(cj, cj1)
+    z = d == 0
+    dd = torch.where(z, 1.0, d)
+    c = torch.where(z, 1.0, cj / dd)
+    s = torch.where(z, 0.0, cj1 / dd)
+    col[:, j] = c * cj + s * cj1
+    col[:, j + 1] = 0.0
+    cs[:, j] = c
+    sn[:, j] = s
+    gj = g[:, j].clone()
+    g[:, j + 1] = -s * gj
+    g[:, j] = c * gj
+    H[:, :, j] = col
+    conv = torch.abs(g[:, j + 1]) <= tol
+    mj.copy_(torch.where(~found & conv, j + 1, mj))
+    found |= conv
+    if cap:
+        # a column still running has reached the caller's maxiter
+        mj.copy_(torch.where(found, mj, j + 1))
+    flags[j % 2] = torch.all(found | done)
+    flags[(j + 1) % 2] = True
+    flags[2] = False
+
+
+def gmres_arnoldi(V, H, cs, sn, g, w, tol, mj, found, done, flags, j,
+                  cap=False):
+    """Inner step j (0 <= j < m) of a GMRES(m) cycle of every column, in
+    place, given ``w [ncol, n]`` = M A V_j: classical Gram-Schmidt against
+    V's rows 0..j, V's row j + 1, the Hessenberg column H[:, :, j] through
+    the earlier Givens rotations and the new one (cs, sn ``[ncol, m]``),
+    g ``[ncol, m + 1]``, and for the columns whose residual estimate
+    |g_{j+1}| reaches ``tol`` ``[ncol]`` mj = j + 1 and found (int64 and
+    bool ``[ncol]``); with ``cap`` (the caller's maxiter reached at this
+    step) mj = j + 1 for every column not found.  ``flags`` (bool [3]):
+    ``flags[j % 2]`` becomes "every column found or done" (the host's
+    early-exit predicate), ``flags[(j + 1) % 2]`` True, ``flags[2]`` False
+    (:func:`gmres_update` sets it).  V ``[ncol, m + 1, n]`` and H
+    ``[ncol, m + 1, m]``; one dtype (f32 or f64), contiguous, one device.
+    On the card one launch in the form :func:`gmres_plan` picks, reading
+    only V's rows <= j; within rounding of :func:`gmres_arnoldi_plain`
+    (whose V must be zero past row j)."""
+    name = "gmres_arnoldi"
+    ncol, n, m = _check_gmres(name, V, _arnoldi_arrays(
+        H, cs, sn, g, w, tol, mj, found, done, flags))
+    if isinstance(j, bool) or not isinstance(j, int) or not 0 <= j < m:
+        raise ValueError(f"{name}: j={j!r} must be an int in [0, {m})")
+    if V.device.type == "cpu":
+        gmres_arnoldi_plain(V, H, cs, sn, g, w, tol, mj, found, done, flags,
+                            j, cap)
+        return
+    plan = gmres_plan(ncol, n, m, V.dtype)
+    lib = _build.library()
+    fn = lib.mpp_gmres_arnoldi_f64 if V.dtype == torch.float64 else \
+        lib.mpp_gmres_arnoldi_f32
+    with torch.cuda.device(V.device):
+        rc = fn(w.data_ptr(), V.data_ptr(), H.data_ptr(), cs.data_ptr(),
+                sn.data_ptr(), g.data_ptr(), tol.data_ptr(), mj.data_ptr(),
+                found.data_ptr(), done.data_ptr(), flags.data_ptr(), ncol, n,
+                m, j, int(bool(cap)), plan["code"], plan["ctas"],
+                plan["chunk"], plan["threads"], _stream(V))
+    _launched(name, rc)
+
+
+def gmres_update_plain(V, H, g, mj, found, done, x, its, flags):
+    """Plain version of :func:`gmres_update`: the port's eager update."""
+    ncol, m = H.shape[0], H.shape[-1]
+    # mj-truncated back-substitution: y_k = 0 for k >= mj
+    y = g.new_zeros((ncol, m))
+    for jrow in range(m - 1, -1, -1):
+        num = g[:, jrow] - torch.sum(H[:, jrow, :m] * y, dim=-1)
+        hjj = H[:, jrow, jrow]
+        yi = num / torch.where(hjj == 0, 1.0, hjj)
+        y[:, jrow] = torch.where(jrow < mj, yi, 0.0)
+    dx = torch.bmm(y[:, None, :], V[:, :m])[:, 0]
+    x.copy_(torch.where(done[:, None], x, x + dx))
+    its.copy_(torch.where(done, its, its + mj))
+    done |= found
+    flags[:2] = True
+    flags[2] = torch.any(~done)
+
+
+def gmres_update(V, H, g, mj, found, done, x, its, flags):
+    """The end of a GMRES(m) cycle of every column, in place: y from the
+    mj-truncated back substitution of H y = g (rows mj - 1 down to 0), x +=
+    y V[:mj] and its += mj where not ``done``, then done |= found;
+    ``flags[2]`` becomes "a column is left not done" (it must be False on
+    entry, as every :func:`gmres_arnoldi` leaves it), ``flags[0]`` and
+    ``flags[1]`` True.  V ``[ncol, m + 1, n]``, H ``[ncol, m + 1, m]``, g
+    ``[ncol, m + 1]``, x ``[ncol, n]`` (one dtype, f32 or f64); mj, its
+    int64 and found, done bool ``[ncol]``; contiguous, one device.  On the
+    card one launch in the form :func:`gmres_plan` picks, reading only H's
+    columns, g's entries and V's rows below mj; within rounding of
+    :func:`gmres_update_plain`."""
+    name = "gmres_update"
+    ncol, n, m = _check_gmres(name, V, {
+        "H": (H, lambda c, n, m: (c, m + 1, m), "float"),
+        "g": (g, lambda c, n, m: (c, m + 1), "float"),
+        "x": (x, lambda c, n, m: (c, n), "float"),
+        "mj": (mj, lambda c, n, m: (c,), "int64"),
+        "its": (its, lambda c, n, m: (c,), "int64"),
+        "found": (found, lambda c, n, m: (c,), "bool"),
+        "done": (done, lambda c, n, m: (c,), "bool"),
+        "flags": (flags, lambda c, n, m: (3,), "bool")})
+    if V.device.type == "cpu":
+        gmres_update_plain(V, H, g, mj, found, done, x, its, flags)
+        return
+    plan = gmres_plan(ncol, n, m, V.dtype)
+    lib = _build.library()
+    fn = lib.mpp_gmres_update_f64 if V.dtype == torch.float64 else \
+        lib.mpp_gmres_update_f32
+    with torch.cuda.device(V.device):
+        rc = fn(V.data_ptr(), H.data_ptr(), g.data_ptr(), mj.data_ptr(),
+                found.data_ptr(), done.data_ptr(), x.data_ptr(),
+                its.data_ptr(), flags.data_ptr(), ncol, n, m, plan["code"],
+                plan["ctas"], plan["chunk"], plan["threads"], _stream(V))
+    _launched(name, rc)

@@ -64,7 +64,23 @@ by patching the rule's thresholds, each held to its plain form first as
 ``--btl`` holds it, in one process: the readings the rule's thresholds
 come from.
 
-``--paths`` times three main paths through their entry points, in the
+``--gmres`` times one GMRES(30) cycle (30 inner steps and the update,
+ILU(0)-preconditioned, through ``batched/ilu_gmres.gmres_cycles``: this
+checkout's kernels, an earlier tree's eager step) at GMRES_PATHS, the
+Krylov paths' sparsities and columns, on ``chip_smoke.ilu_systems``:
+host-clock ms a cycle ending in a synchronise, the mean of GMRES_REPS
+after a warm cycle, the aten operations one cycle dispatches (a
+TorchDispatchMode: each eager op one, a kernel called through ctypes
+none) and its device time (one torch.profiler window), every tree on the
+same systems, in the trees' turns.
+
+``--gmres-forms`` times this checkout's two GMRES kernels in each form of
+``hk.GMRES_FORMS`` at GMRES_FORM_CASES (f64, m = 30, the step at j = 15,
+the update at mj = 30), the form forced by patching the rule's
+thresholds, and the cluster form at single columns with the CTAs' rows
+GMRES_FORM_CTA_ELEMS: the readings the rule's thresholds come from.
+
+``--paths`` times the main paths through their entry points, in the
 trees' turns as above (wall-clock ms, each ending in a synchronise):
 vsfm_vchannel's "direct" plan at ``chip_smoke.py`` (r)'s size (a warm
 problem of one step first, then a new one's VCH_STEPS steps; ms and host
@@ -72,7 +88,16 @@ syncs a step, Newton iterations), spac_campbell's multi-GE "direct" plan
 as (t) runs it (a warm problem of one step, then CAMP_STEPS steps), and
 the canopy pipeline's staged f32 substeps at (u1)'s width
 (``chip_smoke.run_canopy_timed``: one warm substep, PATH_CANOPY_SUBSTEPS
-timed, its gates held).
+timed, its gates held), and the Krylov paths: (q)'s TH "petsc" at [8192,
+64 cells] f64 (a warm step, then TH_PETSC_STEPS), (r)'s vchannel "petsc"
+(a warm problem of one step, then VCH_STEPS), (w1)'s serial celia1990 (a
+warm step, then W1_CELIA's serial steps) and (x1)'s th_manoli2014 (a warm
+problem of one step, then its 3 steps).  On those, every GMRES solve is
+timed too (``gmres_cycles`` wrapped, the card synchronised before and
+after it), so each reports ms a step, the share of it in GMRES (the rest
+is the Newton machinery around it), host syncs, GMRES cycles, Arnoldi
+steps (the ILU(0) applies less one a cycle, less one where no cycle ran),
+summed inner iterations of the columns and ILU(0) applies, a step.
 
     python -m mpp_tpu_torch.tools.resident_variants [--tree NAME=ROOT ...]
         [TREE ...]                       # default: this and every variant
@@ -84,6 +109,8 @@ timed, its gates held).
         [this no_search ...]
     python -m mpp_tpu_torch.tools.resident_variants --btl-forms
     python -m mpp_tpu_torch.tools.resident_variants --paths --tree NAME=ROOT
+    python -m mpp_tpu_torch.tools.resident_variants --gmres --tree NAME=ROOT
+    python -m mpp_tpu_torch.tools.resident_variants --gmres-forms
     python -m mpp_tpu_torch.tools.resident_variants --sass [--root ROOT]
         [--dump FILE]
 
@@ -196,6 +223,21 @@ BTL_FORM_CASES = tuple((1, 10, m) for m in (16, 20, 24, 32, 40, 48, 64, 96,
 BTL_FORM_CTAS = (4, 16)
 #: --paths: the canopy substeps timed
 PATH_CANOPY_SUBSTEPS = 4
+#: --gmres: (sparsity, columns) of the Krylov paths ((q)'s TH column at 8192
+#: columns, (r)'s vchannel, (w1)'s celia1990, (x1)'s th_manoli2014 at scale
+#: 1 and 10, (v3)'s CompiledMLC at 256 columns), one GMRES(30) cycle each
+GMRES_PATHS = (("th_petsc", 8192), ("vchannel", 1), ("celia1990", 1),
+               ("th_manoli2014", 1), ("th_manoli2014_x10", 1),
+               ("mlc_compiled", 1))
+#: --gmres: timed cycles a case (after one warm cycle)
+GMRES_REPS = 5
+#: --gmres-forms: (columns, rows) of each form's grid, f64, m = 30, step 15;
+#: and the rows a CTA of the cluster form tried at single columns
+GMRES_FORM_CASES = tuple(
+    (c, n) for c in (1, 4, 16, 64, 256, 1024, 8192)
+    for n in (32, 128, 512, 2048, 8192) if c * n <= 8192 * 512) + \
+    tuple((1, n) for n in (100, 500, 5000, 6000, 95232))
+GMRES_FORM_CTA_ELEMS = (256, 1024, 2048)
 # opcodes counted on the hot path
 SASS_OPS = ("FADD", "FMUL", "FFMA", "DADD", "DMUL", "DFMA", "MUFU", "F2F",
             "FCHK", "FSEL", "SEL", "FSETP", "DSETP", "SHFL", "IMAD", "ISETP",
@@ -364,6 +406,300 @@ def time_ilu(data_path):
             if cold:
                 out[case + " cold"] = _device_ms(torch, call, flush=flush,
                                                  name="ilu0")
+    return out
+
+
+def gmres_sparsities(path):
+    """ilu_sparsities' patterns plus (r)'s vchannel Jacobian ("petsc" plan,
+    6000 unknowns), written to ``path``."""
+    import numpy as np
+    from mpp_tpu_torch.problems import vsfm_vchannel as vch
+    ilu_sparsities(path)
+    cs = _chip_smoke()
+    ilu = vch.run_vsfm_vchannel_problem(
+        nz=cs.VCH_NZ, nstep=0, use_compiled=True, linear_solver="petsc",
+        device="cpu").soe.step_dt.__self__._ilu
+    pats = dict(np.load(path))
+    pats.update(vchannel_indptr=ilu.indptr, vchannel_indices=ilu.indices)
+    np.savez(path, **pats)
+
+
+def time_gmres(data_path):
+    """{case: host ms} of one GMRES(30) cycle at GMRES_PATHS (f64), in the
+    tree whose package is first on sys.path, on the sparsities at
+    ``data_path``: ``gmres_cycles`` with ILU(0), tolerances no column
+    reaches (every inner step runs) and one cycle, timed from a
+    synchronise to a synchronise, GMRES_REPS times after a warm cycle."""
+    import numpy as np
+    import torch
+    from mpp_tpu_torch.batched import ilu_gmres as ig
+    if not torch.cuda.is_available():
+        raise RuntimeError("torch.cuda.is_available() is false")
+    systems = _chip_smoke().ilu_systems
+    pats = np.load(data_path)
+    out = {}
+    for path, B in GMRES_PATHS:
+        ilu = ig.BatchedILU0(pats[f"{path}_indptr"], pats[f"{path}_indices"])
+        mv = ig.make_ell_matvec(ilu.indptr, ilu.indices)
+        data, b = (torch.as_tensor(a, device="cuda")
+                   for a in systems(ilu, B, seed=B + ilu.n))
+        f = ilu.factor(data)
+
+        def cycle():
+            return ig.gmres_cycles(mv, data, b, ilu, f, rtol=0.0, atol=0.0,
+                                   maxcycles=1)
+        x, k, done, its = cycle()
+        if k != 1 or bool(done.any()) or not bool(torch.isfinite(x).all()):
+            raise RuntimeError(f"{path}: {k} cycles, {int(done.sum())} "
+                               "columns done, or a non-finite x")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(GMRES_REPS):
+            cycle()
+        torch.cuda.synchronize()
+        m = min(30, ilu.n)
+        case = f"cycle {path} [{B},{ilu.n}] m={m}"
+        out[f"{case} ms"] = (time.perf_counter() - t0) * 1e3 / GMRES_REPS
+        with _Dispatches() as count:
+            cycle()
+        out[f"{case} aten_dispatches"] = count.n
+        out[f"{case} device_ms"] = _window_device_ms(torch, cycle)
+    return out
+
+
+def _window_device_ms(torch, fn):
+    """The summed durations of the device activities (kernels, copies,
+    fills) torch.profiler records over one ``fn()``, in ms (one window: a
+    record the trace loses reads low)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / 1e3
+
+
+class _Dispatches:
+    """Counts the aten operations dispatched inside it (a
+    TorchDispatchMode): a call of a hand-written kernel through ctypes is
+    none, an eager op one."""
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+        outer = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                outer.n += 1
+                return func(*args, **(kwargs or {}))
+        self.n, self.mode = 0, Mode()
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self.mode.__exit__(*exc)
+
+
+def _gmres_state(torch, ncol, n, m, j, dtype, seed):
+    """The arguments of both GMRES kernels at step j, drawn on the card:
+    V's rows 0..j unit vectors, rotations from random angles, no column
+    found or done, tolerances none reaches, mj = m."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = dict(device="cuda", dtype=dtype)
+
+    def draw(*shape):
+        return torch.randn(*shape, generator=g, **dev)
+    V = torch.empty(ncol, m + 1, n, **dev)
+    V[:, :j + 1] = draw(ncol, j + 1, n)
+    V[:, :j + 1] /= V[:, :j + 1].norm(dim=-1, keepdim=True)
+    th = 6.2831853 * torch.rand(ncol, m, generator=g, **dev)
+    H = torch.triu(draw(ncol, m + 1, m)) + 4.0 * torch.eye(m + 1, m, **dev)
+    gv = draw(ncol, m + 1)
+    return dict(V=V, H=H, cs=torch.cos(th), sn=torch.sin(th), g=gv,
+                w=draw(ncol, n), tol=torch.full((ncol,), 1e-300, **dev),
+                mj=torch.full((ncol,), m, dtype=torch.int64, device="cuda"),
+                found=torch.zeros(ncol, dtype=torch.bool, device="cuda"),
+                done=torch.zeros(ncol, dtype=torch.bool, device="cuda"),
+                flags=torch.ones(3, dtype=torch.bool, device="cuda"),
+                x=draw(ncol, n),
+                its=torch.zeros(ncol, dtype=torch.int64, device="cuda"))
+
+
+def time_gmres_forms():
+    """{case: device ms} of gmres_arnoldi (j = 15) and gmres_update (mj =
+    30) in each form at GMRES_FORM_CASES, f64, m = 30, and of the cluster
+    form with its CTAs' rows GMRES_FORM_CTA_ELEMS at single columns."""
+    from functools import partial
+
+    import torch
+    from mpp_tpu_torch.ops import hopper_kernels as hk
+    if not torch.cuda.is_available():
+        raise RuntimeError("torch.cuda.is_available() is false")
+    m, j = 30, 15
+    rule = (hk.GMRES_WARP_MIN_COLS, hk.GMRES_WARP_MAX_N, hk.GMRES_CTA_ELEMS)
+    out = {}
+
+    def run(tag, ncol, n):
+        st = _gmres_state(torch, ncol, n, m, j, torch.float64, ncol + n)
+        step = partial(hk.gmres_arnoldi, *(st[k] for k in (
+            "V", "H", "cs", "sn", "g", "w", "tol", "mj", "found", "done",
+            "flags")), j)
+        update = partial(hk.gmres_update, *(st[k] for k in (
+            "V", "H", "g", "mj", "found", "done", "x", "its", "flags")))
+        form = hk.gmres_form(ncol, n, m, torch.float64)
+        out[f"{tag} arnoldi j={j} [{ncol},{n}]"] = dict(
+            form=form, ms=_device_ms(torch, step, name="arnoldi"))
+        out[f"{tag} update [{ncol},{n}]"] = dict(
+            form=form, ms=_device_ms(torch, update, name="update"))
+        del st
+        torch.cuda.empty_cache()
+    try:
+        for form in hk.GMRES_FORMS:
+            hk.GMRES_WARP_MAX_N = 10 ** 9 if form == "warp" else 0
+            hk.GMRES_WARP_MIN_COLS = 10 ** 9
+            for ncol, n in GMRES_FORM_CASES:
+                run(form, ncol, n)
+        hk.GMRES_WARP_MAX_N = 0
+        for elems in GMRES_FORM_CTA_ELEMS:
+            hk.GMRES_CTA_ELEMS = elems
+            for n in (500, 2048, 6000, 95232):
+                run(f"cluster cta_elems={elems}", 1, n)
+    finally:
+        hk.GMRES_WARP_MIN_COLS, hk.GMRES_WARP_MAX_N, hk.GMRES_CTA_ELEMS = rule
+    return out
+
+
+class _GmresLog:
+    """``gmres_cycles`` (``batched/ilu_gmres`` and ``ops/ilu``'s name for
+    it) wrapped in the tree on sys.path: every solve's seconds (the card
+    synchronised before and after it), cycles, Arnoldi steps (its
+    preconditioner's applies less one a cycle, less one where no cycle
+    ran), the columns' summed inner iterations and the applies."""
+
+    def __init__(self, torch):
+        from mpp_tpu_torch.batched import ilu_gmres as ig
+        from mpp_tpu_torch.ops import ilu as oi
+        self.real, self.mods = ig.gmres_cycles, (ig, oi)
+        self.reset()
+
+        def wrapped(matvec, data, b, ilu=None, pc_data=None, *args, **kw):
+            torch.cuda.synchronize()
+            a0 = 0 if ilu is None else ilu.applies
+            t0 = time.perf_counter()
+            out = self.real(matvec, data, b, ilu, pc_data, *args, **kw)
+            torch.cuda.synchronize()
+            self.s += time.perf_counter() - t0
+            k = out[1]
+            self.cycles += k
+            self.its += int(out[3].sum())
+            if ilu is not None:
+                self.applies += ilu.applies - a0
+                self.steps += ilu.applies - a0 - k - (k == 0)
+            return out
+        for mod in self.mods:
+            mod.gmres_cycles = wrapped
+
+    def reset(self):
+        self.s, self.cycles, self.steps, self.its, self.applies = \
+            0.0, 0, 0, 0, 0
+
+    def close(self):
+        for mod in self.mods:
+            mod.gmres_cycles = self.real
+
+    def rows(self, tag, steps, seconds, syncs):
+        return {f"{tag} ms_per_step": seconds * 1e3 / steps,
+                f"{tag} gmres_share": self.s / seconds,
+                f"{tag} host_syncs_per_step": syncs / steps,
+                f"{tag} gmres_cycles_per_step": self.cycles / steps,
+                f"{tag} arnoldi_steps_per_step": self.steps / steps,
+                f"{tag} inner_iterations_per_step": self.its / steps,
+                f"{tag} ilu_applies_per_step": self.applies / steps}
+
+
+def time_krylov_paths(torch, cs):
+    """time_paths' Krylov paths: (q) TH "petsc", (r) vchannel "petsc",
+    (w1) serial celia1990 and (x1) th_manoli2014, each with its GMRES
+    solves timed (_GmresLog)."""
+    import numpy as np
+    from mpp_tpu_torch.batched.th_compiled import compile_th
+    from mpp_tpu_torch.constants import AuxVarKind, Var
+    from mpp_tpu_torch.problems import th, th_manoli2014 as tm
+    from mpp_tpu_torch.problems import vsfm_celia1990 as celia
+    from mpp_tpu_torch.problems import vsfm_vchannel as vch
+    log, out = _GmresLog(torch), {}
+
+    def timed(tag, counter, nsteps, step):
+        torch.cuda.synchronize()
+        log.reset()
+        s0, t0 = counter(), time.perf_counter()
+        for istep in range(nsteps):
+            step(istep)
+        torch.cuda.synchronize()
+        out.update(log.rows(tag, nsteps, time.perf_counter() - t0,
+                            counter() - s0))
+    try:
+        mpp, _ = th.run_mass_and_heat(nx=cs.TH_NH, compiled=True,
+                                      linear_solver="direct", device="cpu")
+        comp = compile_th(mpp)
+        X, bc, ss, dyn = cs.th_inputs(torch, comp, mpp.soe.soln, cs.TH_NCOL,
+                                      "cuda", torch.float64)
+        state = [comp.step_batched(X, bc, ss, cs.TH_DT, dyn=dyn)[0]]
+
+        def th_step(_):
+            X, _, ok, _ = comp.step_batched(state[0], bc, ss, cs.TH_DT,
+                                            dyn=dyn)
+            if not bool(ok.all()):
+                raise RuntimeError("(q) petsc: a column did not converge")
+            state[0] = X
+        timed("th_petsc", lambda: comp.host_syncs, cs.TH_PETSC_STEPS,
+              th_step)
+        for steps in (1, cs.VCH_STEPS):    # a warm problem, then the timed
+            mpp = vch.run_vsfm_vchannel_problem(
+                nz=cs.VCH_NZ, nstep=0, use_compiled=True,
+                linear_solver="petsc", device="cuda")
+            comp = mpp.soe.step_dt.__self__
+
+            def vch_step(i, mpp=mpp):
+                ok, reason = mpp.soe.step_dt(cs.VCH_DT, i + 1)
+                if not ok:
+                    raise RuntimeError(f"vchannel petsc: reason {reason}")
+            timed("vchannel_petsc", lambda c=comp: c.host_syncs, steps,
+                  vch_step)
+        out["vchannel_petsc newton_iters"] = \
+            mpp.soe.cumulative_newton_iterations
+        w1 = cs.W1_CELIA
+        mpp = celia.run_vsfm_celia1990_problem(nz=w1["nz"], dtime=w1["dt"],
+                                               nstep=0, device="cuda")
+
+        def celia_step(i):
+            mpp.set_data(AuxVarKind.BC, Var.BC_SS_CONDITION, 1,
+                         np.full(1, 9.3991e4))
+            mpp.set_data(AuxVarKind.BC, Var.BC_SS_CONDITION, 2,
+                         np.full(1, 3.5355e3))
+            ok, reason = mpp.soe.step_dt(w1["dt"], i + 1)
+            if not ok:
+                raise RuntimeError(f"celia1990: reason {reason}")
+        celia_step(0)                      # the warm step
+        timed("celia1990_serial", lambda: mpp.soe.host_syncs,
+              w1["serial_steps"], lambda i: celia_step(i + 1))
+        x1 = cs.X1_TH_SPAC
+        for steps in (1, x1["steps"]):     # a warm problem, then the timed
+            mpp = tm.build_th_manoli2014(device="cuda")
+
+            def tm_step(i, soe=mpp.soe):
+                ok, reason = soe.step_dt(x1["dt"], i + 1)
+                if not ok:
+                    raise RuntimeError(f"th_manoli2014: reason {reason}")
+            timed("th_manoli2014", lambda s=mpp.soe: s.host_syncs, steps,
+                  tm_step)
+        out["th_manoli2014 newton_iters"] = \
+            mpp.soe.cumulative_newton_iterations
+    finally:
+        log.close()
     return out
 
 
@@ -607,6 +943,7 @@ def time_paths():
     out["canopy_u1_f32 ms_per_substep"] = row["ms_per_substep"]
     out["canopy_u1_f32 host_syncs_per_substep"] = \
         row["host_syncs_per_substep"]
+    out.update(time_krylov_paths(torch, cs))
     return out
 
 
@@ -748,12 +1085,14 @@ def main(argv=None):
     ap.add_argument("--btl", action="store_true")
     ap.add_argument("--btl-forms", action="store_true")
     ap.add_argument("--paths", action="store_true")
+    ap.add_argument("--gmres", action="store_true")
+    ap.add_argument("--gmres-forms", action="store_true")
     ap.add_argument("--root", default=THIS)
     ap.add_argument("--dump")
     ap.add_argument("--child", choices=("time", "sass", "ilu", "bts",
                                         "bts_variant", "bts_forms", "btl",
                                         "btl_variant", "btl_forms",
-                                        "paths"))
+                                        "paths", "gmres", "gmres_forms"))
     args = ap.parse_args(argv)
     if args.child:
         sys.path.insert(0, os.path.abspath(args.root))
@@ -763,6 +1102,8 @@ def main(argv=None):
                "bts_forms": time_bts_forms, "btl": time_btl,
                "btl_variant": lambda: time_btl(held=False),
                "btl_forms": time_btl_forms, "paths": time_paths,
+               "gmres": lambda: time_gmres(args.dump),
+               "gmres_forms": time_gmres_forms,
                "sass": lambda: sass_sweeps(args.dump)}[args.child]()
         print(json.dumps(res))
         return
@@ -783,13 +1124,18 @@ def main(argv=None):
         print(json.dumps(dict(card=card(), btl_forms_device_ms=_child(
             "btl_forms", THIS, None))))
         return
+    if args.gmres_forms:
+        print(json.dumps(dict(card=card(), gmres_forms_device_ms=_child(
+            "gmres_forms", THIS, None))))
+        return
     roots, mode, data = {}, "time", None
     for spec in args.tree:
         name, root = spec.split("=", 1)
         roots[name] = os.path.abspath(root)
     roots["this"] = THIS
     for name in args.trees or ([] if args.ilu or args.bts or args.btl
-                               or args.paths else list(VARIANTS)):
+                               or args.paths or args.gmres
+                               else list(VARIANTS)):
         if name != "this":
             roots[name] = make_variant(name, BTS_SOURCE, BTS_VARIANTS) \
                 if args.bts else make_variant(name, BTL_SOURCE,
@@ -806,6 +1152,11 @@ def main(argv=None):
         mode = "btl"
     elif args.paths:
         mode = "paths"
+    elif args.gmres:
+        mode = "gmres"
+        data = os.path.join(_PKG, "_build", "gmres_sparsities.npz")
+        os.makedirs(os.path.dirname(data), exist_ok=True)
+        gmres_sparsities(data)
     order = list(roots)
     times = {name: [] for name in order}
     for k in range(ROUNDS):
@@ -821,8 +1172,8 @@ def main(argv=None):
                for case in cases}
     print(json.dumps(dict(card=card(), order=order,
                           runs_per_tree=2 * ROUNDS,
-                          **{"mean" if args.paths else "mean_device_ms":
-                             summary})))
+                          **{"mean" if args.paths else "mean_ms" if
+                             args.gmres else "mean_device_ms": summary})))
 
 
 if __name__ == "__main__":
