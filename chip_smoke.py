@@ -270,8 +270,10 @@ line is printed):
       the update after each: at the Krylov paths' shapes (GMRES_PATHS:
       (q)'s [8192, 128], (r)'s [1, 6000], (w1)'s [1, 100], (x1)'s [1, 500]
       and [1, 5000], (v3)'s [1, 95232]; m = 30; the rule's form in f64
-      timed at j = 0, 15 and 29 and the update: ms, device ms, plain ms,
-      the plain step's two torch.bmm device ms, the bound) and at the
+      timed at j = 0, 15 and 29 and the update, launched through a
+      GmresLauncher bound once as the solver launches them: ms, device
+      ms, plain ms, the plain step's two torch.bmm device ms, the
+      bound) and at the
       edges (GMRES_EDGES: n = 1, 2, 31, 32, 33, 1000, each side of the
       rule's thresholds, m = 1, 4, 30, the serial engine's m = 30 past n
       = 8 and 20 with a column whose w is 0 (hlast == 0), inputs not
@@ -607,9 +609,9 @@ GMRES_PATHS = (("th_petsc", TH_NCOL, 2 * TH_NH), ("vchannel_petsc", 1, 6000),
 GMRES_EDGES = (("n1_m1", 33, 1, 1, False), ("n2_m2", 33, 2, 2, False),
                ("n31_m4", 33, 31, 4, False), ("n32", 9, 32, 30, False),
                ("n33", 9, 33, 30, False), ("n1000", 5, 1000, 30, False),
-               ("cols63_n128", 63, 128, 30, False),
-               ("cols64_n128", 64, 128, 30, False),
-               ("cols64_n129", 64, 129, 30, False),
+               ("cols1023_n128", 1023, 128, 30, False),
+               ("cols1024_n128", 1024, 128, 30, False),
+               ("cols1024_n129", 1024, 129, 30, False),
                ("restart_past_n8", 3, 8, 30, False),
                ("restart_past_n20", 3, 20, 30, False),
                ("misaligned", 9, 33, 30, True))
@@ -3841,6 +3843,8 @@ def btl_kernel_checks(torch, hk):
 ARNOLDI_ARGS = ("V", "H", "cs", "sn", "g", "w", "tol", "mj", "found",
                 "done", "flags")
 UPDATE_ARGS = ("V", "H", "g", "mj", "found", "done", "x", "its", "flags")
+LAUNCHER_ARGS = ("V", "H", "cs", "sn", "g", "tol", "mj", "found", "done",
+                 "flags", "x", "its")
 
 
 def gmres_state(torch, hk, ncol, n, m, j, dt_name, seed, zero_w=False,
@@ -4070,10 +4074,11 @@ def gmres_path_rows(torch, hk, path, ncol, n, m, j, errs):
     where every column runs and none converges: the step at j (and at j =
     m - 1 the update after it, on a copy of its own that one step left,
     so that no repeated step converges a column the update then skips),
-    each with its ms (CUDA events), queued device ms, bound, plain ms and
-    (``errs``) the largest absolute error of its hold; the step's beside
-    the device ms of its plain form's two torch.bmm (the reference in the
-    library column)."""
+    each launched through a GmresLauncher bound once, as gmres_cycles
+    launches it, with its ms (CUDA events), queued device ms, bound, plain
+    ms and (``errs``) the largest absolute error of its hold; the step's
+    beside the device ms of its plain form's two torch.bmm (the reference
+    in the library column)."""
     st = gmres_state(torch, hk, ncol, n, m, j, "float64", seed=n + j,
                      clean=True)
     plan = hk.gmres_plan(ncol, n, m, torch.float64)
@@ -4086,15 +4091,16 @@ def gmres_path_rows(torch, hk, path, ncol, n, m, j, errs):
     def bmms():
         torch.bmm(V, w[:, :, None])
         torch.bmm(h[:, None, :], V)
-    calls = [("gmres_arnoldi", st,
-              partial(hk.gmres_arnoldi, *(st[k] for k in ARNOLDI_ARGS), j),
+    # timed as the solver launches them: through a launcher bound once
+    launch = hk.GmresLauncher(*(st[k] for k in LAUNCHER_ARGS))
+    calls = [("gmres_arnoldi", st, partial(launch.arnoldi, st["w"], j),
               partial(hk.gmres_arnoldi_plain,
                       *(plain[k] for k in ARNOLDI_ARGS), j), errs[0])]
     if j == m - 1:
         plain_after = {k: v.clone() for k, v in after.items()}
         calls.append(("gmres_update", after,
-                      partial(hk.gmres_update,
-                              *(after[k] for k in UPDATE_ARGS)),
+                      hk.GmresLauncher(*(after[k] for k in LAUNCHER_ARGS)
+                                       ).update,
                       partial(hk.gmres_update_plain,
                               *(plain_after[k] for k in UPDATE_ARGS)),
                       errs[1]))

@@ -37,7 +37,11 @@ stops at, so the port replicates it with a batch axis of columns.
   reads (Gram-Schmidt, the Givens rotations, the back substitution and the
   bookkeeping in ``csrc/gmres_kernels.cu``, the basis made once a solve);
   on the CPU their plain forms, the eager ops over a basis zero-filled
-  every cycle.  ``CARD_CALLS`` counts the steps and cycles on the card.
+  every cycle.  Both go through a ``hopper_kernels.GmresLauncher`` made
+  once a workspace: the full check, and on the card the plan and the
+  bound pointers, once a solve there (once a cycle on the CPU); a step
+  checks only its fresh w and j.  ``CARD_CALLS`` counts the steps and
+  cycles on the card.
 
 Of the JAX package's ``lax.scan``, ``fori_loop`` and ``while_loop``s
 (outside any Pallas kernel), the ILU(0) sweeps and GMRES's inner step and
@@ -284,27 +288,34 @@ def gmres_cycles(matvec, data, b, ilu: BatchedILU0 = None, pc_data=None,
     # the loop predicates as the kernels write them: [every column found
     # or done after an even / odd inner step, a column left after a cycle]
     flags = torch.ones(3, dtype=torch.bool, device=b.device)
+    # a cycle's truncation and converged columns, rewritten in place
+    mj = torch.empty(ncol, dtype=torch.int64, device=b.device)
+    found = torch.empty(ncol, dtype=torch.bool, device=b.device)
     left = torch.any(~done)
-    ws = None
+    ws = launch = None
     k = 0
     capped = False
     while k < maxcycles and not capped and sync(left):
         # the first cycle's residual is r0 itself (x is still zero)
         r = r0 if k == 0 else M(b - matvec(data, x))
-        ws = hk.gmres_workspace(b, m, ws)
+        fresh = hk.gmres_workspace(b, m, ws)
+        if fresh is not ws:
+            # checked, and on the card planned and bound, once a workspace
+            ws = fresh
+            launch = hk.GmresLauncher(*ws, tol, mj, found, done, flags, x,
+                                      its)
         V, H, cs, sn, g = ws
         beta = _colnorm(r)
-        found = beta <= tol
+        torch.le(beta, tol, out=found)
         V[:, 0] = r / torch.where(beta == 0, 1.0, beta)[:, None]
         g[:, 0] = beta
-        mj = torch.where(found, 0, m)
+        mj.fill_(m).masked_fill_(found, 0)
         for j in range(m):
             w = M(matvec(data, V[:, j])).contiguous()
             # a column still running has taken k*m + j + 1 inner steps
             cap = maxiter is not None and k * m + j + 1 >= maxiter
             _count(b, "arnoldi")
-            hk.gmres_arnoldi(V, H, cs, sn, g, w, tol, mj, found, done, flags,
-                             j, cap)
+            launch.arnoldi(w, j, cap)
             if cap:
                 capped = True
                 break
@@ -313,7 +324,7 @@ def gmres_cycles(matvec, data, b, ilu: BatchedILU0 = None, pc_data=None,
             if j + 1 < m and sync(flags[j % 2]):
                 break
         _count(b, "update")
-        hk.gmres_update(V, H, g, mj, found, done, x, its, flags)
+        launch.update()
         left = flags[2]
         k += 1
     return x, k, done, its

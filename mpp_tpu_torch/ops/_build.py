@@ -37,7 +37,9 @@ _D = ctypes.c_double
 #: ILU(0) forms' limits; ``mpp_block_thomas_small_scratch`` a launch's
 #: scratch values, ``mpp_block_thomas_large_cluster_*`` the cluster
 #: form's shared bytes and scratch values and ``mpp_gmres_smem`` a GMRES
-#: launch's shared bytes, each a ``c_longlong``: RESTYPES)
+#: launch's shared bytes, each a ``c_longlong``: RESTYPES; the GMRES
+#: launchers take the address of a workspace's bound ``GmresArgs``,
+#: ``hopper_kernels._GmresArgs``)
 SIGNATURES = {
     "mpp_thomas_max_on_chip": (_I,),
     "mpp_thomas_f32": (_P,) * 6 + (_I, _I, _P),
@@ -72,11 +74,11 @@ SIGNATURES = {
     "mpp_ilu0_factor_f64": (_P,) * 4 + (_I,) * 11 + (_P,),
     "mpp_ilu0_apply_f32": (_P,) * 5 + (_I,) * 11 + (_P,),
     "mpp_ilu0_apply_f64": (_P,) * 5 + (_I,) * 11 + (_P,),
-    "mpp_gmres_smem": (_I,) * 5,
-    "mpp_gmres_arnoldi_f32": (_P,) * 11 + (_I,) * 9 + (_P,),
-    "mpp_gmres_arnoldi_f64": (_P,) * 11 + (_I,) * 9 + (_P,),
-    "mpp_gmres_update_f32": (_P,) * 9 + (_I,) * 7 + (_P,),
-    "mpp_gmres_update_f64": (_P,) * 9 + (_I,) * 7 + (_P,),
+    "mpp_gmres_smem": (_I,) * 6,
+    "mpp_gmres_arnoldi_f32": (_P, _P, _I, _I, _P),
+    "mpp_gmres_arnoldi_f64": (_P, _P, _I, _I, _P),
+    "mpp_gmres_update_f32": (_P, _P),
+    "mpp_gmres_update_f64": (_P, _P),
 }
 
 #: launchers and queries whose result is not a ``c_int``

@@ -87,6 +87,8 @@ falls back.  Each launch adds one to ``LAUNCHES[name]``.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from mpp_tpu_torch.ops import _build
@@ -888,67 +890,82 @@ def ilu0_apply(f, b, sched):
 # ---- GMRES(m): the Arnoldi step and the cycle update ----------------------
 
 #: the forms of :func:`gmres_arnoldi` / :func:`gmres_update`
-#: (csrc/gmres_kernels.cu): "warp", a warp a column, GMRES_WARP_COLS columns
-#: a block (many short columns); "cluster", a thread-block cluster a
-#: column, its rows split over the CTAs (few long columns)
+#: (csrc/gmres_kernels.cu): "warp", a warp a column, up to GMRES_WARP_COLS
+#: columns a block, m <= GMRES_WARP_MAX_M (many short columns); "cluster",
+#: a thread-block cluster a column, its rows split over the CTAs, each with
+#: a warp for the serial tail (few long columns)
 GMRES_FORMS = ("warp", "cluster")
-#: the kernels' kWarpCols, kCtaThreads and kMaxCluster
+#: the kernels' kWarpCols, kWarpMaxM, kCtaThreads and kMaxCluster
 GMRES_WARP_COLS = 4
+GMRES_WARP_MAX_M = 32
 GMRES_CTA_THREADS = 512
 GMRES_CLUSTER_MAX = 16
 #: rows of a column a CTA of the cluster form takes (ceil(n / this) CTAs,
-#: to GMRES_CLUSTER_MAX): of 512, 1024, 2048, 4096 and 8192, 512 read
-#: fastest at one column of 2048 and 6000 rows (10.2 / 10.7 us a step
-#: against 17.5 / 20.7 at 2048), all but 8192 alike at 95232; the form
-#: rule's grid was read at 512 (256 read 1 us faster at one column: PERF.md
-#: open question 16)
-GMRES_CTA_ELEMS = 512
+#: to GMRES_CLUSTER_MAX): of 256, 512, 1024 and 2048, 256 reads fastest at
+#: one column of 500, 2048 and 6000 rows (a 30-step cycle and its update
+#: 166 / 177 / 215 us; 512: 209 / 214 / 228; 1024: 209 / 254 / 268), all
+#: alike at 95232 (``tools/resident_variants.py --gmres-forms`` on one
+#: H100, PERF.md row 15)
+GMRES_CTA_ELEMS = 256
 #: the rule: the warp form for columns of at most GMRES_WARP_MAX_N rows, or
 #: of at most GMRES_WARP_MAX_N_WIDE rows from GMRES_WARP_MIN_COLS columns;
 #: the cluster form otherwise.  From the forms' device times on one H100
 #: (``tools/resident_variants.py --gmres-forms``, PERF.md row 15; a cycle
-#: weighed as 30 steps and an update): the warp form wins at 32 rows at
-#: every width (1-8192 columns), the cluster form at 100 rows of one
-#: column and from 512 rows at every width (8192 columns too); at 128 rows
-#: the two tie to 16 columns and the warp form wins from 64 ((q)'s [8192,
-#: 128]: 125.8 against 131.2 us a step, 185.6 against 244.9 an update).
+#: weighed as 30 steps at j = 15 and an update): the warp form wins at 32
+#: rows at every width (1-8192 columns), the cluster form at 100-128 rows
+#: to 256 columns and from 512 rows; at 128 rows the warp form wins from
+#: 1024 columns (291 against 407 us a cycle; (q)'s [8192, 128]: 2595
+#: against 3035); at 512 rows and 8192 columns, a shape no path runs, the
+#: two tie (11.46 against 11.59 ms).
 #: Tests and tools force a form by patching these.
 GMRES_WARP_MAX_N = 32
 GMRES_WARP_MAX_N_WIDE = 128
-GMRES_WARP_MIN_COLS = 64
+GMRES_WARP_MIN_COLS = 1024
 
 
-def gmres_smem(kernel, form, m, threads, elem):
-    """Dynamic shared bytes of a launch (the kernels' smem_bytes): kernel
-    "arnoldi" or "update", form "warp" or "cluster" (``threads`` a CTA),
-    ``elem`` bytes a value."""
+def gmres_smem(kernel, form, m, threads, elem, ctas=GMRES_CLUSTER_MAX):
+    """Dynamic shared bytes of a launch without its slots (the kernels'
+    base_bytes, the launcher's ``mpp_gmres_smem``): kernel "arnoldi" or
+    "update", form "warp" (GMRES_WARP_COLS columns a block, the most a
+    launch takes) or "cluster" (``threads`` element threads and ``ctas``
+    CTAs), ``elem`` bytes a value.  A launch adds its slots (w and V's
+    rows a thread reads) where they fit."""
+    update = m * m + 3 * m
     if form == "warp":
-        values = GMRES_WARP_COLS * (3 * m + 2 if kernel == "arnoldi"
-                                    else m * m + m)
-    elif kernel == "arnoldi":
-        nw = threads // 32
-        values = (m + 1) * nw + (m + 1) + (m + 2) + 2 + 2 * m
-    else:
-        values = m * m + m
-    return values * elem
+        step = (m + 1) + (m + 2) + 2 * m
+        return GMRES_WARP_COLS * (step if kernel == "arnoldi" else update) \
+            * elem
+    if kernel == "arnoldi":
+        # the partial dots a CTA exchanges, in rows of 16-byte multiples
+        stride = -(-(m + 1) * elem // 16) * 16 // elem
+        values = stride * (ctas + 1) + threads + (m + 1) + \
+            GMRES_CTA_THREADS // 32 + ctas + (m + 2) + 2 * m
+        return 16 + values * elem
+    return update * elem
 
 
-def _gmres_fits(form, m, threads, elem):
-    return max(gmres_smem(k, form, m, threads, elem)
+def _gmres_fits(form, m, threads, elem, ctas=GMRES_CLUSTER_MAX):
+    if form == "warp" and m > GMRES_WARP_MAX_M:
+        return False
+    return max(gmres_smem(k, form, m, threads, elem, ctas)
                for k in ("arnoldi", "update")) <= ON_CHIP_BYTES
+
+
+def _elem(dtype):
+    return 8 if dtype == torch.float64 else 4
 
 
 def gmres_form(ncol, n, m, dtype):
     """The form of :func:`gmres_arnoldi` / :func:`gmres_update` the rule
     picks for ``ncol`` columns of ``n`` rows, Krylov dimension ``m``, in
     ``dtype``: "warp" for columns of at most GMRES_WARP_MAX_N rows, or of
-    at most GMRES_WARP_MAX_N_WIDE from GMRES_WARP_MIN_COLS columns, where
-    its shared memory holds m; else "cluster".  By shape alone; monotone:
-    more columns or fewer rows never leave the warp form."""
-    elem = torch.empty((), dtype=dtype).element_size()
+    at most GMRES_WARP_MAX_N_WIDE from GMRES_WARP_MIN_COLS columns, where m
+    <= GMRES_WARP_MAX_M and its shared memory holds m; else "cluster".  By
+    shape alone; monotone: more columns or fewer rows never leave the warp
+    form."""
     short = n <= GMRES_WARP_MAX_N or \
         (n <= GMRES_WARP_MAX_N_WIDE and ncol >= GMRES_WARP_MIN_COLS)
-    if short and _gmres_fits("warp", m, 32 * GMRES_WARP_COLS, elem):
+    if short and _gmres_fits("warp", m, 32, _elem(dtype)):
         return "warp"
     return "cluster"
 
@@ -956,19 +973,20 @@ def gmres_form(ncol, n, m, dtype):
 def gmres_plan(ncol, n, m, dtype):
     """The launch of both GMRES kernels at ``ncol`` columns of ``n`` rows,
     Krylov dimension ``m``, in ``dtype``: the rule's ``form`` and its
-    ``code``, and for the cluster form ``ctas`` a column (ceil(n /
-    GMRES_CTA_ELEMS), 1 to GMRES_CLUSTER_MAX), ``chunk`` rows a CTA and
-    ``threads`` a CTA (the chunk rounded up to warps, at most
-    GMRES_CTA_THREADS).  ValueError where m outgrows shared memory."""
+    ``code``; for the warp form ``threads`` 32 (a warp a column), for the
+    cluster form ``ctas`` a column (ceil(n / GMRES_CTA_ELEMS), 1 to
+    GMRES_CLUSTER_MAX), ``chunk`` rows a CTA and ``threads`` element
+    threads a CTA (the chunk rounded up to warps, at most
+    GMRES_CTA_THREADS; the tail's warp is one more).  ValueError where m
+    outgrows shared memory."""
     form = gmres_form(ncol, n, m, dtype)
     if form == "warp":
-        ctas, chunk, threads = 0, 0, 32 * GMRES_WARP_COLS
+        ctas, chunk, threads = 0, 0, 32
     else:
         ctas = max(1, min(GMRES_CLUSTER_MAX, -(-n // GMRES_CTA_ELEMS), n))
         chunk = -(-n // ctas)
         threads = min(GMRES_CTA_THREADS, max(32, -(-chunk // 32) * 32))
-    elem = torch.empty((), dtype=dtype).element_size()
-    if not _gmres_fits(form, m, threads, elem):
+    if not _gmres_fits(form, m, threads, _elem(dtype), ctas):
         raise ValueError(f"gmres: Krylov dimension {m} outgrows shared "
                          f"memory in {dtype}")
     return dict(form=form, code=GMRES_FORMS.index(form), ctas=ctas,
@@ -1043,17 +1061,112 @@ def _check_gmres(name, V, arrays):
     return ncol, n, m
 
 
-def _arnoldi_arrays(H, cs, sn, g, w, tol, mj, found, done, flags):
-    return {"H": (H, lambda c, n, m: (c, m + 1, m), "float"),
-            "cs": (cs, lambda c, n, m: (c, m), "float"),
-            "sn": (sn, lambda c, n, m: (c, m), "float"),
-            "g": (g, lambda c, n, m: (c, m + 1), "float"),
-            "w": (w, lambda c, n, m: (c, n), "float"),
-            "tol": (tol, lambda c, n, m: (c,), "float"),
-            "mj": (mj, lambda c, n, m: (c,), "int64"),
-            "found": (found, lambda c, n, m: (c,), "bool"),
-            "done": (done, lambda c, n, m: (c,), "bool"),
-            "flags": (flags, lambda c, n, m: (3,), "bool")}
+#: each array a launcher binds (beside V): (shape of (ncol, n, m), kind)
+_GMRES_ARRAYS = {"H": (lambda c, n, m: (c, m + 1, m), "float"),
+                 "cs": (lambda c, n, m: (c, m), "float"),
+                 "sn": (lambda c, n, m: (c, m), "float"),
+                 "g": (lambda c, n, m: (c, m + 1), "float"),
+                 "tol": (lambda c, n, m: (c,), "float"),
+                 "mj": (lambda c, n, m: (c,), "int64"),
+                 "found": (lambda c, n, m: (c,), "bool"),
+                 "done": (lambda c, n, m: (c,), "bool"),
+                 "flags": (lambda c, n, m: (3,), "bool"),
+                 "x": (lambda c, n, m: (c, n), "float"),
+                 "its": (lambda c, n, m: (c,), "int64")}
+
+
+class _GmresArgs(ctypes.Structure):
+    """The kernels' GmresArgs: a workspace's pointers and plan, bound once."""
+    _fields_ = [(k, ctypes.c_void_p) for k in ("V", *_GMRES_ARRAYS)] + \
+        [(k, ctypes.c_int) for k in ("ncol", "n", "m", "form", "ctas",
+                                     "chunk", "threads")]
+
+
+class GmresLauncher:
+    """Both GMRES kernels bound to one workspace (V, H, cs, sn, g) and the
+    solve's tol, mj, found, done, flags, x and its (cs, sn and tol may be
+    None where only updates are launched, x and its where only steps
+    are): every device, dtype, shape and contiguity check runs here, once
+    (ValueError on what the kernels do not take); on the card the plan
+    (:func:`gmres_plan`), the ctypes functions and the fixed pointers are
+    bound here too.  A step then checks only its fresh ``w`` and ``j``; an
+    update checks nothing.  On CPU tensors the plain forms run.
+    ``GmresLauncher.checks`` / ``.plans`` count the full checks and the
+    card plans made."""
+    checks = 0
+    plans = 0
+
+    def __init__(self, V, H, cs, sn, g, tol, mj, found, done, flags, x=None,
+                 its=None):
+        given = dict(H=H, cs=cs, sn=sn, g=g, tol=tol, mj=mj, found=found,
+                     done=done, flags=flags, x=x, its=its)
+        self.ncol, self.n, self.m = _check_gmres("gmres", V, {
+            k: (a, *_GMRES_ARRAYS[k]) for k, a in given.items()
+            if a is not None})
+        GmresLauncher.checks += 1
+        self.V, self.a = V, given
+        if V.device.type == "cpu":
+            return
+        self.plan = gmres_plan(self.ncol, self.n, self.m, V.dtype)
+        GmresLauncher.plans += 1
+        lib = _build.library()
+        f64 = V.dtype == torch.float64
+        self._step = lib.mpp_gmres_arnoldi_f64 if f64 else \
+            lib.mpp_gmres_arnoldi_f32
+        self._update = lib.mpp_gmres_update_f64 if f64 else \
+            lib.mpp_gmres_update_f32
+        self._args = _GmresArgs(
+            V.data_ptr(), *(None if a is None else a.data_ptr()
+                            for a in given.values()),
+            self.ncol, self.n, self.m, self.plan["code"], self.plan["ctas"],
+            self.plan["chunk"], self.plan["threads"])
+        self._ref = ctypes.addressof(self._args)
+        self._index = V.device.index
+
+    def _on_card(self, fn, *args):
+        if torch.cuda.current_device() == self._index:
+            return fn(*args, _stream(self.V))
+        with torch.cuda.device(self.V.device):
+            return fn(*args, _stream(self.V))
+
+    def arnoldi(self, w, j, cap=False):
+        """Inner step j of the cycle, given ``w`` = M A V_j (see
+        :func:`gmres_arnoldi`)."""
+        V = self.V
+        if not isinstance(w, torch.Tensor) or \
+                tuple(w.shape) != (self.ncol, self.n) or \
+                w.dtype != V.dtype or w.device != V.device or \
+                not w.is_contiguous():
+            raise ValueError(
+                f"gmres_arnoldi: w must be a contiguous ({self.ncol}, "
+                f"{self.n}) {V.dtype} tensor on {V.device}, got "
+                f"{tuple(w.shape) if isinstance(w, torch.Tensor) else w!r}")
+        if isinstance(j, bool) or not isinstance(j, int) or \
+                not 0 <= j < self.m:
+            raise ValueError(f"gmres_arnoldi: j={j!r} must be an int in "
+                             f"[0, {self.m})")
+        a = self.a
+        if a["tol"] is None or a["cs"] is None or a["sn"] is None:
+            raise ValueError("gmres_arnoldi: the launcher has no cs, sn or "
+                             "tol")
+        if V.device.type == "cpu":
+            gmres_arnoldi_plain(V, a["H"], a["cs"], a["sn"], a["g"], w,
+                                a["tol"], a["mj"], a["found"], a["done"],
+                                a["flags"], j, cap)
+            return
+        _launched("gmres_arnoldi", self._on_card(
+            self._step, w.data_ptr(), self._ref, j, int(bool(cap))))
+
+    def update(self):
+        """The cycle's end (see :func:`gmres_update`)."""
+        a = self.a
+        if a["x"] is None or a["its"] is None:
+            raise ValueError("gmres_update: the launcher has no x or its")
+        if self.V.device.type == "cpu":
+            gmres_update_plain(self.V, a["H"], a["g"], a["mj"], a["found"],
+                               a["done"], a["x"], a["its"], a["flags"])
+            return
+        _launched("gmres_update", self._on_card(self._update, self._ref))
 
 
 def gmres_arnoldi_plain(V, H, cs, sn, g, w, tol, mj, found, done, flags, j,
@@ -1116,27 +1229,10 @@ def gmres_arnoldi(V, H, cs, sn, g, w, tol, mj, found, done, flags, j,
     ``[ncol, m + 1, m]``; one dtype (f32 or f64), contiguous, one device.
     On the card one launch in the form :func:`gmres_plan` picks, reading
     only V's rows <= j; within rounding of :func:`gmres_arnoldi_plain`
-    (whose V must be zero past row j)."""
-    name = "gmres_arnoldi"
-    ncol, n, m = _check_gmres(name, V, _arnoldi_arrays(
-        H, cs, sn, g, w, tol, mj, found, done, flags))
-    if isinstance(j, bool) or not isinstance(j, int) or not 0 <= j < m:
-        raise ValueError(f"{name}: j={j!r} must be an int in [0, {m})")
-    if V.device.type == "cpu":
-        gmres_arnoldi_plain(V, H, cs, sn, g, w, tol, mj, found, done, flags,
-                            j, cap)
-        return
-    plan = gmres_plan(ncol, n, m, V.dtype)
-    lib = _build.library()
-    fn = lib.mpp_gmres_arnoldi_f64 if V.dtype == torch.float64 else \
-        lib.mpp_gmres_arnoldi_f32
-    with torch.cuda.device(V.device):
-        rc = fn(w.data_ptr(), V.data_ptr(), H.data_ptr(), cs.data_ptr(),
-                sn.data_ptr(), g.data_ptr(), tol.data_ptr(), mj.data_ptr(),
-                found.data_ptr(), done.data_ptr(), flags.data_ptr(), ncol, n,
-                m, j, int(bool(cap)), plan["code"], plan["ctas"],
-                plan["chunk"], plan["threads"], _stream(V))
-    _launched(name, rc)
+    (whose V must be zero past row j).  Every argument is checked at each
+    call; a solve binds a :class:`GmresLauncher` once instead."""
+    GmresLauncher(V, H, cs, sn, g, tol, mj, found, done, flags).arnoldi(
+        w, j, cap)
 
 
 def gmres_update_plain(V, H, g, mj, found, done, x, its, flags):
@@ -1169,26 +1265,5 @@ def gmres_update(V, H, g, mj, found, done, x, its, flags):
     card one launch in the form :func:`gmres_plan` picks, reading only H's
     columns, g's entries and V's rows below mj; within rounding of
     :func:`gmres_update_plain`."""
-    name = "gmres_update"
-    ncol, n, m = _check_gmres(name, V, {
-        "H": (H, lambda c, n, m: (c, m + 1, m), "float"),
-        "g": (g, lambda c, n, m: (c, m + 1), "float"),
-        "x": (x, lambda c, n, m: (c, n), "float"),
-        "mj": (mj, lambda c, n, m: (c,), "int64"),
-        "its": (its, lambda c, n, m: (c,), "int64"),
-        "found": (found, lambda c, n, m: (c,), "bool"),
-        "done": (done, lambda c, n, m: (c,), "bool"),
-        "flags": (flags, lambda c, n, m: (3,), "bool")})
-    if V.device.type == "cpu":
-        gmres_update_plain(V, H, g, mj, found, done, x, its, flags)
-        return
-    plan = gmres_plan(ncol, n, m, V.dtype)
-    lib = _build.library()
-    fn = lib.mpp_gmres_update_f64 if V.dtype == torch.float64 else \
-        lib.mpp_gmres_update_f32
-    with torch.cuda.device(V.device):
-        rc = fn(V.data_ptr(), H.data_ptr(), g.data_ptr(), mj.data_ptr(),
-                found.data_ptr(), done.data_ptr(), x.data_ptr(),
-                its.data_ptr(), flags.data_ptr(), ncol, n, m, plan["code"],
-                plan["ctas"], plan["chunk"], plan["threads"], _stream(V))
-    _launched(name, rc)
+    GmresLauncher(V, H, None, None, g, None, mj, found, done, flags, x,
+                  its).update()

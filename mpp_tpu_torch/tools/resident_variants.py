@@ -72,7 +72,21 @@ host-clock ms a cycle ending in a synchronise, the mean of GMRES_REPS
 after a warm cycle, the aten operations one cycle dispatches (a
 TorchDispatchMode: each eager op one, a kernel called through ctypes
 none) and its device time (one torch.profiler window), every tree on the
-same systems, in the trees' turns.
+same systems, in the trees' turns.  At (r)'s sparsity it also splits
+the host time of GMRES_HOST_STEPS inner steps as ``gmres_cycles`` runs
+them (host clock, the card synchronised at the window's ends only): the
+matvec, ``ilu.solve``, the Arnoldi launch (through the tree's launcher
+where it has one, else ``hk.gmres_arnoldi``) and the host read of its
+flag, in microseconds a step.
+
+``--gmres-split`` times ``gmres_arnoldi`` at GMRES_SPLIT_CASES ((q)'s
+[8192, 128] at steps 0 and 15, (r)'s [1, 6000] and (v3)'s [1, 95232] at
+step 15; f64, m = 30)
+in this checkout's build and in builds with one part of the step left out
+(GMRES_VARIANTS["this"]: the dots, the correction, the normalise pass, the
+serial tail, the H column's store), timed but not held: where the step's
+time goes.  A ``--tree`` named in GMRES_VARIANTS (``pr17``, PR 17's first
+port) is split the same way with its own edits.
 
 ``--gmres-forms`` times this checkout's two GMRES kernels in each form of
 ``hk.GMRES_FORMS`` at GMRES_FORM_CASES (f64, m = 30, the step at j = 15,
@@ -111,6 +125,8 @@ summed inner iterations of the columns and ILU(0) applies, a step.
     python -m mpp_tpu_torch.tools.resident_variants --paths --tree NAME=ROOT
     python -m mpp_tpu_torch.tools.resident_variants --gmres --tree NAME=ROOT
     python -m mpp_tpu_torch.tools.resident_variants --gmres-forms
+    python -m mpp_tpu_torch.tools.resident_variants --gmres-split
+        [--tree pr17=ROOT]
     python -m mpp_tpu_torch.tools.resident_variants --sass [--root ROOT]
         [--dump FILE]
 
@@ -137,6 +153,7 @@ THIS = os.path.dirname(_PKG)
 SOURCE = os.path.join("csrc", "spmv_family_kernels.cu")
 BTS_SOURCE = os.path.join("csrc", "block_thomas_small_kernels.cu")
 BTL_SOURCE = os.path.join("csrc", "block_thomas_large_kernels.cu")
+GMRES_SOURCE = os.path.join("csrc", "gmres_kernels.cu")
 
 #: name: [(text, replacement), ...] applied to SOURCE (every occurrence;
 #: each text must occur)
@@ -197,12 +214,107 @@ BTL_VARIANTS = {
          "          for (int q0 = m; q0 < m; q0 += 16) {"),
     ],
 }
+#: --gmres-split: tree: part: edits of GMRES_SOURCE, each leaving one part
+#: of gmres_arnoldi's work out (its results are not the step and are not
+#: held): "no_stage" (this checkout's), the copies of w and V's rows into
+#: the slots; "no_dots", the dot products over V's rows; "no_correction",
+#: w' = w - sum h_i V_i over them; "no_normalise", the pass that divides
+#: V_{j+1} by hlast; "no_tail", the serial tail (the earlier rotations,
+#: the new one, g, mj, found, the flag, and the loads they wait on);
+#: "no_column", H's column store.  "this" edits this checkout's source,
+#: "pr17" the source of PR 17's first port (a --tree of that name).
+GMRES_VARIANTS = {
+    "this": {
+        "no_stage": [
+            ("  for (int q = 0; q < nq; ++q) {\n"
+             "    const int e = el.e(q);\n"
+             "    if (with_w)",
+             "  for (int q = nq; q < nq; ++q) {\n"
+             "    const int e = el.e(q);\n"
+             "    if (with_w)")],
+        "no_dots": [
+            ("    for (int q = 0; q < nq; ++q) {\n"
+             "      const T we = el.ws[q * el.S];",
+             "    for (int q = nq; q < nq; ++q) {\n"
+             "      const T we = el.ws[q * el.S];"),
+            ("    for (int q = 0; q < nq; ++q) {\n"
+             "      const int e = el.e(q);\n"
+             "      const T we = wc[e];",
+             "    for (int q = nq; q < nq; ++q) {\n"
+             "      const int e = el.e(q);\n"
+             "      const T we = wc[e];")],
+        "no_correction": [
+            ("      for (int i = 0; i <= j; ++i)\n"
+             "        s = fmadd(h[i], el.vs[",
+             "      for (int i = 0; i < 0; ++i)\n"
+             "        s = fmadd(h[i], el.vs["),
+            ("      for (int i = 0; i <= j; ++i)\n"
+             "        s = fmadd(h[i], Vc[",
+             "      for (int i = 0; i < 0; ++i)\n"
+             "        s = fmadd(h[i], Vc[")],
+        "no_normalise": [
+            ("  const T den = hlast == T(0) ? T(1) : hlast;\n"
+             "  const int nq = el.count();\n"
+             "  for (int q = 0; q < nq; ++q) {",
+             "  const T den = hlast == T(0) ? T(1) : hlast;\n"
+             "  const int nq = el.count();\n"
+             "  for (int q = nq; q < nq; ++q) {")],
+        "no_tail": [
+            ("  T a = h[0];\n#pragma unroll 4\n  for (int i = 0; i < j; ++i) {",
+             "  T a = h[0];\n#pragma unroll 4\n  for (int i = 0; i < 0; ++i) {"),
+            ("  const T cj = a, cj1 = hlast;",
+             "  if (j >= 0) return;\n  const T cj = a, cj1 = hlast;"),
+            ("for (int i = lane; i < j; i += kWarp) {",
+             "for (int i = lane; i < 0; i += kWarp) {"),
+            ("if (lane == 0) tl = load_tail(",
+             "if (lane < 0) tl = load_tail(")],
+        "no_column": [
+            ("  for (int i = first; i <= m; i += stride)\n    Hc[",
+             "  for (int i = m + 1; i <= m; i += stride)\n    Hc[")],
+    },
+    "pr17": {
+        "no_dots": [
+            ("  for (int e = first; e < last; e += stride) {\n"
+             "    const T we = wc[e];",
+             "  for (int e = last; e < last; e += stride) {\n"
+             "    const T we = wc[e];")],
+        "no_correction": [
+            ("    for (int i = 0; i <= j; ++i)\n"
+             "      s = fmadd(h[i], Vc[",
+             "    for (int i = 0; i < 0; ++i)\n"
+             "      s = fmadd(h[i], Vc[")],
+        "no_normalise": [
+            ("for (int e = first; e < last; e += stride) Vn[e] = quo(",
+             "for (int e = last; e < last; e += stride) Vn[e] = quo(")],
+        "no_tail": [
+            ("  T a = col[0];   // the running entry",
+             "  if (j >= 0) return;\n  T a = col[0];   // the running entry"),
+            ("  for (int i = lane; i < j; i += kWarp) {\n"
+             "    cs_s[i] = cs[c * m + i];",
+             "  for (int i = lane; i < 0; i += kWarp) {\n"
+             "    cs_s[i] = cs[c * m + i];"),
+            ("    for (int i = tid; i < j; i += blockDim.x) {\n"
+             "      cs_s[i] = cs[c * m + i];",
+             "    for (int i = tid; i < 0; i += blockDim.x) {\n"
+             "      cs_s[i] = cs[c * m + i];")],
+        "no_column": [
+            ("  for (int i = first; i <= m; i += stride)\n    Hc[",
+             "  for (int i = m + 1; i <= m; i += stride)\n    Hc[")],
+    },
+}
+#: --gmres-split: (columns, rows, step j), f64, m = 30
+GMRES_SPLIT_CASES = ((8192, 128, 0), (8192, 128, 15), (1, 6000, 15),
+                     (1, 95232, 15))
+#: --gmres: inner steps of (r)'s host split
+GMRES_HOST_STEPS = 300
 CASES = (("float64", 16384, 30), ("float32", 16384, 30),
          ("float64", 16384, 64), ("float32", 16384, 64),
          ("float32", 131072, 256))
 ITERS = 30
 REPS = 20
 ROUNDS = 2
+#: --gmres-split: its rounds (A .. F F .. A once: two runs a tree)
+SPLIT_ROUNDS = 1
 #: --ilu: (path, systems, L2-cold too)
 ILU_PATHS = (("th_petsc", 8192, True), ("celia1990", 1, False),
              ("th_manoli2014", 1, False), ("th_manoli2014_x10", 1, False),
@@ -237,16 +349,17 @@ GMRES_FORM_CASES = tuple(
     (c, n) for c in (1, 4, 16, 64, 256, 1024, 8192)
     for n in (32, 128, 512, 2048, 8192) if c * n <= 8192 * 512) + \
     tuple((1, n) for n in (100, 500, 5000, 6000, 95232))
-GMRES_FORM_CTA_ELEMS = (256, 1024, 2048)
+GMRES_FORM_CTA_ELEMS = (512, 1024, 2048)
 # opcodes counted on the hot path
 SASS_OPS = ("FADD", "FMUL", "FFMA", "DADD", "DMUL", "DFMA", "MUFU", "F2F",
             "FCHK", "FSEL", "SEL", "FSETP", "DSETP", "SHFL", "IMAD", "ISETP",
             "LOP3", "PLOP3", "LDL", "STL", "LDS", "STS", "LDG", "BRA")
 
 
-def variant_source(name, source=SOURCE, variants=VARIANTS):
-    """This checkout's ``source`` with ``variants[name]`` applied."""
-    with open(os.path.join(_PKG, source)) as f:
+def variant_source(name, source=SOURCE, variants=VARIANTS, tree=THIS):
+    """``tree``'s ``source`` (default: this checkout's) with
+    ``variants[name]`` applied."""
+    with open(os.path.join(tree, "mpp_tpu_torch", source)) as f:
         text = f.read()
     for old, new in variants[name]:
         if old not in text:
@@ -255,16 +368,17 @@ def variant_source(name, source=SOURCE, variants=VARIANTS):
     return text
 
 
-def make_variant(name, source=SOURCE, variants=VARIANTS):
-    """A copy of this checkout's package with ``variants[name]`` applied
-    to ``source``; returns the root that holds it."""
-    root = os.path.join(_PKG, "_build", "variants", name)
+def make_variant(name, source=SOURCE, variants=VARIANTS, tree=THIS):
+    """A copy of ``tree``'s package (default: this checkout's) with
+    ``variants[name]`` applied to ``source``; returns the root that holds
+    it."""
+    root = os.path.join(_PKG, "_build", "variants", name.replace("/", "_"))
     pkg = os.path.join(root, "mpp_tpu_torch")
     shutil.rmtree(root, ignore_errors=True)
-    shutil.copytree(_PKG, pkg, ignore=shutil.ignore_patterns(
-        "_build", "__pycache__"))
+    shutil.copytree(os.path.join(tree, "mpp_tpu_torch"), pkg,
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
     with open(os.path.join(pkg, source), "w") as f:
-        f.write(variant_source(name, source, variants))
+        f.write(variant_source(name, source, variants, tree))
     return root
 
 
@@ -464,7 +578,59 @@ def time_gmres(data_path):
             cycle()
         out[f"{case} aten_dispatches"] = count.n
         out[f"{case} device_ms"] = _window_device_ms(torch, cycle)
+        if path == "vchannel":
+            out.update({f"{case} host_us {k}": v for k, v in _host_split(
+                torch, ig, ilu, mv, data, b, f).items()})
     return out
+
+
+def _host_split(torch, ig, ilu, mv, data, b, f):
+    """Host microseconds a step of GMRES_HOST_STEPS inner steps as
+    ``gmres_cycles`` runs them, on ``b``'s columns (tolerance 0, steps
+    0..m - 1 over and over on one basis): the matvec, ``ilu.solve``, the
+    Arnoldi launch (the tree's launcher where it has one, else
+    ``hk.gmres_arnoldi``) and the host read of the step's flag; the card
+    synchronised at the window's ends only."""
+    hk = ig.hk
+    ncol, n = b.shape
+    m = min(30, n)
+    pc = ilu.prepare(f)
+    V, H, cs, sn, g = hk.gmres_workspace(b, m)
+    r = ilu.solve(pc, b)
+    beta = r.norm(dim=-1)
+    V[:, 0] = r / beta[:, None]
+    g[:, 0] = beta
+    tol = torch.zeros_like(beta)
+    mj = torch.full((ncol,), m, dtype=torch.int64, device=b.device)
+    found = torch.zeros(ncol, dtype=torch.bool, device=b.device)
+    done = torch.zeros_like(found)
+    flags = torch.ones(3, dtype=torch.bool, device=b.device)
+    if hasattr(hk, "GmresLauncher"):
+        step = hk.GmresLauncher(V, H, cs, sn, g, tol, mj, found, done, flags,
+                                torch.zeros_like(b), torch.zeros_like(mj)
+                                ).arnoldi
+    else:
+        def step(w, j):
+            hk.gmres_arnoldi(V, H, cs, sn, g, w, tol, mj, found, done, flags,
+                             j)
+    spent = dict(matvec=0.0, ilu_solve=0.0, arnoldi=0.0, sync=0.0)
+    clock = time.perf_counter
+    torch.cuda.synchronize()
+    for k in range(GMRES_HOST_STEPS):
+        j = k % m
+        t0 = clock()
+        y = mv(data, V[:, j])
+        t1 = clock()
+        w = ilu.solve(pc, y).contiguous()
+        t2 = clock()
+        step(w, j)
+        t3 = clock()
+        bool(flags[j % 2].item())
+        t4 = clock()
+        for key, dt in zip(spent, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            spent[key] += dt
+    torch.cuda.synchronize()
+    return {k: v * 1e6 / GMRES_HOST_STEPS for k, v in spent.items()}
 
 
 def _window_device_ms(torch, fn):
@@ -569,6 +735,29 @@ def time_gmres_forms():
                 run(f"cluster cta_elems={elems}", 1, n)
     finally:
         hk.GMRES_WARP_MIN_COLS, hk.GMRES_WARP_MAX_N, hk.GMRES_CTA_ELEMS = rule
+    return out
+
+
+def time_gmres_split():
+    """{case: device ms} of gmres_arnoldi at GMRES_SPLIT_CASES (f64, m =
+    30) in the tree whose package is first on sys.path, not held (a
+    GMRES_VARIANTS build computes something else)."""
+    from functools import partial
+
+    import torch
+    from mpp_tpu_torch.ops import hopper_kernels as hk
+    if not torch.cuda.is_available():
+        raise RuntimeError("torch.cuda.is_available() is false")
+    out = {}
+    for ncol, n, j in GMRES_SPLIT_CASES:
+        st = _gmres_state(torch, ncol, n, 30, j, torch.float64, ncol + n)
+        step = partial(hk.gmres_arnoldi, *(st[k] for k in (
+            "V", "H", "cs", "sn", "g", "w", "tol", "mj", "found", "done",
+            "flags")), j)
+        out[f"arnoldi j={j} [{ncol},{n}]"] = _device_ms(torch, step,
+                                                         name="arnoldi")
+        del st
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1087,12 +1276,14 @@ def main(argv=None):
     ap.add_argument("--paths", action="store_true")
     ap.add_argument("--gmres", action="store_true")
     ap.add_argument("--gmres-forms", action="store_true")
+    ap.add_argument("--gmres-split", action="store_true")
     ap.add_argument("--root", default=THIS)
     ap.add_argument("--dump")
     ap.add_argument("--child", choices=("time", "sass", "ilu", "bts",
                                         "bts_variant", "bts_forms", "btl",
                                         "btl_variant", "btl_forms",
-                                        "paths", "gmres", "gmres_forms"))
+                                        "paths", "gmres", "gmres_forms",
+                                        "gmres_split"))
     args = ap.parse_args(argv)
     if args.child:
         sys.path.insert(0, os.path.abspath(args.root))
@@ -1104,6 +1295,7 @@ def main(argv=None):
                "btl_forms": time_btl_forms, "paths": time_paths,
                "gmres": lambda: time_gmres(args.dump),
                "gmres_forms": time_gmres_forms,
+               "gmres_split": time_gmres_split,
                "sass": lambda: sass_sweeps(args.dump)}[args.child]()
         print(json.dumps(res))
         return
@@ -1133,9 +1325,17 @@ def main(argv=None):
         name, root = spec.split("=", 1)
         roots[name] = os.path.abspath(root)
     roots["this"] = THIS
+    if args.gmres_split:
+        for tree, parts in GMRES_VARIANTS.items():
+            if tree not in roots:
+                continue
+            flat = {f"{tree}/{p}": edits for p, edits in parts.items()}
+            for name in flat:
+                roots[name] = make_variant(name, GMRES_SOURCE, flat,
+                                           roots[tree])
     for name in args.trees or ([] if args.ilu or args.bts or args.btl
                                or args.paths or args.gmres
-                               else list(VARIANTS)):
+                               or args.gmres_split else list(VARIANTS)):
         if name != "this":
             roots[name] = make_variant(name, BTS_SOURCE, BTS_VARIANTS) \
                 if args.bts else make_variant(name, BTL_SOURCE,
@@ -1152,6 +1352,8 @@ def main(argv=None):
         mode = "btl"
     elif args.paths:
         mode = "paths"
+    elif args.gmres_split:
+        mode = "gmres_split"
     elif args.gmres:
         mode = "gmres"
         data = os.path.join(_PKG, "_build", "gmres_sparsities.npz")
@@ -1159,7 +1361,8 @@ def main(argv=None):
         gmres_sparsities(data)
     order = list(roots)
     times = {name: [] for name in order}
-    for k in range(ROUNDS):
+    rounds = SPLIT_ROUNDS if args.gmres_split else ROUNDS
+    for k in range(rounds):
         for name in (order + order[::-1]):
             variant = (args.bts and name in BTS_VARIANTS) or \
                 (args.btl and name in BTL_VARIANTS)
@@ -1171,7 +1374,7 @@ def main(argv=None):
                       / len(times[name]) for name in order}
                for case in cases}
     print(json.dumps(dict(card=card(), order=order,
-                          runs_per_tree=2 * ROUNDS,
+                          runs_per_tree=2 * rounds,
                           **{"mean" if args.paths else "mean_ms" if
                              args.gmres else "mean_device_ms": summary})))
 

@@ -269,6 +269,8 @@ def _cycle_state(ncol, n, m, j, dtype=torch.float64, seed=0, device="cpu"):
 ARNOLDI = ("V", "H", "cs", "sn", "g", "w", "tol", "mj", "found", "done",
            "flags")
 UPDATE = ("V", "H", "g", "mj", "found", "done", "x", "its", "flags")
+LAUNCHER = ("V", "H", "cs", "sn", "g", "tol", "mj", "found", "done", "flags",
+            "x", "its")
 
 
 def _clone(st):
@@ -361,6 +363,70 @@ def test_wrappers_raise_value_error(case):
         assert torch.equal(st[k], snapshot[k]), k
 
 
+@pytest.mark.parametrize("case", sorted(BAD))
+def test_launcher_raises_value_error(case):
+    """The launcher gmres_cycles binds once a workspace refuses what the
+    wrappers refuse, with ValueError: every argument but w when it is
+    made, w at the step that takes it; no array changes."""
+    st = _cycle_state(4, 7, 5, 1, seed=1)
+    key, bad = BAD[case]
+    d = dict(st)
+    d[key] = bad(st[key])
+    snapshot = _clone(st)
+    bound = {k: d[k] for k in LAUNCHER}
+    if key == "w":
+        launch = hk.GmresLauncher(*bound.values())
+        with pytest.raises(ValueError):
+            launch.arnoldi(d["w"], 1)
+    else:
+        with pytest.raises(ValueError):
+            hk.GmresLauncher(*bound.values())
+    for k in st:
+        assert torch.equal(st[k], snapshot[k]), k
+
+
+def test_cycles_check_once_a_workspace():
+    """gmres_cycles makes one launcher (one full check) a workspace: on the
+    CPU, whose basis is zero-filled every cycle, as many as the cycles, not
+    the steps; the launcher's steps and updates are the wrappers' plain
+    forms."""
+    t, data, b = _system((6, 5), 5, seed=13)
+    data[:, t.row_ids() == t.indices] *= np.array(
+        [1.0, 1.2, 2.0, 5.0, 30.0])[:, None]
+    before = hk.GmresLauncher.checks, hk.GmresLauncher.plans
+    x, k, done, its, syncs = _port(t, data, b, restart=3, rtol=1e-10)
+    assert k > 2 and syncs > k
+    assert hk.GmresLauncher.checks - before[0] == k
+    assert hk.GmresLauncher.plans == before[1]
+
+
+@pytest.mark.parametrize("form", ["warp", "cluster"])
+@pytest.mark.parametrize("m", [1, 4, 30])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_forms_fit_shared_memory(form, m, dtype):
+    """Each form's launches (without the slots a launch adds only where
+    they fit) take at most ON_CHIP_BYTES for m <= 30, at the widest
+    columns a CTA and the most CTAs."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    widths = (32,) if form == "warp" else (32, 512)
+    for threads in widths:
+        for kernel in ("arnoldi", "update"):
+            assert 0 < hk.gmres_smem(kernel, form, m, threads, elem) <= \
+                hk.ON_CHIP_BYTES
+
+
+@pytest.mark.parametrize("part", ["no_stage", "no_dots", "no_correction",
+                                  "no_normalise", "no_tail", "no_column"])
+def test_split_variants_apply_to_the_source(part):
+    """Every GMRES_VARIANTS edit of this checkout's kernel finds its text
+    (the --gmres-split builds), and changes it."""
+    from mpp_tpu_torch.tools import resident_variants as rv
+    base = open(rv.os.path.join(rv._PKG, rv.GMRES_SOURCE)).read()
+    edits = {part: rv.GMRES_VARIANTS["this"][part]}
+    assert rv.variant_source(part, rv.GMRES_SOURCE, edits) != base
+
+
 @pytest.mark.parametrize("j", [5, -1, True, 1.0])
 def test_arnoldi_rejects_j_out_of_range(j):
     st = _cycle_state(4, 7, 5, 1, seed=2)
@@ -378,7 +444,7 @@ def test_wrappers_reject_an_empty_batch():
 
 @pytest.mark.parametrize("ncol, n, form", [
     (8192, 128, "warp"), (8192, 64, "warp"), (1, 32, "warp"),
-    (63, 128, "cluster"), (64, 128, "warp"), (8192, 129, "cluster"),
+    (1023, 128, "cluster"), (1024, 128, "warp"), (8192, 129, "cluster"),
     (1, 6000, "cluster"), (1, 8000, "cluster"), (1, 500, "cluster"),
     (1, 5000, "cluster"), (1, 100, "cluster"), (1, 95232, "cluster")])
 def test_form_rule_picks_by_shape(ncol, n, form):
@@ -404,7 +470,7 @@ def test_form_rule_is_monotone_and_fits_shared_memory():
     cluster form; one past the cluster form's raises."""
     for n in (1, 32, 33, 128, 129, 500, 4096, 20000):
         forms = [hk.gmres_form(c, n, 30, torch.float64)
-                 for c in (1, 10, 63, 64, 256, 8192)]
+                 for c in (1, 10, 64, 1023, 1024, 8192)]
         assert forms == sorted(forms, key=("cluster", "warp").index)
     assert hk.gmres_form(8192, 128, 30, torch.float64) == "warp"
     assert hk.gmres_form(8192, 128, 100, torch.float64) == "cluster"
@@ -463,7 +529,8 @@ def _hold_step(st_card, st_ref, j, dtype):
 @pytest.mark.parametrize("form", ["warp", "cluster"])
 @pytest.mark.parametrize("ncol, n, m", [
     (33, 1, 1), (33, 31, 4), (9, 32, 30), (9, 33, 30), (5, 1000, 30),
-    (2, 5000, 30), (1, 40000, 8)])
+    (2, 5000, 30), (1, 40000, 8), (64, 128, 30), (1, 100, 30),
+    (1, 500, 30), (1, 6000, 30)])
 def test_kernels_match_plain_on_gpu(force_form, form, dtype, ncol, n, m):
     """Each kernel against its plain form at steps 0, m // 2 and m - 1,
     the card's V past row j + 1 NaN (never read) where the plain form's is
@@ -499,12 +566,16 @@ def test_kernels_match_plain_on_gpu(force_form, form, dtype, ncol, n, m):
 def test_gmres_cycles_on_gpu_match_the_cpu(force_form, form, dims, ncol, kw):
     """A whole solve on the card against the same solve on the CPU: x at
     rtol 1e-10, equal cycles, masks, iterations and host syncs; one launch
-    a step and a cycle (ilu_gmres.CARD_CALLS)."""
+    a step and a cycle (ilu_gmres.CARD_CALLS); one full check and one plan
+    for the card's whole solve (the launcher of its one workspace)."""
     _need_card()
     force_form(form)
     t, data, b = _system(dims, ncol, seed=len(dims) + ncol)
     before = dict(tig.CARD_CALLS)
+    bound = hk.GmresLauncher.checks, hk.GmresLauncher.plans
     got = _port(t, data, b, device="cuda", **kw)
+    assert (hk.GmresLauncher.checks - bound[0],
+            hk.GmresLauncher.plans - bound[1]) == (1, 1)
     ref = _port(t, data, b, **kw)
     _hold_x(got[0], ref[0])
     assert got[1:2] == ref[1:2] and got[4] == ref[4]
@@ -521,10 +592,13 @@ def test_smem_matches_the_launcher_on_gpu():
     from mpp_tpu_torch.ops import _build
     lib = _build.library()
     for m in (1, 4, 30, 100):
-        for form in hk.GMRES_FORMS:
+        for form, threads in (("warp", 32), ("cluster", 512),
+                              ("cluster", 96)):
             for kernel in ("arnoldi", "update"):
                 for elem in (4, 8):
-                    assert lib.mpp_gmres_smem(
-                        ("arnoldi", "update").index(kernel),
-                        hk.GMRES_FORMS.index(form), m, 512, elem) == \
-                        hk.gmres_smem(kernel, form, m, 512, elem)
+                    for ctas in (1, 12, 16):
+                        assert lib.mpp_gmres_smem(
+                            ("arnoldi", "update").index(kernel),
+                            hk.GMRES_FORMS.index(form), m, threads, ctas,
+                            elem) == hk.gmres_smem(kernel, form, m, threads,
+                                                   elem, ctas)
