@@ -33,8 +33,10 @@ over ``ncol`` independent copies of the problem (one row of the
 
 The JAX package's ``lax.while_loop``/``lax.cond`` predicates are Python
 control flow here: each one reads a device value on the host.  Every such
-read goes through :meth:`CompiledVSFM._sync`, which counts it in
-``host_syncs``.
+read, and the serial step's download of its result, goes through
+:meth:`CompiledVSFM._sync`, which counts it in ``host_syncs`` and marks it
+with a ``sync`` span (``io/timers.py``); the step's layers carry spans too
+(``newton.*``, ``assembly.*``, ``linsolve``).
 
 A facade problem steps serially through ``VSFMSoE.step_dt`` (the serial
 SNES of ``ops/snes.py``) or, after :meth:`CompiledVSFM.install`, through
@@ -51,6 +53,7 @@ from mpp_tpu_torch.batched.ilu_gmres import (BatchedILU0, make_ell_matvec,
                                              petsc_gmres_batched)
 from mpp_tpu_torch.constants import FMWH2O
 from mpp_tpu_torch.device import device_of
+from mpp_tpu_torch.io import timers
 from mpp_tpu_torch.ops import hopper_kernels as hk
 from mpp_tpu_torch.ops.block_structure import BlockTridiagTemplate, \
     block_solve
@@ -62,6 +65,16 @@ from mpp_tpu_torch.ops.snes import (CONVERGED_FNORM_ABS,
                                     SNESParams)
 
 __all__ = ["CompiledVSFM", "compile_vsfm", "SNESParams"]
+
+# the stepper's span sites (io/timers.py): each layer's self time
+_SYNC = timers.Site("sync")
+_NEWTON_STEP = timers.Site("newton.step")
+_SERIAL_STEP = timers.Site("newton.serial_step")
+_LINE_SEARCH = timers.Site("newton.line_search")
+_RESIDUAL = timers.Site("assembly.residual")
+_JACOBIAN = timers.Site("assembly.jacobian")
+_RESJAC = timers.Site("assembly.resjac")
+_ACCUM = timers.Site("assembly.accum")
 
 
 def _take(tree, idx):
@@ -134,7 +147,7 @@ class CompiledVSFM:
         self.max_cuts = max_cuts
         # straggler-compaction divisor (see _snes_batched); 0 disables
         self.compact_frac = 8
-        #: host reads of device predicates since construction
+        #: host reads of device values since construction
         self.host_syncs = 0
 
         # coupled-BC staging maps: for each GE, the bc_value slots that are
@@ -152,6 +165,7 @@ class CompiledVSFM:
                                  else np.zeros(0, np.int64))
         self._tc = {}
         self._plan_solver()
+        self._linsolve = timers.Site("linsolve", {"plan": self.plan})
 
     # ---- solver plan -----------------------------------------------------
     def _plan_solver(self):
@@ -229,9 +243,11 @@ class CompiledVSFM:
         return v
 
     def _sync(self, value):
-        """Read a device scalar on the host (one host synchronisation)."""
+        """Read a device value on the host (one host synchronisation): a
+        scalar as a Python number, else a numpy array."""
         self.host_syncs += 1
-        return value.item()
+        with _SYNC:
+            return value.item() if value.dim() == 0 else value.cpu().numpy()
 
     # ---- the plan's hooks: _jac, _solve, _matvec -----------------------------
     #: GMRES cycles and solves of the "petsc" plan since construction
@@ -270,10 +286,11 @@ class CompiledVSFM:
     def _solve(self, A, F):
         """Newton direction Y with J Y = F: the Thomas kernel on the bands
         of a tridiagonal plan, else the CSR plan on ``A = (data,)``."""
-        if not self.is_tridiag:
-            return self._csr_solve(A[0], F)
-        dl, d, du = A
-        return hk.thomas(dl, d, du, F.contiguous())
+        with self._linsolve:
+            if not self.is_tridiag:
+                return self._csr_solve(A[0], F)
+            dl, d, du = A
+            return hk.thomas(dl, d, du, F.contiguous())
 
     def _matvec(self, A, x):
         """J x for the BT initial slope: the stencil-SpMV kernel on bands
@@ -315,14 +332,15 @@ class CompiledVSFM:
         """F [ncol, n].  ``src``: per-cell mass source [ncol, n] (kmol/s,
         positive = source); ``dyn``: tuple of per-GE dynamic-parameter
         dicts with a leading [ncol] axis."""
-        Fs = []
-        for k, g, a, b in self._ges():
-            F = g.residual(X[:, a:b], dt,
-                           bc_value=self._stage_bc(k, bc_values[k], X),
-                           ss_value=ss_values[k], accum_prev=accum_prevs[k],
-                           dyn=dyn[k])
-            Fs.append(F - src[:, a:b])
-        return torch.cat(Fs, dim=1)
+        with _RESIDUAL:
+            Fs = []
+            for k, g, a, b in self._ges():
+                F = g.residual(X[:, a:b], dt,
+                               bc_value=self._stage_bc(k, bc_values[k], X),
+                               ss_value=ss_values[k],
+                               accum_prev=accum_prevs[k], dyn=dyn[k])
+                Fs.append(F - src[:, a:b])
+            return torch.cat(Fs, dim=1)
 
     def _tri_assemble(self, v):
         """COO contribution values [ncol, nvals] -> (dl, d, du) bands."""
@@ -337,37 +355,44 @@ class CompiledVSFM:
     def _jac(self, X, bc_values, ss_values, dt, dyn):
         """The Jacobian as the plan's solver takes it (the coupled-BC
         gather first): the (dl, d, du) bands or ``(CSR data,)``."""
-        vals = []
-        for k, g, a, b in self._ges():
-            vals.append(g.jacobian_values(
-                X[:, a:b], dt, bc_value=self._stage_bc(k, bc_values[k], X),
-                ss_value=ss_values[k], dyn=dyn[k]))
-        return self._assemble_plan(torch.cat(vals, dim=1))
+        with _JACOBIAN:
+            vals = []
+            for k, g, a, b in self._ges():
+                vals.append(g.jacobian_values(
+                    X[:, a:b], dt,
+                    bc_value=self._stage_bc(k, bc_values[k], X),
+                    ss_value=ss_values[k], dyn=dyn[k]))
+            return self._assemble_plan(torch.cat(vals, dim=1))
 
     def _resjac(self, X, bc_values, ss_values, accum_prevs, dt, src, dyn):
         """(F, the plan's Jacobian) from one constitutive evaluation per GE
         (``residual_and_jac_values``): the same math as ``_residual`` and
         ``_jac``."""
-        Fs, vals = [], []
-        for k, g, a, b in self._ges():
-            F, v = g.residual_and_jac_values(
-                X[:, a:b], dt, bc_value=self._stage_bc(k, bc_values[k], X),
-                ss_value=ss_values[k], accum_prev=accum_prevs[k], dyn=dyn[k])
-            Fs.append(F - src[:, a:b])
-            vals.append(v)
-        return (torch.cat(Fs, dim=1),
-                self._assemble_plan(torch.cat(vals, dim=1)))
+        with _RESJAC:
+            Fs, vals = [], []
+            for k, g, a, b in self._ges():
+                F, v = g.residual_and_jac_values(
+                    X[:, a:b], dt,
+                    bc_value=self._stage_bc(k, bc_values[k], X),
+                    ss_value=ss_values[k], accum_prev=accum_prevs[k],
+                    dyn=dyn[k])
+                Fs.append(F - src[:, a:b])
+                vals.append(v)
+            return (torch.cat(Fs, dim=1),
+                    self._assemble_plan(torch.cat(vals, dim=1)))
 
     def _accum_prev(self, X, dt, dyn):
-        out = []
-        for k, g, a, b in self._ges():
-            acc = g.accum(X[:, a:b], dyn=dyn[k]) / dt
-            active = np.asarray(g.mesh.is_active, bool)
-            if not active.all():
-                acc = torch.where(torch.as_tensor(active, device=X.device),
-                                  acc, 0.0)
-            out.append(acc)
-        return tuple(out)
+        with _ACCUM:
+            out = []
+            for k, g, a, b in self._ges():
+                acc = g.accum(X[:, a:b], dyn=dyn[k]) / dt
+                active = np.asarray(g.mesh.is_active, bool)
+                if not active.all():
+                    acc = torch.where(torch.as_tensor(active,
+                                                      device=X.device),
+                                      acc, 0.0)
+                out.append(acc)
+            return tuple(out)
 
     # ---- batched Newton (SNES NEWTONLS + BT linesearch) --------------------
     def _snes_batched(self, X0, bc, ss, accum_prev, dt, src, dyn, tols):
@@ -378,7 +403,13 @@ class CompiledVSFM:
         Straggler compaction: once at most ncol/compact_frac columns
         remain unconverged (ncol >= 4096), they are gathered into a narrow
         batch that continues alone and is scattered back, so the stiff
-        tail costs 1/compact_frac of a full-batch iteration."""
+        tail costs 1/compact_frac of a full-batch iteration.
+
+        Its ``newton.snes`` span counts the column-iterations evaluated
+        (``cols_evaluated``: the batch's width each iteration) and those
+        of columns still unconverged (``cols_unconverged``), from the
+        predicates the loop reads anyway."""
+        span = timers.begin("newton.snes")
         sp = self.snes if X0.dtype == torch.float64 else self.snes_f32
         rtol, stol, mass_tol = tols
         ncol = X0.shape[0]
@@ -530,8 +561,9 @@ class CompiledVSFM:
                 islope = torch.sum(F * W, dim=-1)
                 islope = torch.where(islope > 0.0, -islope, islope)
                 islope = torch.where(islope == 0.0, -1.0, islope)
-                ok, Xn, Gn, An, gnormn, snorm = bt_linesearch(
-                    X, F, fnorm, Y, islope, done)
+                with _LINE_SEARCH:
+                    ok, Xn, Gn, An, gnormn, snorm = bt_linesearch(
+                        X, F, fnorm, Y, islope, done)
                 # PETSc SNESSolve_NEWTONLS failure path: a failed line
                 # search with stol*xnorm > ynorm means the update is
                 # already negligible — SNORM convergence at the pre-step
@@ -597,10 +629,13 @@ class CompiledVSFM:
         bodyA = make_body(bc, ss, accum_prev, dt, src, dyn, fnorm0, ttol)
         st = (X0, F0, fnorm0, 0, done0, reason0, A0)
         nrem = None
+        evaluated = unconverged = 0
         while st[3] < sp.max_it:
             nrem = self._sync(torch.sum(~st[4]))
             if nrem == 0 or (K and nrem <= K):
                 break
+            evaluated += ncol
+            unconverged += nrem
             st = bodyA(st)
             nrem = None
 
@@ -617,7 +652,12 @@ class CompiledVSFM:
                     _take(dyn, idx), fnorm0[idx], ttol[idx])
                 sB = (X[idx], F[idx], fnorm[idx], it, done[idx],
                       reason[idx], None if A is None else _take(A, idx))
-                while sB[3] < sp.max_it and self._sync(torch.any(~sB[4])):
+                while sB[3] < sp.max_it:
+                    nB = self._sync(torch.sum(~sB[4]))
+                    if nB == 0:
+                        break
+                    evaluated += K
+                    unconverged += nB
                     sB = bodyB(sB)
                 Xb, Fb, fnb, itb, db, rb, _ = sB
                 st = (X.index_copy(0, idx, Xb), F.index_copy(0, idx, Fb),
@@ -626,6 +666,9 @@ class CompiledVSFM:
                       reason.index_copy(0, idx, rb), None)
         X, F, fnorm, iters, done, reason, _ = st
         reason = torch.where(reason == 0, DIVERGED_MAX_IT, reason)
+        if span >= 0:
+            timers.end(span, {"cols_evaluated": evaluated,
+                              "cols_unconverged": unconverged})
         return X, iters, reason
 
     # ---- StepDT ladder (SOEBaseStepDT_SNES, per-column) --------------------
@@ -633,33 +676,34 @@ class CompiledVSFM:
         """One driver timestep ``dt``: per-column Newton with per-column
         dt-cut ladders (x0.5, up to max_cuts, keeping the column's previous
         solution on divergence).  Returns (X, iters, success, reason)."""
-        zcol = X_prev[:, 0] * 0.0
-        dt_total = float(dt) + zcol
-        X = X_prev
-        t = zcol
-        dtc = dt_total
-        ncuts = torch.zeros_like(zcol, dtype=torch.int32)
-        failed = zcol < -1.0
-        iters = 0
-        reason = torch.zeros_like(zcol, dtype=torch.int32)
-        while self._sync(torch.any((t < dt_total) & ~failed)):
-            active = (t < dt_total) & ~failed
-            dte = torch.minimum(dtc, dt_total - t)
-            dte = torch.where(active, dte, dt_total)
-            accum_prev = self._accum_prev(X, dte[:, None], dyn)
-            Xn, nits, rsn = self._snes_batched(X, bc, ss, accum_prev,
-                                               dte[:, None], src, dyn, tols)
-            conv = rsn > 0
-            ok = active & conv
-            div = active & ~conv
-            X = torch.where(ok[:, None], Xn, X)
-            t = torch.where(ok, t + dte, t)
-            ncuts = torch.where(div, ncuts + 1, ncuts)
-            dtc = torch.where(div, 0.5 * dtc, dtc)
-            failed = failed | (ncuts > self.max_cuts)
-            reason = torch.where(active, rsn, reason)
-            iters += nits
-        return X, iters, (t >= dt_total) & ~failed, reason
+        with _NEWTON_STEP:
+            zcol = X_prev[:, 0] * 0.0
+            dt_total = float(dt) + zcol
+            X = X_prev
+            t = zcol
+            dtc = dt_total
+            ncuts = torch.zeros_like(zcol, dtype=torch.int32)
+            failed = zcol < -1.0
+            iters = 0
+            reason = torch.zeros_like(zcol, dtype=torch.int32)
+            while self._sync(torch.any((t < dt_total) & ~failed)):
+                active = (t < dt_total) & ~failed
+                dte = torch.minimum(dtc, dt_total - t)
+                dte = torch.where(active, dte, dt_total)
+                accum_prev = self._accum_prev(X, dte[:, None], dyn)
+                Xn, nits, rsn = self._snes_batched(
+                    X, bc, ss, accum_prev, dte[:, None], src, dyn, tols)
+                conv = rsn > 0
+                ok = active & conv
+                div = active & ~conv
+                X = torch.where(ok[:, None], Xn, X)
+                t = torch.where(ok, t + dte, t)
+                ncuts = torch.where(div, ncuts + 1, ncuts)
+                dtc = torch.where(div, 0.5 * dtc, dtc)
+                failed = failed | (ncuts > self.max_cuts)
+                reason = torch.where(active, rsn, reason)
+                iters += nits
+            return X, iters, (t >= dt_total) & ~failed, reason
 
     # ---- mass-balance audit (ALM-style, MPPVSFMALM_Driver.F90:~660) -------
     def column_storage(self, X, dyn=None):
@@ -748,23 +792,25 @@ class CompiledVSFM:
     def _step_dt_serial(self, dt, istep, dyn):
         """One ``dt`` of the SoE's own solution as a single f64 column on
         ``serial_device``; updates the SoE state on convergence.  Returns
-        (converged, reason)."""
-        soe = self.mpp.soe
-        dev = device_of(self.serial_device)
-        bc, ss = self.gather_inputs(1, dev)
-        X = torch.as_tensor(np.asarray(soe.soln, np.float64),
-                            device=dev)[None, :]
-        Xn, iters, ok, reason = self.step_batched(X, bc, ss, dt, dyn=dyn)
-        converged = bool(ok[0])
-        if converged:
-            soe.cumulative_newton_iterations += int(iters)
-            soe.soln = Xn[0].cpu().numpy().copy()
-            soe.soln_prev = soe.soln
-        if soe.metrics is not None:
-            soe.metrics.record(step=istep, dt=dt, converged=converged,
-                               reason=int(reason[0]),
-                               newton_iterations=int(iters))
-        return converged, int(reason[0])
+        (converged, reason).  The three reads of the result (convergence,
+        reason, solution) are counted syncs."""
+        with _SERIAL_STEP:
+            soe = self.mpp.soe
+            dev = device_of(self.serial_device)
+            bc, ss = self.gather_inputs(1, dev)
+            X = torch.as_tensor(np.asarray(soe.soln, np.float64),
+                                device=dev)[None, :]
+            Xn, iters, ok, reason = self.step_batched(X, bc, ss, dt, dyn=dyn)
+            converged = bool(self._sync(ok[0]))
+            reason = int(self._sync(reason[0]))
+            if converged:
+                soe.cumulative_newton_iterations += int(iters)
+                soe.soln = self._sync(Xn[0]).copy()
+                soe.soln_prev = soe.soln
+            if soe.metrics is not None:
+                soe.metrics.record(step=istep, dt=dt, converged=converged,
+                                   reason=reason, newton_iterations=int(iters))
+            return converged, reason
 
     def step_dt(self, dt, istep=1):
         """Drop-in for ``soe.step_dt``: the batched path at ncol=1."""

@@ -47,8 +47,9 @@ per-column mass balance in f64 and unpacks the results to CLM arrays.
 One attempt is one plain function call (``_attempt``): staging, the
 batched Newton, the f64 audit and the unpack.  The host reads one small
 diagnostics vector per attempt plus the stepper's per-iteration
-predicates; the output's ``host_round_trips_per_step`` and
-``dispatches_per_step`` both report those host synchronisations.
+predicates, each through the stepper's counted, spanned sync; the
+output's ``host_round_trips_per_step`` reports those host
+synchronisations.  The step is an ``alm.step`` span (``io/timers.py``).
 
 Level convention: arrays are [ncol, nz] with level 0 at the column BOTTOM
 and level nz-1 at the surface; ``zi`` is top-first.
@@ -66,6 +67,7 @@ from mpp_tpu_torch.constants import (Cond, GEType, MPPType, Region,
                                      GRAVITY_CONSTANT, GRAV_CLM, PRESSURE_REF)
 from mpp_tpu_torch.device import device_of
 from mpp_tpu_torch.dtypes.mesh import column_mesh
+from mpp_tpu_torch.io import timers
 from mpp_tpu_torch.models.richards import VSFMMPP
 from mpp_tpu_torch.ops import eos, satfunc as sf
 from mpp_tpu_torch.ops.snes import (CONVERGED_FNORM_RELATIVE,
@@ -80,6 +82,8 @@ WATMIN = 0.01                    # CLM clm_varcon watmin [kg/m^2]
 VISH2O = 0.001002                # VSFMMPPSetSoilsCLM vish2o [N s/m^2]
 
 F64 = torch.float64
+
+_ALM_STEP = timers.Site("alm.step")
 
 
 @dataclasses.dataclass
@@ -514,8 +518,15 @@ def alm_vsfm_solve(prob: ALMVSFMProblem, dtime,
     solver diagnostics (attempts, diverged_count, mass_bal_err_count,
     abs_mass_error_col, escalated_cols, newton_iters, the per-column
     SNES reason of the last solve, and the host
-    synchronisations of the step as dispatches_per_step and
-    host_round_trips_per_step)."""
+    synchronisations of the step as host_round_trips_per_step)."""
+    with _ALM_STEP:
+        return _step(prob, dtime, qflx_infl, qflx_tran_veg, rootr,
+                     qflx_dew, qflx_sub_snow, qflx_drain, mflx_snowlyr,
+                     t_soil, frac_ice)
+
+
+def _step(prob, dtime, qflx_infl, qflx_tran_veg, rootr, qflx_dew,
+          qflx_sub_snow, qflx_drain, mflx_snowlyr, t_soil, frac_ice):
     ncol, nz = prob.ncol, prob.nz
     dtype, dev = prob.P.dtype, prob.device
     comp = prob.comp
@@ -573,15 +584,13 @@ def alm_vsfm_solve(prob: ALMVSFMProblem, dtime,
     P_prev = prob.P
     attempts = diverged_count = mass_bal_err_count = 0
     escalated_cols = 0
-    diag_pulls = 0
     abs_mass_error = np.inf
     reset_fl = False
     while True:
         attempts += 1
         out = _attempt(prob, P_prev, dyn_base, temperature, frac_liq,
                        frac_ice, forcing, reset_fl, rtol, stol, gate, dtime)
-        diag = _ladder_diag(prob, out["diag"].cpu().numpy())
-        diag_pulls += 1
+        diag = _ladder_diag(prob, comp._sync(out["diag"]))
         converged = bool(diag[0])
         P = out["P"]
         if not converged:
@@ -650,7 +659,7 @@ def alm_vsfm_solve(prob: ALMVSFMProblem, dtime,
                 f"{mass_bal_err_count}, last error {abs_mass_error:.3e} kg)")
 
     prob.P = P
-    syncs = comp.host_syncs - syncs0 + diag_pulls
+    syncs = comp.host_syncs - syncs0
     if escalated_cols:
         # escalation replaced column states: the CLM unpack again, at the
         # final state
@@ -671,7 +680,6 @@ def alm_vsfm_solve(prob: ALMVSFMProblem, dtime,
         "escalated_cols": escalated_cols,
         "newton_iters": int(diag[2]),
         "reason": out["reason"],
-        "dispatches_per_step": syncs,
         "host_round_trips_per_step": syncs,
     }
 

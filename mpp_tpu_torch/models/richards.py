@@ -43,10 +43,15 @@ from mpp_tpu_torch.dtypes.conditions import Condition
 from mpp_tpu_torch.dtypes.mpp_base import MPPBase
 from mpp_tpu_torch.config import check_finite
 from mpp_tpu_torch.device import device_of
+from mpp_tpu_torch.io import timers
 from mpp_tpu_torch.ops import eos, satfunc as sf
 from mpp_tpu_torch.ops.porosity import PorosityParams, porosity
 from mpp_tpu_torch.ops.snes import HostSyncs, LS_BT, LS_L2, snes_step_dt
 from mpp_tpu_torch.ops.sparse import csr_template, CSRTemplate
+
+# the cell auxvars' span site (io/timers.py): saturation, relative
+# permeability, density, viscosity and porosity of the cells
+_CONSTITUTIVE = timers.Site("assembly.constitutive")
 
 
 def _swhere(mask, a, b):
@@ -525,8 +530,9 @@ class RichardsGE:
         return sp, pp, temp
 
     def _cell_aux(self, P, dyn=None):
-        sp, pp, temp, fl = self._dyn_cell_params(dyn, P)
-        return richards_aux(P, sp, pp, temp, fl, self.density_type)
+        with _CONSTITUTIVE:
+            sp, pp, temp, fl = self._dyn_cell_params(dyn, P)
+            return richards_aux(P, sp, pp, temp, fl, self.density_type)
 
     def _vol(self, P, dyn):
         if dyn and "vol" in dyn:
