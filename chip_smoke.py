@@ -15,6 +15,11 @@ line is printed):
       Thomas at the edge shapes of its tiling (THOMAS_EDGE_LEVELS levels
       x EDGE_NCOLS columns, f64 and f32, both forms of the kernel in each,
       and inputs that are not 16-byte aligned);
+  (c2) the column assembly (hk.vsfm_column_assemble) in each mode against
+      its plain form on the card at [131072, 15] and [16384, 15] f64 (the
+      ELM r05 cell's width and a rank's) and [131072, 15] f32, on an
+      ALM problem with TN-503-like soils: device ms, the bytes bound and
+      its share, the plain form's ms;
   (d) the ALM f64 default step at ncol=16384, nz=30 with heterogeneous
       CLM soils, seepage BC, infiltration + ET forcing (numpy seed 0): one
       warm step and 4 timed steps; every column converges, max audit error
@@ -491,6 +496,10 @@ KERNELS = {
     # step with its Givens loop; the back substitution in the while_loop)
     "gmres_arnoldi": (_GMRES, "mpp_tpu/batched/ilu_gmres.py:244,258"),
     "gmres_update": (_GMRES, "mpp_tpu/batched/ilu_gmres.py:269,283"),
+    # no pl.pallas_call: the JAX package's XLA-fused residual and
+    # Jacobian values of RichardsGE under jit
+    "vsfm_column_assemble": ("mpp_tpu_torch/csrc/vsfm_assembly_kernels.cu",
+                             "mpp_tpu/models/richards.py:674,739,837"),
 }
 # harness variants behind each harness row of the kernels line; the first
 # is the row's representative (its times and error)
@@ -1085,6 +1094,96 @@ def kernel_checks(torch, hk, tridiag):
     rows += edge_rows(torch, hk, "thomas", tridiag.thomas, systems,
                       TOLS["thomas"], THOMAS_EDGE_LEVELS)
     return results, rows
+
+
+# (c2): the column assembly at the ELM r05 cell's width and a rank's, and
+# its tolerance against the plain form on the card, of max |output| (the
+# cuda test's, tests/test_torch_vsfm_column_assembly.py: CARD_REL)
+COLUMN_SHAPES = (((131072, 15), "float64"), ((16384, 15), "float64"),
+                 ((131072, 15), "float32"))
+COLUMN_REL = {"float64": 1e-11, "float32": 2e-4}
+COLUMN_OUTPUTS = {"residual": 1, "bands": 3, "both": 4}
+
+
+def column_case(torch, alm, ncol, nz, dtype, seed):
+    """An ALM problem of ncol x nz columns (dz 0.025 e^(0.5 k) m as CLM's
+    node depths, a few distinct bsw as a texture map gives, P about a
+    water table) and one "both" evaluation's inputs at its state."""
+    from mpp_tpu_torch.models import richards_column as rc
+    rng = np.random.default_rng(seed)
+    shape = (ncol, nz)
+    dz = np.broadcast_to(0.025 * np.exp(0.5 * np.arange(nz))[::-1], shape)
+    prob = alm.alm_vsfm_initialize(
+        watsat=0.35 + 0.1 * rng.random(shape),
+        hksat=0.004 * (0.5 + rng.random(shape)),
+        bsw=2.9 + 0.5 * rng.integers(0, 10, shape),
+        sucsat=20.0 + 20.0 * rng.random(shape),
+        residual_sat=0.02 + 0.05 * rng.random(shape), dz=dz,
+        area=np.ones(ncol), P0=101325.0 + 2e4 * rng.standard_normal(shape),
+        include_seepage_bc=True, dtype=dtype, device="cuda")
+    comp, g = prob.comp, prob.comp.goveqns[0]
+    dyn = dict(prob.dyn[0])
+    dyn["temperature"] = torch.full(shape, 298.15, dtype=dtype,
+                                    device="cuda")
+    dt = torch.full((ncol, 1), 1800.0, dtype=dtype, device="cuda")
+    ap = comp._accum_prev(prob.P, dt, (dyn,))[0]
+    nbc, nss = comp._column.nbc, comp._column.nss
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device="cuda")
+    args = {mode: rc.column_inputs(
+        g, comp._column, prob.P, dt, t(np.full((ncol, nbc), 101325.0)),
+        t(1e-5 * rng.random((ncol, nss))), ap, torch.zeros_like(ap), dyn,
+        mode) for mode in COLUMN_OUTPUTS}
+    return comp._column, args
+
+
+def column_work(args, mode, elem):
+    """Bytes of one launch: each input read once (a [ncol, m] input its
+    ncol * m values, a shared [m] one its m), each output written once."""
+    ncol, nz = args[0].shape
+    read = sum(a.numel() for a in args if a is not None)
+    return (read + COLUMN_OUTPUTS[mode] * ncol * nz) * elem
+
+
+def column_assembly_checks(torch, hk, alm):
+    """Phase (c2): the column assembly in each mode against its plain form
+    on the card, timed beside its bound; returns (the main row: [131072,
+    15] f64 "both", the rows)."""
+    from mpp_tpu_torch.models import richards_column as rc
+    rows, main = [], None
+    for shape, dt_name in COLUMN_SHAPES:
+        spec, args = column_case(torch, alm, *shape, getattr(torch, dt_name),
+                                 seed=shape[0])
+        elem = 8 if dt_name == "float64" else 4
+        for mode, a in args.items():
+            kern = partial(hk.vsfm_column_assemble, *a, spec=spec, mode=mode)
+            plain = partial(rc.column_assemble_plain, spec, mode, *a)
+            got, ref = kern(), plain()
+            if mode == "residual":
+                got, ref = (got,), (ref,)
+            elif mode == "both":
+                got, ref = (got[0], *got[1]), (ref[0], *ref[1])
+            errs = [hold(torch, f"vsfm_column_assemble {mode} {shape} "
+                         f"{dt_name} [{k}]", x, y, COLUMN_REL[dt_name])
+                    for k, (x, y) in enumerate(zip(got, ref))]
+            nbytes = column_work(a, mode, elem)
+            ms, by = bound(nbytes, 0, dt_name)
+            row = dict(kernel="vsfm_column_assemble", mode=mode,
+                       shape=list(shape), dtype=dt_name,
+                       rel_tol=COLUMN_REL[dt_name],
+                       max_rel_err=max(e / max(sc, 1e-300) for e, sc in errs),
+                       ms=time_cuda(torch, kern, 50),
+                       plain_ms=time_cuda(torch, plain, 5), bytes=nbytes,
+                       bound_ms=ms, bound_by=by, library_ms=None,
+                       library_device_ms=None)
+            rows.append(row)
+            targets = [row]
+            if shape == (131072, 15) and dt_name == "float64" \
+                    and mode == "both":
+                main = dict(row)
+                targets.append(main)
+            later(kern, 20, *targets)
+            later(plain, 3, *targets, key="plain_device_ms")
+    return main, rows
 
 
 def block_systems(shape, seed):
@@ -4182,6 +4281,10 @@ def main():
     # (c) kernels against their plain versions
     results, checks = kernel_checks(torch, hk, tridiag)
     from mpp_tpu_torch.driver import alm
+    # (c2) the column assembly against its plain form
+    results["vsfm_column_assemble"], rows = column_assembly_checks(torch, hk,
+                                                                   alm)
+    checks += rows
 
     # (d) + (e): the main path, counted
     hk.reset_launches()
@@ -4197,6 +4300,10 @@ def main():
           f"f32 ALM path did not launch tridiag_spmv_mixed: {launches}")
     check(launches["thomas"] > after64["thomas"],
           "f32 ALM path did not launch thomas")
+    check(after64["vsfm_column_assemble"] > 0
+          and launches["vsfm_column_assemble"]
+          > after64["vsfm_column_assemble"],
+          f"the ALM path did not launch vsfm_column_assemble: {launches}")
     for tag, ms, steps, setup_s in (
             ("f64_default", ms64, steps64, setup64),
             ("f32_throughput", ms32, steps32, setup32)):
@@ -4297,7 +4404,7 @@ def main():
 
     launches["block_thomas2"] = th_launches["total"]["block_thomas2"]
     for name in ("thomas", "tridiag_spmv", "tridiag_spmv_mixed",
-                 "block_thomas2"):
+                 "block_thomas2", "vsfm_column_assemble"):
         results[name]["launches"] = launches[name]
 
     # (k) the matrix-resident chain and smoother, counted on the ops path

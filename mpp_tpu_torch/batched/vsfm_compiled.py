@@ -26,6 +26,12 @@ over ``ncol`` independent copies of the problem (one row of the
     block_solve``: the ``block_thomas_small`` kernel to block size 8, the
     ``block_thomas_large`` kernel past it) or a batched dense LU;
   ``batched/th_compiled.py`` adds the 2x2 block-tridiagonal one;
+* an assembly plan, chosen with the solver plan from the problem's
+  structure: "column" where the tridiagonal plan's one GE is a column the
+  column kernel computes (``models/richards_column.column_spec``): each
+  residual, Jacobian or both is one ``vsfm_column_assemble`` call (one
+  launch on the card, its plain form on the CPU); else "eager", the GEs'
+  own assembly;
 * PETSc SNES NEWTONLS + SNESLineSearchBT (cubic) + SNESConvergedDefault,
   batched with per-column masks, straggler compaction, and the
   SOEBaseStepDT_SNES dt-cut ladder with per-column ladders
@@ -54,6 +60,7 @@ from mpp_tpu_torch.batched.ilu_gmres import (BatchedILU0, make_ell_matvec,
 from mpp_tpu_torch.constants import FMWH2O
 from mpp_tpu_torch.device import device_of
 from mpp_tpu_torch.io import timers
+from mpp_tpu_torch.models.richards_column import column_inputs, column_spec
 from mpp_tpu_torch.ops import hopper_kernels as hk
 from mpp_tpu_torch.ops.block_structure import BlockTridiagTemplate, \
     block_solve
@@ -71,9 +78,6 @@ _SYNC = timers.Site("sync")
 _NEWTON_STEP = timers.Site("newton.step")
 _SERIAL_STEP = timers.Site("newton.serial_step")
 _LINE_SEARCH = timers.Site("newton.line_search")
-_RESIDUAL = timers.Site("assembly.residual")
-_JACOBIAN = timers.Site("assembly.jacobian")
-_RESJAC = timers.Site("assembly.resjac")
 _ACCUM = timers.Site("assembly.accum")
 
 
@@ -165,7 +169,12 @@ class CompiledVSFM:
                                  else np.zeros(0, np.int64))
         self._tc = {}
         self._plan_solver()
+        self._plan_assembly()
         self._linsolve = timers.Site("linsolve", {"plan": self.plan})
+        plan = {"plan": self.assembly}
+        self._residual_site = timers.Site("assembly.residual", plan)
+        self._jacobian_site = timers.Site("assembly.jacobian", plan)
+        self._resjac_site = timers.Site("assembly.resjac", plan)
 
     # ---- solver plan -----------------------------------------------------
     def _plan_solver(self):
@@ -199,6 +208,29 @@ class CompiledVSFM:
         band = coo_c - coo_r + 1        # 0 = dl, 1 = d, 2 = du
         self._tri_idx = [np.nonzero(band == b)[0] for b in (0, 1, 2)]
         self._tri_rows = [coo_r[i] for i in self._tri_idx]
+
+    def _plan_assembly(self):
+        """The assembly plan: "column" where the tridiagonal plan's single
+        GE (no coupled-GE BCs) has a column's structure and physics
+        (``column_spec``): the residual and the bands come from one
+        ``hk.vsfm_column_assemble`` call, which launches the column kernel
+        on a CUDA state and runs its plain form on a CPU one.  Otherwise
+        "eager": the GEs' ``residual`` / ``jacobian_values``."""
+        self._column = None
+        if self.is_tridiag and len(self.goveqns) == 1 \
+                and not self._otr_slots[0].size:
+            self._column = column_spec(self.goveqns[0])
+        self.assembly = "eager" if self._column is None else "column"
+
+    def _column_eval(self, mode, X, bc_values, ss_values, dt, dyn,
+                     accum_prevs=None, src=None):
+        """The column plan's evaluation in ``mode`` ("residual", "bands",
+        "both") of the single GE."""
+        args = column_inputs(
+            self.goveqns[0], self._column, X, dt, bc_values[0], ss_values[0],
+            None if accum_prevs is None else accum_prevs[0], src, dyn[0],
+            mode)
+        return hk.vsfm_column_assemble(*args, spec=self._column, mode=mode)
 
     def _plan_csr(self, rows, cols, bw):
         """The plans on the assembled CSR data (``mpp_tpu/batched/
@@ -332,7 +364,10 @@ class CompiledVSFM:
         """F [ncol, n].  ``src``: per-cell mass source [ncol, n] (kmol/s,
         positive = source); ``dyn``: tuple of per-GE dynamic-parameter
         dicts with a leading [ncol] axis."""
-        with _RESIDUAL:
+        with self._residual_site:
+            if self._column is not None:
+                return self._column_eval("residual", X, bc_values, ss_values,
+                                         dt, dyn, accum_prevs, src)
             Fs = []
             for k, g, a, b in self._ges():
                 F = g.residual(X[:, a:b], dt,
@@ -355,7 +390,10 @@ class CompiledVSFM:
     def _jac(self, X, bc_values, ss_values, dt, dyn):
         """The Jacobian as the plan's solver takes it (the coupled-BC
         gather first): the (dl, d, du) bands or ``(CSR data,)``."""
-        with _JACOBIAN:
+        with self._jacobian_site:
+            if self._column is not None:
+                return self._column_eval("bands", X, bc_values, ss_values, dt,
+                                         dyn)
             vals = []
             for k, g, a, b in self._ges():
                 vals.append(g.jacobian_values(
@@ -368,7 +406,10 @@ class CompiledVSFM:
         """(F, the plan's Jacobian) from one constitutive evaluation per GE
         (``residual_and_jac_values``): the same math as ``_residual`` and
         ``_jac``."""
-        with _RESJAC:
+        with self._resjac_site:
+            if self._column is not None:
+                return self._column_eval("both", X, bc_values, ss_values, dt,
+                                         dyn, accum_prevs, src)
             Fs, vals = [], []
             for k, g, a, b in self._ges():
                 F, v = g.residual_and_jac_values(

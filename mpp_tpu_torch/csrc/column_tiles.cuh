@@ -1,6 +1,7 @@
 // Column tiles in shared memory, filled by asynchronous copies: the pieces
 // shared by the two solve kernels (tridiag_kernels.cu: thomas;
-// block_thomas_kernels.cu: block_thomas2).
+// block_thomas_kernels.cu: block_thomas2); the column assembly
+// (vsfm_assembly_kernels.cu) stages its rows with cp_async.
 //
 // A CTA owns a tile of kCols consecutive columns of [ncol, values]
 // row-major arrays.  It is two warps: the computing warp (threads 0-31, a

@@ -39,7 +39,8 @@ _D = ctypes.c_double
 #: form's shared bytes and scratch values and ``mpp_gmres_smem`` a GMRES
 #: launch's shared bytes, each a ``c_longlong``: RESTYPES; the GMRES
 #: launchers take the address of a workspace's bound ``GmresArgs``,
-#: ``hopper_kernels._GmresArgs``)
+#: ``hopper_kernels._GmresArgs``, the column assembly the address of a
+#: launch's ``ColumnAssembleArgs``, ``hopper_kernels._ColumnArgs``)
 SIGNATURES = {
     "mpp_thomas_max_on_chip": (_I,),
     "mpp_thomas_f32": (_P,) * 6 + (_I, _I, _P),
@@ -79,13 +80,19 @@ SIGNATURES = {
     "mpp_gmres_arnoldi_f64": (_P, _P, _I, _I, _P),
     "mpp_gmres_update_f32": (_P, _P),
     "mpp_gmres_update_f64": (_P, _P),
+    "mpp_vsfm_column_max_levels": (),
+    "mpp_vsfm_column_smem": (_I, _I, _I, _I),
+    "mpp_vsfm_column_max_smem": (),
+    "mpp_vsfm_column_assemble_f32": (_P, _I, _P),
+    "mpp_vsfm_column_assemble_f64": (_P, _I, _P),
 }
 
 #: launchers and queries whose result is not a ``c_int``
 RESTYPES = {"mpp_block_thomas_small_scratch": ctypes.c_longlong,
             "mpp_block_thomas_large_cluster_smem": ctypes.c_longlong,
             "mpp_block_thomas_large_cluster_scratch": ctypes.c_longlong,
-            "mpp_gmres_smem": ctypes.c_longlong}
+            "mpp_gmres_smem": ctypes.c_longlong,
+            "mpp_vsfm_column_smem": ctypes.c_longlong}
 
 _LIB = None
 #: seconds the last build took (0.0 when the library was already built)

@@ -79,6 +79,16 @@ Both write the host's loop predicates into a device word (``flags``), so
 the caller's sync reads it with no eager op between; each takes one of two
 forms (``GMRES_FORMS``) that :func:`gmres_form` picks by shape.
 
+The column assembly (``csrc/vsfm_assembly_kernels.cu``) serves the
+tridiagonal plan of ``batched/vsfm_compiled.py`` where the problem's
+structure is a column's (``models/richards_column.column_spec``); it
+replaces no Pallas kernel but the JAX package's XLA-fused residual and
+Jacobian values of ``RichardsGE`` (``mpp_tpu/models/richards.py:674-837``)
+under ``jit``:
+
+* :func:`vsfm_column_assemble` — F, the tridiagonal Jacobian bands, or
+  both, of a batch of columns in one pass.
+
 Dispatch rule: a CPU tensor runs the plain version (``ops/tridiag.py``,
 ``ops/block_thomas.py``, the ``*_plain`` functions here);
 a CUDA tensor launches the kernel, building it at first use
@@ -97,6 +107,7 @@ from mpp_tpu_torch.ops.block_thomas import block_thomas
 from mpp_tpu_torch.ops import tridiag
 from mpp_tpu_torch.ops.tridiag import thomas as thomas_plain
 from mpp_tpu_torch.ops.tridiag import tridiag_matvec
+from mpp_tpu_torch.models import richards_column
 
 #: kernel launches since the last reset, by kernel name
 LAUNCHES = {"thomas": 0, "tridiag_spmv": 0, "tridiag_spmv_mixed": 0,
@@ -105,7 +116,8 @@ LAUNCHES = {"thomas": 0, "tridiag_spmv": 0, "tridiag_spmv_mixed": 0,
             "tridiag_spmv_chain": 0,
             "tridiag_jacobi_smooth": 0, "spmv_variant": 0, "spmv_packed": 0,
             "stream_ceiling": 0, "ilu0_factor": 0, "ilu0_apply": 0,
-            "gmres_arnoldi": 0, "gmres_update": 0}
+            "gmres_arnoldi": 0, "gmres_update": 0,
+            "vsfm_column_assemble": 0}
 
 
 def reset_launches():
@@ -1267,3 +1279,64 @@ def gmres_update(V, H, g, mj, found, done, x, its, flags):
     :func:`gmres_update_plain`."""
     GmresLauncher(V, H, None, None, g, None, mj, found, done, flags, x,
                   its).update()
+
+
+# ---- the column assembly (csrc/vsfm_assembly_kernels.cu) -------------------
+class _ColumnArray(ctypes.Structure):
+    """The kernel's ColumnArray: element (c, j) at p[c * cs + j * es]."""
+    _fields_ = [("p", ctypes.c_void_p), ("cs", ctypes.c_longlong),
+                ("es", ctypes.c_longlong)]
+
+
+class _ColumnArgs(ctypes.Structure):
+    """The kernel's ColumnAssembleArgs: a launch's arrays, outputs, table
+    and sizes."""
+    _fields_ = [("a", _ColumnArray * len(richards_column.ARGS)),
+                ("F", ctypes.c_void_p), ("dl", ctypes.c_void_p),
+                ("d", ctypes.c_void_p), ("du", ctypes.c_void_p),
+                ("table", ctypes.c_void_p)] + \
+        [(k, ctypes.c_int) for k in ("ncol", "n", "nbc", "nss", "density",
+                                     "porosity")]
+
+
+_COLUMN_MODES = {"residual": 1, "bands": 2, "both": 3}
+
+
+def vsfm_column_assemble(*arrays, spec, mode):
+    """F, the tridiagonal Jacobian bands (dl, d, du), or both, of a batch
+    of columns of the column GE ``spec`` (``richards_column.ColumnSpec``):
+    ``mode`` "residual", "bands" or "both".  ``arrays`` are the kernel's
+    inputs in ``richards_column.ARGS`` order (``column_inputs`` lays them
+    out; positional, so that a trace's record of the call holds each
+    input's shape), checked by ``spec.check``.  Returns F, (dl, d, du) or
+    (F, (dl, d, du)), each ``[ncol, nz]`` in P's dtype (f32 or f64).  On
+    the card one launch reads each input once (any strides) and writes each
+    output once; on the CPU the plain form
+    (``richards_column.column_assemble_plain``) runs."""
+    ncol = spec.check(arrays, mode)
+    P = arrays[0]
+    if P.device.type == "cpu":
+        return richards_column.column_assemble_plain(spec, mode, *arrays)
+    want_F, want_J = richards_column.MODES[mode]
+    new = lambda: torch.empty(P.shape, dtype=P.dtype, device=P.device)
+    F = new() if want_F else None
+    bands = (new(), new(), new()) if want_J else (None,) * 3
+    if ncol:
+        args = _ColumnArgs(ncol=ncol, n=spec.n, nbc=spec.nbc, nss=spec.nss,
+                           density=int(spec.tgdpb01),
+                           porosity=int(spec.linear_porosity))
+        for slot, a in zip(args.a, arrays):
+            if a is not None:
+                slot.p = a.data_ptr()
+                slot.cs, slot.es = a.stride() if a.dim() == 2 \
+                    else (0, a.stride(0))
+        for k, t in zip(("F", "dl", "d", "du"), (F, *bands)):
+            setattr(args, k, None if t is None else t.data_ptr())
+        args.table = spec.table(P.device).data_ptr()
+        lib = _build.library()
+        fn = lib.mpp_vsfm_column_assemble_f64 if P.dtype == torch.float64 \
+            else lib.mpp_vsfm_column_assemble_f32
+        with torch.cuda.device(P.device):
+            rc = fn(ctypes.addressof(args), _COLUMN_MODES[mode], _stream(P))
+        _launched("vsfm_column_assemble", rc)
+    return F if not want_J else bands if not want_F else (F, bands)
